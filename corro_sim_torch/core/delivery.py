@@ -1,0 +1,124 @@
+"""Fused broadcast-delivery pass: one sorted lane stream, every consumer.
+
+Port of ``corro_sim/core/delivery.py``. One lane sort feeds the HLC
+scatter-max, the apply-queue rank, bookkeeping dedupe, the changeset
+gathers and the CRDT merge. The merge routes through the mailbox and
+:func:`~corro_sim_torch.core.merge_kernel.grouped_merge` when
+``kernel_supported(cfg, "delivery", device)`` says so, and through the
+scatter merge :func:`~corro_sim_torch.core.crdt.apply_cell_changes`
+otherwise. Only single-chunk configs are ported
+(``chunks_per_version == 1``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from corro_sim_torch.core.bookkeeping import deliver_versions
+from corro_sim_torch.core.changelog import gather_changesets
+from corro_sim_torch.core.crdt import NEG, apply_cell_changes
+from corro_sim_torch.core.merge_kernel import (
+    kernel_supported,
+    merge_grouped,
+    route_lanes,
+)
+from corro_sim_torch.utils.slots import ranks_within_group_masked
+from corro_sim_torch.utils.sort import lexsort, scatter_max
+
+
+class DeliveryResult(NamedTuple):
+    """What the rest of the round consumes. Lane arrays are in SORTED
+    order (delivered lanes grouped by dst)."""
+
+    table: object
+    book: object
+    hlc_recv: torch.Tensor  # (N,) max sender clock delivered this round
+    dst: torch.Tensor
+    src: torch.Tensor
+    actor: torch.Tensor
+    ver: torch.Tensor
+    chunk: torch.Tensor
+    delivered: torch.Tensor  # post-cap delivery mask
+    fresh_chunk: torch.Tensor
+    complete: torch.Tensor
+    dropped: torch.Tensor
+    c_cleared: torch.Tensor
+    g_actor: torch.Tensor
+    g_slot: torch.Tensor
+    cell_live: torch.Tensor  # (m, S) cells actually merged
+
+
+def delivery_pass(cfg, table, book, log, hlc, dst, src, actor, ver, chunk,
+                  delivered) -> DeliveryResult:
+    """Sort once; deliver, account and merge off that one order."""
+    n = cfg.num_nodes
+    s = cfg.seqs_per_version
+    if cfg.chunks_per_version != 1:
+        raise NotImplementedError("chunks_per_version > 1 is not ported")
+    dev = dst.device
+
+    sort_dst = torch.where(delivered, dst, n + 1)
+    if (n + 2) * (n + 2) < 2 ** 31:
+        # pack (dst, actor) into one key
+        order = lexsort((ver, sort_dst * (n + 2) + actor))
+    else:
+        order = lexsort((ver, actor, sort_dst))
+    dst, src, actor, ver = dst[order], src[order], actor[order], ver[order]
+    delivered = delivered[order]
+    chunk = torch.zeros(dst.shape, dtype=torch.int32, device=dev)
+
+    # HLC merge: every delivered message carries the sender's clock
+    hlc_recv = scatter_max(
+        torch.zeros((n,), dtype=torch.int32, device=dev),
+        (dst,), hlc[src.long()], delivered,
+    )
+
+    use_kernel = kernel_supported(cfg, "delivery", dev)
+    # bounded apply queue (config.rs:10-41): at most apply_queue_cap
+    # deliveries per node per round, on both merge paths
+    rankd = ranks_within_group_masked(dst, delivered)
+    overcap = delivered & (rankd >= cfg.apply_queue_cap)
+    delivered = delivered & ~overcap
+    book, fresh_chunk, complete, dropped = deliver_versions(
+        book, dst, actor, ver, delivered
+    )
+    dropped = dropped | overcap
+    g_actor = torch.where(complete, actor, 0)
+    g_slot = (torch.clamp(ver, min=1) - 1) % log.capacity
+    c_row, c_col, c_vr, c_cv, c_cl, c_n = gather_changesets(
+        log, g_actor, torch.clamp(ver, min=1)
+    )
+    m = dst.shape[0]
+    # cleared versions deliver no cells (handle_emptyset analog)
+    c_cleared = log.cleared[g_actor.long(), g_slot.long()]
+    seq = torch.arange(s, dtype=torch.int32, device=dev)[None, :]
+    cell_live = complete[:, None] & ~c_cleared[:, None] & (seq < c_n[:, None])
+    # DELETE entries (vr == NEG) are cl-only: no site claim
+    c_site = torch.where(c_vr == NEG, NEG, actor[:, None].expand(m, s))
+    dst_cells = dst[:, None].expand(m, s).reshape(-1)
+    if use_kernel:
+        cap_lanes = cfg.apply_queue_cap * s
+        rank_cell = rankd[:, None] * s + seq
+        box = route_lanes(
+            dst_cells, rank_cell.reshape(-1),
+            (c_row * cfg.num_cols + c_col).reshape(-1),
+            c_cv.reshape(-1), c_vr.reshape(-1), c_site.reshape(-1),
+            c_cl.reshape(-1), cell_live.reshape(-1), n, cap_lanes,
+        )
+        table = merge_grouped(table, box, cap_lanes)
+    else:
+        table = apply_cell_changes(
+            table, dst_cells, c_row.reshape(-1), c_col.reshape(-1),
+            c_cv.reshape(-1), c_vr.reshape(-1), c_site.reshape(-1),
+            c_cl.reshape(-1), cell_live.reshape(-1),
+        )
+
+    return DeliveryResult(
+        table=table, book=book, hlc_recv=hlc_recv,
+        dst=dst, src=src, actor=actor, ver=ver, chunk=chunk,
+        delivered=delivered, fresh_chunk=fresh_chunk, complete=complete,
+        dropped=dropped, c_cleared=c_cleared, g_actor=g_actor,
+        g_slot=g_slot, cell_live=cell_live,
+    )

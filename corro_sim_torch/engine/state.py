@@ -1,0 +1,126 @@
+"""The whole cluster as one dataclass of tensors.
+
+Port of ``corro_sim/engine/state.py``: a structure of arrays whose leading
+axis is the node dimension. The placeholder planes of features the port
+does not run yet (probe tracer, burst loss, RTT rings, in-flight ring)
+keep the JAX package's placeholder shapes, so the two states compare
+leaf for leaf.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from corro_sim_torch.config import SimConfig, validate_torch_slice
+from corro_sim_torch.core.bookkeeping import Bookkeeping, make_bookkeeping
+from corro_sim_torch.core.changelog import ChangeLog, make_changelog
+from corro_sim_torch.core.compaction import CellOwnership, make_ownership
+from corro_sim_torch.core.crdt import TableState, make_table_state
+from corro_sim_torch.device import resolve_device
+from corro_sim_torch.gossip.broadcast import GossipState, make_gossip_state
+from corro_sim_torch.membership.swim import SwimState, make_swim_state
+
+
+@dataclasses.dataclass
+class ProbeState:
+    """The probe tracer's planes (``corro_sim/engine/probe.py``); only
+    the ``probes == 0`` placeholder exists in the port so far."""
+
+    actor: torch.Tensor  # (K,) int32
+    ver: torch.Tensor  # (K,) int32
+    first_seen: torch.Tensor  # (K, N) int32
+    infector: torch.Tensor  # (K, N) int32
+    hop: torch.Tensor  # (K, N) int32 (int8 under narrow_state)
+    dup: torch.Tensor  # (K,) int32
+    last_sync: torch.Tensor  # (N,) int32
+
+
+def make_probe_placeholder(narrow: bool, device) -> ProbeState:
+    i32 = dict(dtype=torch.int32, device=device)
+    return ProbeState(
+        actor=torch.zeros((1,), **i32),
+        ver=torch.zeros((1,), **i32),
+        first_seen=torch.full((1, 1), -1, **i32),
+        infector=torch.full((1, 1), -1, **i32),
+        hop=torch.full((1, 1), -1, dtype=torch.int8 if narrow else torch.int32,
+                       device=device),
+        dup=torch.zeros((1,), **i32),
+        last_sync=torch.full((1,), -1, **i32),
+    )
+
+
+@dataclasses.dataclass
+class SimState:
+    table: TableState
+    book: Bookkeeping
+    log: ChangeLog
+    own: CellOwnership
+    gossip: GossipState
+    swim: SwimState
+    ring0: torch.Tensor  # (N, ring0_size) int32 static eager-peer table
+    row_cdf: torch.Tensor  # (R,) float32 cumulative row distribution
+    round: torch.Tensor  # () int32
+    sync_rounds: torch.Tensor  # () int32 — executed anti-entropy sweeps
+    hlc: torch.Tensor  # (N,) int32 per-node hybrid logical clock
+    last_cleared: torch.Tensor  # (N,) int32 newest applied EmptySet ts
+    cleared_hlc: torch.Tensor  # (A, L) int32 EmptySet stamp per version
+    rtt: torch.Tensor  # (1, 1) uint8 placeholder (RTT rings off)
+    inflight: torch.Tensor  # (1, 6, 1) int32 placeholder (latency off)
+    probe: ProbeState  # placeholder (probes off)
+    fault_burst: torch.Tensor  # (1,) bool placeholder (burst loss off)
+
+
+def _row_cdf(cfg: SimConfig) -> np.ndarray:
+    r = cfg.num_rows
+    if cfg.zipf_alpha <= 0.0:
+        w = np.ones(r, np.float64)
+    else:
+        w = 1.0 / np.power(np.arange(1, r + 1, dtype=np.float64), cfg.zipf_alpha)
+    cdf = np.cumsum(w / w.sum())
+    cdf[-1] = 1.0
+    return cdf.astype(np.float32)
+
+
+def _ring0(cfg: SimConfig, seed: int) -> np.ndarray:
+    """Static low-latency neighbor table: the nearest ids plus one random
+    long link (``members.rs:40,140-188`` analog)."""
+    rng = np.random.default_rng(seed)
+    n, k = cfg.num_nodes, cfg.ring0_size
+    near = ((np.arange(n)[:, None] + np.arange(1, k + 1)[None, :]) % n).astype(
+        np.int32
+    )
+    if k >= 2:
+        near[:, -1] = rng.integers(0, n, size=n)  # one random long link
+    return near
+
+
+def init_state(cfg: SimConfig, seed: int = 0, device=None) -> SimState:
+    """The empty cluster for ``cfg`` on ``device`` (default ``cuda``)."""
+    validate_torch_slice(cfg)
+    dev = resolve_device(device)
+    n = cfg.num_nodes
+    i32 = dict(dtype=torch.int32, device=dev)
+    return SimState(
+        table=make_table_state(n, cfg.num_rows, cfg.num_cols, dev),
+        book=make_bookkeeping(n, cfg.num_actors, dev),
+        log=make_changelog(
+            cfg.num_actors, cfg.log_capacity, cfg.seqs_per_version, dev
+        ),
+        own=make_ownership(cfg.num_rows, cfg.num_cols, dev),
+        gossip=make_gossip_state(n, cfg.pend_slots, dev),
+        swim=make_swim_state(n, cfg.swim_enabled, cfg.narrow_state, dev),
+        ring0=torch.as_tensor(_ring0(cfg, seed), device=dev),
+        row_cdf=torch.as_tensor(_row_cdf(cfg), device=dev),
+        round=torch.zeros((), **i32),
+        sync_rounds=torch.zeros((), **i32),
+        hlc=torch.zeros((n,), **i32),
+        last_cleared=torch.full((n,), -1, **i32),
+        cleared_hlc=torch.full((cfg.num_actors, cfg.log_capacity), -1, **i32),
+        rtt=torch.full((1, 1), 255, dtype=torch.uint8, device=dev),
+        inflight=torch.zeros((1, 6, 1), **i32),
+        probe=make_probe_placeholder(cfg.narrow_state, dev),
+        fault_burst=torch.zeros((1,), dtype=torch.bool, device=dev),
+    )

@@ -1,0 +1,380 @@
+"""One simulation round: the whole cluster advances in one batched step.
+
+Port of ``corro_sim/engine/step.py`` for the configurations
+:func:`~corro_sim_torch.config.validate_torch_slice` admits (SWIM,
+faults, probes, RTT rings and the latency ring off; one cell and one
+chunk per changeset). Round structure:
+
+  local writes -> eager ring-0 broadcast -> gossip dissemination ->
+  delivery + bookkeeping + CRDT merge -> rebroadcast of fresh changes ->
+  (every ``sync_interval`` rounds, or on the adaptive floor cadence)
+  anti-entropy sync -> HLC tick.
+
+Every stage is a batched tensor op over all nodes. One value crosses to
+the host each round: whether the sync sweep runs. Its adaptive term
+(``quiesced & behind_pre``) is device data, and the sweep is a branch
+of data-dependent size, so the step reads that one bool.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from corro_sim_torch import prng
+from corro_sim_torch.config import SimConfig
+from corro_sim_torch.core.bookkeeping import partial_versions
+from corro_sim_torch.core.changelog import append_changesets
+from corro_sim_torch.core.compaction import update_ownership
+from corro_sim_torch.core.crdt import NEG, local_write
+from corro_sim_torch.core.delivery import delivery_pass
+from corro_sim_torch.engine.state import SimState
+from corro_sim_torch.gossip.broadcast import (
+    broadcast_step,
+    enqueue_broadcasts,
+    enqueue_own,
+)
+from corro_sim_torch.membership.swim_window import membership_view
+from corro_sim_torch.sync.sync import sync_round
+from corro_sim_torch.utils.sort import scatter_max
+
+# The step's PRNG stream map: the round key splits once into these
+# lanes, in this order (the JAX package's STEP_KEY_STREAMS). Reordering
+# a lane re-keys every seeded simulation.
+STEP_KEY_STREAMS = (
+    "write",   # [0] workload write-commit coin
+    "row",     # [1] write target row
+    "col",     # [2] write target column
+    "val",     # [3] written value
+    "del",     # [4] delete coin
+    "ncell",   # [5] cells-per-changeset draw (unconsumed by 1-cell cfgs)
+    "bcast",   # [6] gossip broadcast targets
+    "swim",    # [7] SWIM (unconsumed while SWIM is off)
+    "sync",    # [8] anti-entropy partner + payload
+)
+
+_SWIM_OFF_METRICS = ("swim_suspects", "swim_down", "swim_probe_failures")
+_SYNC_METRICS = ("sync_pairs", "sync_requests", "sync_rejections",
+                 "sync_versions", "sync_empties", "sync_cells")
+
+
+def _reachable_fn(alive: torch.Tensor, part: torch.Tensor):
+    """Ground-truth link predicate: both up and in the same partition."""
+
+    def reach(src, dst):
+        src, dst = src.long(), dst.long()
+        return alive[src] & alive[dst] & (part[src] == part[dst])
+
+    return reach
+
+
+def _pairwise_mask(alive: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
+    """(N, N) ground-truth reachability for sync peer choice."""
+    return alive[:, None] & alive[None, :] & (part[:, None] == part[None, :])
+
+
+def _i32(x: int, device) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.int32, device=device)
+
+
+def sim_step(
+    cfg: SimConfig,
+    state: SimState,
+    key,
+    alive: torch.Tensor,  # (N,) bool ground truth
+    part: torch.Tensor,  # (N,) int32 partition id
+    write_enable: bool,  # workload phase switch
+    repair: bool = False,
+):
+    """Advance the cluster one round; returns ``(state, metrics)``.
+
+    ``repair``: the post-quiesce specialization (:func:`_repair_step`),
+    bit-for-bit this step while no writes run and every gossip ring is
+    drained."""
+    if repair:
+        return _repair_step(cfg, state, key, alive, part)
+    n = cfg.num_nodes
+    s = cfg.seqs_per_version
+    dev = state.hlc.device
+    rows_idx = torch.arange(n, dtype=torch.int32, device=dev)
+    (k_write, k_row, k_col, k_val, k_del, _k_ncell, k_bcast, _k_swim,
+     k_sync) = prng.split(key, len(STEP_KEY_STREAMS))
+    reach = _reachable_fn(alive, part)
+    view = membership_view(cfg, state.swim, n)
+
+    # ---------------------------------------------------------- local writes
+    f32 = dict(dtype=torch.float32, device=dev)
+    writers = (
+        (prng.uniform(k_write, (n,), dev) < torch.tensor(cfg.write_rate, **f32))
+        & alive
+        & bool(write_enable)
+    )
+    u = prng.uniform(k_row, (n,), dev)
+    w_row = torch.searchsorted(state.row_cdf, u).to(torch.int32).clamp(
+        0, cfg.num_rows - 1
+    )
+    w_del = (
+        prng.uniform(k_del, (n,), dev) < torch.tensor(cfg.delete_rate, **f32)
+    ) & writers
+    w_col = prng.randint(k_col, (n, 1), 0, cfg.num_cols, dev)
+    w_ncells = torch.ones((n,), dtype=torch.int32, device=dev)
+    w_val = prng.randint(k_val, (n, s), 0, cfg.value_universe, dev)
+    w_row_s = w_row[:, None].expand(n, s)
+
+    table, ch_cv, ch_cl, ch_vr = local_write(
+        state.table, rows_idx, w_row_s, w_col, w_val, w_del, w_ncells, writers
+    )
+    log, w_ver = append_changesets(
+        state.log, rows_idx, w_row_s, w_col, ch_vr, ch_cv, ch_cl, w_ncells,
+        writers,
+    )
+    # self-bookkeeping: a node's own writes are trivially in order
+    head = state.book.head.clone()
+    head.diagonal().add_(writers.to(torch.int32))
+    book = dataclasses.replace(state.book, head=head)
+    # ring-wrap tripwire and the pre-delivery repair signal, from the
+    # post-write log heads against the pre-delivery bookkeeping
+    lag_pre = log.head[None, :] - state.book.head
+    log_wrapped = ((lag_pre > log.capacity) & alive[:, None]).sum(
+        dtype=torch.int32)
+    behind_pre = ((lag_pre > 0) & alive[:, None]).any()
+    del lag_pre
+
+    # global ownership fold: which versions lost cells to this round
+    w_cell_live = writers[:, None] & (
+        torch.arange(s, dtype=torch.int32, device=dev)[None, :]
+        < w_ncells[:, None]
+    )
+    rows_s = rows_idx[:, None].expand(n, s)
+    pre_cleared = log.cleared
+    own, log = update_ownership(
+        state.own, log,
+        rows_s.reshape(-1),
+        w_ver[:, None].expand(n, s).reshape(-1),
+        w_row_s.reshape(-1),
+        w_col.reshape(-1),
+        ch_cv.reshape(-1),
+        ch_vr.reshape(-1),
+        torch.where(w_del[:, None], NEG, rows_s).reshape(-1),
+        ch_cl.reshape(-1),
+        w_cell_live.reshape(-1),
+        w_del[:, None].expand(n, s).reshape(-1),
+    )
+    # each version cleared this round is stamped with the round's
+    # write-phase clock (store_empty_changeset, change.rs:267-389)
+    newly_cleared = log.cleared & ~pre_cleared
+    writer_ts = torch.where(writers, state.hlc, -1).max()
+    cleared_hlc = torch.where(
+        newly_cleared, torch.maximum(state.cleared_hlc, writer_ts),
+        state.cleared_hlc,
+    )
+
+    # ------------------------------------------------- eager ring-0 messages
+    r0 = state.ring0.shape[1]
+    e_dst = state.ring0.reshape(-1)
+    e_src = rows_idx.repeat_interleave(r0)
+    e_ver = w_ver.repeat_interleave(r0)
+    e_valid = writers.repeat_interleave(r0)
+
+    # ------------------------------------------------- gossip dissemination
+    gossip, g_dst, g_src, g_actor, g_ver, g_chunk, g_valid = broadcast_step(
+        state.gossip, k_bcast, alive, view, cfg.fanout,
+        emit_slots=cfg.emit_slots, need_chunk=False,
+    )
+    dst = torch.cat([e_dst, g_dst])
+    src = torch.cat([e_src, g_src])
+    actor = torch.cat([e_src, g_actor])
+    ver = torch.cat([e_ver, g_ver])
+    chunk = torch.cat([torch.zeros_like(e_dst), g_chunk])
+    valid = torch.cat([e_valid, g_valid])
+    msgs_sent = valid.sum(dtype=torch.int32)
+    delivered = valid & reach(src, dst)
+
+    # --------------------------------------- fused delivery merge (1 pass)
+    dv = delivery_pass(
+        cfg, table, book, log, state.hlc, dst, src, actor, ver, chunk,
+        delivered,
+    )
+    table, book = dv.table, dv.book
+
+    # ------------------------------------------------- rebroadcast + enqueue
+    gossip = enqueue_own(
+        gossip, rows_idx, w_ver, torch.zeros_like(rows_idx), writers,
+        cfg.max_transmissions, 1,
+    )
+    gossip = enqueue_broadcasts(
+        gossip, dv.dst, dv.actor, dv.ver, dv.chunk, dv.fresh_chunk,
+        cfg.rebroadcast_transmissions, grouped=True,
+    )
+
+    # last_cleared_ts analog, HLC-gated (handlers.rs:524-719)
+    last_cleared = scatter_max(
+        state.last_cleared, (dv.dst,),
+        cleared_hlc[dv.g_actor.long(), dv.g_slot.long()],
+        dv.complete & dv.c_cleared,
+    )
+
+    # ----------------------------------------------------------------- sync
+    is_sync = _sync_predicate(
+        cfg, state.round, behind_pre,
+        quiesced=writers.sum(dtype=torch.int32) == 0,
+    )
+    book, table, hlc_s, last_cleared, sync_metrics = _sync_block(
+        cfg, is_sync, book, log, table, state.hlc, last_cleared, cleared_hlc,
+        k_sync, alive, view, part, round_idx=state.sync_rounds,
+    )
+
+    # -------------------------------------------------------------- metrics
+    gap = _gap(alive, log, book)
+    hlc, skew = _hlc_tick(alive, hlc_s, dv.hlc_recv, state.round)
+    metrics = {
+        "writes": writers.sum(dtype=torch.int32),
+        "deletes": w_del.sum(dtype=torch.int32),
+        "cells_written": torch.where(writers, w_ncells, 0).sum(
+            dtype=torch.int32),
+        "msgs_sent": msgs_sent,
+        "delivered": dv.delivered.sum(dtype=torch.int32),
+        "fresh": dv.complete.sum(dtype=torch.int32),
+        "fresh_chunks": dv.fresh_chunk.sum(dtype=torch.int32),
+        "gossip_cells": dv.cell_live.sum(dtype=torch.int32),
+        "buffered_partials": partial_versions(book, 1),
+        "dropped_window": dv.dropped.sum(dtype=torch.int32),
+        "queue_overflow": gossip.overflow,
+        "pend_live": (gossip.pend_tx > 0).sum(dtype=torch.int32),
+        "cleared_versions": log.cleared.sum(dtype=torch.int32),
+        "gap": gap,
+        "log_wrapped": log_wrapped,
+        "clock_skew": skew,
+        **{k: _i32(0, dev) for k in _SWIM_OFF_METRICS},
+        **sync_metrics,
+    }
+    new_state = dataclasses.replace(
+        state,
+        table=table,
+        book=book,
+        log=log,
+        own=own,
+        gossip=gossip,
+        round=state.round + 1,
+        sync_rounds=state.sync_rounds + int(is_sync),
+        hlc=hlc,
+        last_cleared=last_cleared,
+        cleared_hlc=cleared_hlc,
+    )
+    return new_state, metrics
+
+
+def _sync_predicate(cfg, round_, behind_pre, quiesced) -> bool:
+    """Whether this round runs a sweep: every ``sync_interval``-th round,
+    plus — under ``sync_adaptive`` — floor-cadence rounds in which
+    nobody wrote but somebody is still behind. The one per-round host
+    read of the step."""
+    si = cfg.sync_interval
+    is_sync = (round_ % si) == (si - 1)
+    if cfg.sync_adaptive:
+        floor_hit = (round_ % cfg.sync_floor_rounds) == (
+            cfg.sync_floor_rounds - 1
+        )
+        is_sync = is_sync | (quiesced & behind_pre & floor_hit)
+    return bool(is_sync)
+
+
+def _sync_block(cfg, is_sync, book, log, table, hlc, last_cleared,
+                cleared_hlc, k_sync, alive, view, part, round_idx):
+    """One anti-entropy sweep when ``is_sync``; zero metrics otherwise."""
+    if not is_sync:
+        dev = hlc.device
+        return book, table, hlc, last_cleared, {
+            k: _i32(0, dev) for k in _SYNC_METRICS
+        }
+    return sync_round(
+        cfg, book, log, table, hlc, last_cleared, cleared_hlc, k_sync,
+        alive, view, _pairwise_mask(alive, part), round_idx=round_idx,
+    )
+
+
+def _gap(alive, log, book) -> torch.Tensor:
+    """() float32 cluster-wide count of written-but-unapplied versions at
+    live nodes. Summed exactly in int64 and cast once: equal to the JAX
+    package's float32 sum wherever that sum is exact (partial sums under
+    2**24), and exact beyond."""
+    lag = (log.head[None, :] - book.head).to(torch.int64)
+    return (lag * alive[:, None]).sum().to(torch.float32)
+
+
+def _hlc_tick(alive, hlc_s, hlc_recv, round_):
+    """uhlc max+tick: merged clocks from this round's deliveries and sync
+    contacts, physical floor = the round counter; down nodes freeze.
+    Returns ``(hlc, skew)``."""
+    hlc = torch.where(
+        alive,
+        torch.maximum(torch.maximum(hlc_s, hlc_recv), round_) + 1,
+        hlc_s,
+    )
+    int_min = -(2 ** 31) + 1
+    int_max = 2 ** 31 - 1
+    skew = torch.clamp(
+        torch.where(alive, hlc, int_min).max()
+        - torch.where(alive, hlc, int_max).min(),
+        min=0,
+    )
+    return hlc, skew
+
+
+def _repair_step(cfg, state: SimState, key, alive, part):
+    """The post-quiesce round: sync + bookkeeping only. Preconditions
+    (driver-checked): no writes this round and every gossip ring
+    drained; under those this is bit-for-bit :func:`sim_step`."""
+    n = cfg.num_nodes
+    dev = state.hlc.device
+    k_sync = prng.split(key, len(STEP_KEY_STREAMS))[8]
+    view = membership_view(cfg, state.swim, n)
+    log, book = state.log, state.book
+    lag_pre = log.head[None, :] - book.head
+    log_wrapped = ((lag_pre > log.capacity) & alive[:, None]).sum(
+        dtype=torch.int32)
+    behind_pre = ((lag_pre > 0) & alive[:, None]).any()
+    del lag_pre
+    hlc_recv = torch.zeros((n,), dtype=torch.int32, device=dev)
+
+    # quiesced is identically True here (no writers by precondition)
+    is_sync = _sync_predicate(cfg, state.round, behind_pre, quiesced=True)
+    book, table, hlc_s, last_cleared, sync_metrics = _sync_block(
+        cfg, is_sync, book, log, state.table, state.hlc, state.last_cleared,
+        state.cleared_hlc, k_sync, alive, view, part,
+        round_idx=state.sync_rounds,
+    )
+    gap = _gap(alive, log, book)
+    hlc, skew = _hlc_tick(alive, hlc_s, hlc_recv, state.round)
+    zero = _i32(0, dev)
+    metrics = {
+        "writes": zero,
+        "deletes": zero,
+        "cells_written": zero,
+        "msgs_sent": zero,
+        "delivered": zero,
+        "fresh": zero,
+        "fresh_chunks": zero,
+        "gossip_cells": zero,
+        "buffered_partials": partial_versions(book, 1),
+        "dropped_window": zero,
+        "queue_overflow": state.gossip.overflow,
+        "pend_live": (state.gossip.pend_tx > 0).sum(dtype=torch.int32),
+        "cleared_versions": log.cleared.sum(dtype=torch.int32),
+        "gap": gap,
+        "log_wrapped": log_wrapped,
+        "clock_skew": skew,
+        **{k: zero for k in _SWIM_OFF_METRICS},
+        **sync_metrics,
+    }
+    new_state = dataclasses.replace(
+        state,
+        table=table,
+        book=book,
+        round=state.round + 1,
+        sync_rounds=state.sync_rounds + int(is_sync),
+        hlc=hlc,
+        last_cleared=last_cleared,
+    )
+    return new_state, metrics

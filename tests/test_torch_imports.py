@@ -1,0 +1,91 @@
+"""The port stands alone: corro_sim_torch and chip_smoke.py import no JAX
+and nothing of the JAX package, and the entry points refuse to run on a
+machine without CUDA unless asked for the CPU."""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from corro_sim_torch import config as pconfig
+from corro_sim_torch.engine.driver import run_sim
+from corro_sim_torch.engine.state import init_state
+
+ROOT = Path(__file__).resolve().parents[1]
+SOURCES = sorted((ROOT / "corro_sim_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"
+]
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import corro_sim_torch, chip_smoke\n"
+        "for m in pkgutil.walk_packages(corro_sim_torch.__path__,"
+        " 'corro_sim_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'corro_sim' or m.startswith('corro_sim.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
+def test_sources_import_nothing_of_the_jax_package(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "flax", "corro_sim"), (
+                f"{path.name} imports {name}"
+            )
+
+
+def _small_cfg(**kw):
+    return pconfig.SimConfig(
+        num_nodes=8, num_rows=32, num_cols=4, swim_enabled=False, **kw
+    )
+
+
+def test_entry_points_refuse_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is usable")
+    cfg = _small_cfg()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_state(cfg)
+    state = init_state(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_sim(cfg, state, max_rounds=4, chunk=4)
+
+
+@pytest.mark.parametrize("change", [
+    dict(swim_enabled=True), dict(seqs_per_version=2),
+    dict(chunks_per_version=2), dict(sync_hot_actors=0),
+    dict(sync_deal_probes=1), dict(probes=1), dict(rtt_rings=True),
+    dict(latency_regions=2), dict(faults=pconfig.FaultConfig(loss=0.1)),
+    dict(node_faults=pconfig.NodeFaultConfig(skew=((0, 3),))),
+    dict(sweep=pconfig.SweepConfig(lanes=2)),
+])
+def test_unported_features_are_refused(change):
+    cfg = dataclasses.replace(_small_cfg(), **change)
+    with pytest.raises(NotImplementedError, match="ROADMAP|queue 1"):
+        pconfig.validate_torch_slice(cfg)
