@@ -18,101 +18,17 @@ outside the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-INT32_OPS_PER_S = 33.5e12  # H100 SXM5 non-tensor INT32 (NVIDIA whitepaper)
-NEG = -(2 ** 31)
+# the round at which the 10k-node slice converges from seed 0
+SLICE_ROUNDS = 22
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def random_lanes(rng, n, r, c, m):
-    """Deletes, resurrections, invalid lanes and same-cell conflicts."""
-    dst = rng.integers(0, n, m).astype(np.int32)
-    row = rng.integers(0, r, m).astype(np.int32)
-    col = rng.integers(0, c, m).astype(np.int32)
-    cv = rng.integers(1, 6, m).astype(np.int32)
-    vr = rng.integers(-3, 50, m).astype(np.int32)
-    site = rng.integers(0, n, m).astype(np.int32)
-    cl = rng.integers(1, 4, m).astype(np.int32)
-    valid = rng.random(m) < 0.8
-    is_del = rng.random(m) < 0.2
-    vr = np.where(is_del, NEG, vr).astype(np.int32)
-    cl = np.where(is_del, cl + (cl % 2), cl).astype(np.int32)
-    return dst, row, col, cv, vr, site, cl, valid
-
-
-def time_ms(fn, reps: int, batch: int = 10) -> float:
-    """Median device milliseconds per call: CUDA events around ``batch``
-    back-to-back calls, ``reps`` times. One call is queued before the
-    first event of each batch, so the host's launch cost overlaps device
-    work instead of opening a gap."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        fn()
-        a.record()
-        for _ in range(batch):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / batch)
-    return float(np.median(times))
-
-
-def merge_work(args, want):
-    """The least bytes and integer operations the merge needs on these
-    inputs. Bytes: each input the function needs read once, each output
-    written once — the (N, rows) cl plane; the stored cv/vr/site of the
-    rows the merge does not wipe; of the lanes, the valid word of every
-    lane, cell and cl of valid lanes, vr of valid lanes at their row's
-    merged generation, cv of those that carry a value, site of those
-    tying the merged cv and vr; and the four output planes. Operations:
-    one max per lane that competes in a pass, one select per cell for
-    each of the three pass bases and one compare per row."""
-    import torch
-
-    cv, _vr, _site, cl, lanes, cap, cols = args
-    cv1, vr1, _site1, cl1 = want
-    n, cells = cv.shape
-    rows = cl.shape[1]
-    node = torch.arange(n * cap, device=cv.device) // cap
-    cell = lanes[0].long()
-    valid = (lanes[5] != 0) & (cell >= 0) & (cell < cells)
-    flat = node * cells + cell.clamp(0, cells - 1)
-    gen = valid & (lanes[4] == cl1.reshape(-1)[flat // cols])
-    value = gen & (lanes[2] != NEG)
-    tie = (value & (lanes[1] == cv1.reshape(-1)[flat])
-           & (lanes[2] == vr1.reshape(-1)[flat]))
-    counts = [int(x.sum()) for x in (valid, gen, value, tie)]
-    kept_rows = int((cl1 == cl).sum())
-    lane_words = n * cap + 2 * counts[0] + counts[1] + counts[2] + counts[3]
-    words = (n * rows + 3 * kept_rows * cols  # inputs
-             + 3 * n * cells + n * rows  # outputs
-             + lane_words)
-    ops = counts[0] + counts[2] + 2 * counts[3] + 3 * n * cells + n * rows
-    return 4 * words, ops
 
 
 def main() -> int:
@@ -126,6 +42,14 @@ def main() -> int:
     from corro_sim_torch.core.crdt import apply_cell_changes, make_table_state
     from corro_sim_torch.engine.driver import run_sim
     from corro_sim_torch.engine.state import init_state
+    from corro_sim_torch.merge_probe import (
+        nvidia_smi,
+        populated_table,
+        random_lanes,
+        sync_box,
+        time_in_place_ms,
+        time_ms,
+    )
     from corro_sim_torch.profile_slice import (
         RUN_ARGS,
         slice_config,
@@ -163,36 +87,45 @@ def main() -> int:
 
     def planes(state):
         n, r, c = state.cv.shape
-        return (state.cv.reshape(n, r * c), state.vr.reshape(n, r * c),
-                state.site.reshape(n, r * c), state.cl)
+        return (state.cv.view(n, r * c), state.vr.view(n, r * c),
+                state.site.view(n, r * c), state.cl)
 
-    def compare(state, box, cap, c, label):
-        args = (*planes(state), box, cap, c)
-        got = mk.grouped_merge(*args)
-        want = mk.grouped_merge_reference(*args)
+    cases = []
+
+    def check(label, state, box, cap, c):
+        """Kernel against the plain version on the same inputs, bit for
+        bit; the kernel must write into the planes it was given. Returns
+        the pre-merge planes (copies) and the merged planes."""
+        ins = planes(state)
+        before = tuple(t.clone() for t in ins)
+        want = mk.grouped_merge_reference(*ins, box, cap, c)
+        got = mk.grouped_merge(*ins, box, cap, c)
         torch.cuda.synchronize()
+        if any(g.data_ptr() != t.data_ptr() for g, t in zip(got, ins)):
+            raise AssertionError(f"kernel output does not alias its input "
+                                 f"on {label}")
         err = max(int((g.long() - w.long()).abs().max()) for g, w in
                   zip(got, want))
         if err != 0:
             raise AssertionError(f"kernel != plain version on {label}")
-        return err, args, want
+        n, cells = ins[0].shape
+        cases.append({"case": label, "nodes": n, "cells": cells,
+                      "cols": c, "cap": cap, "max_abs_err": err,
+                      "aliases": True})
+        return before, got
 
-    checks = []
     for seed in (0, 1, 2):
         rng = np.random.default_rng(seed)
         n, r, c = 16, 32, 4
-        state = make_table_state(n, r, c, dev)
-        state = apply_cell_changes(state, *to_dev(random_lanes(rng, n, r, c, 200)))
+        state = populated_table(rng, n, r, c, dev)
         lanes = to_dev(random_lanes(rng, n, r, c, 400))
         box = routed_box(*lanes, n, c, 128)
-        compare(state, box, 128, c, f"random_lanes seed {seed}")
         # the mailbox path also equals the scatter merge on the raw lanes
         want = apply_cell_changes(state, *lanes)
-        got = mk.merge_grouped(state, box, 128)
+        check(f"random_lanes[{seed}]", state, box, 128, c)
         for f in ("cv", "vr", "site", "cl"):
-            if not torch.equal(getattr(got, f), getattr(want, f)):
+            if not torch.equal(getattr(state, f), getattr(want, f)):
                 raise AssertionError(f"mailbox merge != scatter merge: {f}")
-        checks.append(f"random_lanes[{seed}]")
 
     # cap overflow: node 0 gets 150 valid lanes, only the first 128 merge
     rng = np.random.default_rng(7)
@@ -207,54 +140,82 @@ def main() -> int:
         np.ones(m0, bool),
     ))
     box = routed_box(*lanes, n, c, 128)
-    compare(state, box, 128, c, "cap overflow")
     want = apply_cell_changes(
         state, *lanes[:7], lanes[7] & (torch.arange(m0, device=dev) < 128)
     )
-    got = mk.merge_grouped(state, box, 128)
-    if not (torch.equal(got.vr, want.vr) and torch.equal(got.cl, want.cl)):
+    check("cap_overflow", state, box, 128, c)
+    if not (torch.equal(state.vr, want.vr) and torch.equal(state.cl, want.cl)):
         raise AssertionError("cap overflow: kernel != masked scatter merge")
-    checks.append("cap_overflow")
 
     # both mailbox styles at the slice's shape
     n, r, c, cap = 10000, 256, 4, 128
-    cells = r * c
+    shape = {"nodes": n, "cells": r * c, "cap": cap}
     rng = np.random.default_rng(11)
-    base_state = apply_cell_changes(
-        make_table_state(n, r, c, dev),
-        *to_dev(random_lanes(rng, n, r, c, n * 64)),
-    )
+    state = populated_table(rng, n, r, c, dev)
     routed = routed_box(*to_dev(random_lanes(rng, n, r, c, n * 64)),
                         n, c, cap)
-    err_routed, _, _ = compare(base_state, routed, cap, c, "routed 10k")
-    checks.append("routed_10000x1024x128")
-    # sync style: node-major lanes, the mailbox is a reshape
-    sl = random_lanes(rng, n, r, c, n * cap)
-    sl_t = to_dev(sl)
-    sync_box = torch.stack([
-        (sl_t[1] * c + sl_t[2]), sl_t[3], sl_t[4], sl_t[5], sl_t[6],
-        sl_t[7].to(torch.int32),
-    ]).to(torch.int32).contiguous()
-    err_sync, sync_args, sync_want = compare(
-        base_state, sync_box, cap, c, "sync 10k")
-    checks.append("sync_10000x1024x128")
-    kernel_ms = time_ms(lambda: mk.grouped_merge(*sync_args), 20)
-    plain_ms = time_ms(lambda: mk.grouped_merge_reference(*sync_args), 5,
-                       batch=5)
-    kernel_bytes, kernel_ops = merge_work(sync_args, sync_want)
-    bytes_ms = 1e3 * kernel_bytes / HBM_BYTES_PER_S
-    ops_ms = 1e3 * kernel_ops / INT32_OPS_PER_S
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    check("routed_10000x1024x128", state, routed, cap, c)
+    del routed
+    box = sync_box(random_lanes(rng, n, r, c, n * cap), c, dev)
+    sync_before, sync_after = check("sync_10000x1024x128", state, box, cap, c)
+
+    def launch(cap, c, box):
+        return lambda p: mk.grouped_merge(*p, box, cap, c)
+
+    kernel_ms = time_in_place_ms(launch(cap, c, box), sync_before, 20)
+    plain_ms = time_ms(
+        lambda: mk.grouped_merge_reference(*sync_before, box, cap, c), 5,
+        batch=5)
+    work = mk.merge_work(sync_before, box, cap, c, sync_after)
+    work_oop = mk.merge_work_out_of_place(sync_before, box, cap, c,
+                                          sync_after)
+    bound_ms, bound_by = mk.bound_ms(work)
+    sector_bytes = mk.merge_sector_bytes(sync_before, box, cap, c, sync_after)
+    bound_oop_ms, _ = mk.bound_ms(work_oop)
+    del state, sync_after
+
+    # an all-invalid mailbox changes nothing and reads only valid words
+    empty = box.clone()
+    empty[mk.LANE_VALID] = 0
+    state = populated_table(rng, n, r, c, dev)
+    pre, got = check("all_invalid_10000x1024x128", state, empty, cap, c)
+    if not all(torch.equal(a, b) for a, b in zip(pre, got)):
+        raise AssertionError("an all-invalid mailbox changed the table")
+    empty_ms = time_in_place_ms(launch(cap, c, empty), pre, 10)
+    empty_bound_ms, _ = mk.bound_ms(mk.merge_work(pre, empty, cap, c, got))
+    del pre, got, empty
+
+    # every lane of node 0 on one row (hot row): atomics contend
+    hot = box.clone()
+    hot[mk.LANE_VALID] = 0
+    hot[mk.LANE_VALID, :cap] = 1
+    hot[mk.LANE_CELL, :cap] = 7 * c + hot[mk.LANE_CELL, :cap] % c
+    check("hot_row_10000x1024x128", state, hot, cap, c)
+    del state, hot, box, sync_before
+    torch.cuda.empty_cache()
+
+    # other cell layouts and a wider mailbox
+    for n, r, c, cap in ((2048, 8192, 1, 128), (10000, 128, 8, 128),
+                         (10000, 256, 4, 256), (1024, 64, 16, 128),
+                         (1024, 128, 3, 128)):
+        state = populated_table(rng, n, r, c, dev)
+        box = sync_box(random_lanes(rng, n, r, c, n * cap), c, dev)
+        check(f"sync_{n}x{r * c}x{cap}_cols{c}", state, box, cap, c)
+        del state, box
+        torch.cuda.empty_cache()
+
     emit({"phase": "kernel_check", "kernel": "grouped_merge",
-          "checks": checks, "bit_equal": True,
-          "shape": {"nodes": n, "cells": cells, "cap": cap},
+          "cases": cases, "bit_equal": True, "shape": shape,
           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
           "bound_ms": bound_ms, "bound_by": bound_by,
-          "bytes": kernel_bytes, "bytes_ms": bytes_ms,
-          "ops": kernel_ops, "ops_ms": ops_ms})
-    del base_state, routed, sync_box, sync_args, sync_want, sl_t
-    torch.cuda.empty_cache()
+          "bytes": work[0], "ops": work[1],
+          "bound_out_of_place_ms": bound_oop_ms,
+          "bytes_out_of_place": work_oop[0],
+          "sector_bytes": sector_bytes,
+          "sector_bound_ms": 1e3 * sector_bytes / mk.HBM_BYTES_PER_S,
+          "share_of_bound": bound_ms / kernel_ms,
+          "all_invalid_ms": empty_ms, "all_invalid_bound_ms": empty_bound_ms})
+    max_abs_err = max(x["max_abs_err"] for x in cases)
 
     # ------------------------------------ the main path at full size
     cfg = slice_config()
@@ -286,6 +247,11 @@ def main() -> int:
           "tables_agree": uniform, "launches": launches})
     if res.converged_round is None or final_gap != 0.0:
         raise AssertionError("the 10k-node slice did not converge")
+    if res.converged_round != SLICE_ROUNDS:
+        raise AssertionError(
+            f"the slice converged at round {res.converged_round}, not "
+            f"{SLICE_ROUNDS}: the port is deterministic, so its trajectory "
+            "changed")
     if not uniform:
         raise AssertionError("converged replicas hold different tables")
     if launches["grouped_merge"] != sweeps or sweeps == 0:
@@ -324,10 +290,11 @@ def main() -> int:
         "source": "corro_sim_torch/core/csrc/merge_kernel.cu",
         "replaces": "corro_sim/core/merge_kernel.py:184",
         "launches": launches["grouped_merge"],
-        "max_abs_err": max(err_routed, err_sync),
+        "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
+        "bound_out_of_place_ms": bound_oop_ms,
         "bound_by": bound_by,
         "library_ms": None,
     }]})

@@ -52,7 +52,8 @@ class DeliveryResult(NamedTuple):
 
 def delivery_pass(cfg, table, book, log, hlc, dst, src, actor, ver, chunk,
                   delivered) -> DeliveryResult:
-    """Sort once; deliver, account and merge off that one order."""
+    """Sort once; deliver, account and merge off that one order. On the
+    mailbox path ``table`` is merged in place (consumed)."""
     n = cfg.num_nodes
     s = cfg.seqs_per_version
     if cfg.chunks_per_version != 1:

@@ -154,6 +154,9 @@ def run_sim(
     convergence (or ``max_rounds``) — the JAX package's sequential
     ``run_sim`` loop.
 
+    Consumes ``state``, as :func:`~corro_sim_torch.engine.step.sim_step`
+    does: its tensors may be updated in place; read the result's state.
+
     ``device``: where the run happens (default ``cuda``; the state must
     already live there). ``min_rounds``: do not test convergence before
     this round (default: the write phase length)."""

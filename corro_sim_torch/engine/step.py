@@ -89,6 +89,11 @@ def sim_step(
 ):
     """Advance the cluster one round; returns ``(state, metrics)``.
 
+    The step consumes ``state``: the mailbox merge updates table planes
+    in place (on the repair step, ``state.table`` itself), so the caller
+    must not read ``state`` afterwards; the returned state may share its
+    tensors. The JAX package's ``run_sim(donate=True)`` is the precedent.
+
     ``repair``: the post-quiesce specialization (:func:`_repair_step`),
     bit-for-bit this step while no writes run and every gossip ring is
     drained."""

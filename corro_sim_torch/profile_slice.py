@@ -13,7 +13,12 @@ allocator and the kernel build (discarded), then three times:
    (nested stages, such as the draws inside the sync sweep, count in
    both);
 3. under ``torch.profiler`` — device time by kernel name, the number of
-   kernels launched, and the device's busy share of the profiled wall.
+   kernels launched, and the device's busy share of the profiled wall;
+4. with the sync sweep's merge wrapped — the merge kernel's in-place
+   and out-of-place bounds (``merge_work``), its words counted in whole
+   DRAM sectors (``merge_sector_bytes``) and what each real mailbox
+   holds (valid lanes, rows hit, rows wiped), set beside the kernel's
+   device time per launch from run 3.
 
 Prints one JSON object and writes it, with the full kernel table, to
 ``DIR/profile_slice.json``.
@@ -32,8 +37,10 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from corro_sim_torch import merge_probe as mp
 from corro_sim_torch import prng
 from corro_sim_torch.config import SimConfig
+from corro_sim_torch.core import merge_kernel as mk
 from corro_sim_torch.engine import step as step_mod
 from corro_sim_torch.engine.driver import Schedule, run_sim
 from corro_sim_torch.engine.state import init_state
@@ -122,6 +129,43 @@ def _stage_timers(device, totals, counts):
             setattr(mod, name, fn)
 
 
+def _merge_bounds(cfg, device) -> list:
+    """Run the cell with the sync sweep's merge wrapped; per launch, a
+    dict of the merge's in-place and out-of-place work, its sector bytes
+    and the mailbox's counts. The wrapper copies the pre-merge planes,
+    which the merge consumes."""
+    works = []
+    merge = sync_mod.merge_grouped
+
+    def counted(table, lanes, cap):
+        n, r, c = table.cv.shape
+        before = tuple(t.reshape(n, -1).clone() for t in
+                       (table.cv, table.vr, table.site, table.cl))
+        out = merge(table, lanes, cap)
+        after = tuple(t.reshape(n, -1) for t in
+                      (out.cv, out.vr, out.site, out.cl))
+        valid = lanes[mk.LANE_VALID] != 0
+        works.append({
+            "in_place": mk.merge_work(before, lanes, cap, c, after),
+            "out_of_place": mk.merge_work_out_of_place(before, lanes, cap,
+                                                       c, after),
+            "sector_bytes": mk.merge_sector_bytes(before, lanes, cap, c,
+                                                  after),
+            "valid_lanes": int(valid.sum()),
+            "nodes_with_lanes": int(valid.view(n, cap).any(1).sum()),
+            "rows_hit": int((mp.hit_rows(lanes, cap, c, r * c) >= 0).sum()),
+            "rows_wiped": int((after[3] > before[3]).sum()),
+        })
+        return out
+
+    sync_mod.merge_grouped = counted
+    try:
+        _run(cfg, device)
+    finally:
+        sync_mod.merge_grouped = merge
+    return works
+
+
 def _busy_ms(intervals) -> float:
     """Length of the union of (start, end) microsecond intervals, in ms."""
     busy, end = 0.0, -1.0
@@ -143,12 +187,16 @@ def main(argv=None) -> dict:
     cfg = slice_config()
 
     _run(cfg, device)  # warm-up: allocator growth, kernel build
+    torch.cuda.reset_peak_memory_stats(device)
     plain = _run(cfg, device)
     rounds = plain.rounds
+    smi = mp.nvidia_smi()
     report = {
         "nodes": cfg.num_nodes, "card": torch.cuda.get_device_name(device),
-        "rounds": rounds, "converged_round": plain.converged_round,
+        "nvidia_smi": smi, "rounds": rounds,
+        "converged_round": plain.converged_round,
         "wall_per_round_ms": plain.wall_per_round_ms,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(device),
     }
 
     totals, counts = defaultdict(float), defaultdict(int)
@@ -192,6 +240,28 @@ def main(argv=None) -> dict:
         "device_busy_share": busy / wall_ms,
         "top_kernels": table[:15],
     })
+    merge_rows = [r for r in table if "grouped_merge" in r["kernel"]]
+    works = _merge_bounds(cfg, device)
+    launches = sum(r["launches"] for r in merge_rows)
+    def mean(f):
+        return float(np.mean([f(w) for w in works]))
+
+    report["merge_kernel"] = {
+        "launches": launches,
+        "ms_per_launch": (sum(r["ms"] for r in merge_rows) / launches
+                          if launches else None),
+        "bound_ms_per_launch": mean(lambda w: mk.bound_ms(w["in_place"])[0]),
+        "bound_out_of_place_ms_per_launch": mean(
+            lambda w: mk.bound_ms(w["out_of_place"])[0]),
+        "bytes_per_launch": mean(lambda w: w["in_place"][0]),
+        "sector_bound_ms_per_launch": mean(
+            lambda w: 1e3 * w["sector_bytes"] / mk.HBM_BYTES_PER_S),
+        "valid_lanes_per_launch": mean(lambda w: w["valid_lanes"]),
+        "nodes_with_lanes_per_launch": mean(lambda w: w["nodes_with_lanes"]),
+        "rows_hit_per_launch": mean(lambda w: w["rows_hit"]),
+        "rows_wiped_per_launch": mean(lambda w: w["rows_wiped"]),
+        "bounded_launches": len(works),
+    }
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "profile_slice.json"), "w") as f:
         json.dump(dict(report, kernels=table), f, indent=1)

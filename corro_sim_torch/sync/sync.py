@@ -136,7 +136,9 @@ def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
                reachable, round_idx=0):
     """One anti-entropy sweep (multi-peer).
 
-    Returns ``(book, table, hlc, last_cleared, metrics)``."""
+    Returns ``(book, table, hlc, last_cleared, metrics)``. On the mailbox
+    path (``kernel_supported``) ``table`` is merged in place and the
+    returned table holds its storage."""
     if cfg.sync_hot_actors <= 0 or cfg.sync_deal_probes:
         raise NotImplementedError(
             "only the dense hot-actor sync schedule is ported"

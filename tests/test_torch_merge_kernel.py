@@ -4,9 +4,10 @@ On CPU tensors ``corro_sim_torch.core.merge_kernel.grouped_merge`` runs
 its plain version (the mailbox unpacked into ``apply_cell_changes``);
 it is held against the Pallas kernel in interpret mode and against the
 JAX package's scatter merge on the ``random_lanes`` batches of
-tests/test_merge_kernel.py. The CUDA kernel itself is held against the
-plain version on the card (marked ``cuda``; skips without one).
-Tolerance everywhere: exact equality.
+tests/test_merge_kernel.py. The merge consumes its planes on both
+devices, so every test hands it copies of what it compares against. The
+CUDA kernel itself is held against the plain version on the card in
+tests/test_torch_merge_cuda.py. Tolerance everywhere: exact equality.
 """
 
 import dataclasses
@@ -49,6 +50,16 @@ def _populated(rng, n, r, c):
     return ref, port
 
 
+def _copy(state):
+    return crdt.TableState(**{f: getattr(state, f).clone() for f in FIELDS})
+
+
+def _planes(state):
+    n = state.cl.shape[0]
+    return (state.cv.reshape(n, -1), state.vr.reshape(n, -1),
+            state.site.reshape(n, -1), state.cl)
+
+
 def _routed(lanes, n, c, cap, router):
     dst, row, col, cv, vr, site, cl, valid = lanes
     rank = rank_within_dst(dst, valid)
@@ -71,7 +82,7 @@ def test_plain_merge_matches_pallas_and_scatter(seed):
     np.testing.assert_array_equal(
         box.numpy(), np.asarray(ref_box)[:mk.LANE_FIELDS])
 
-    got = mk.merge_grouped(state, box, cap)
+    got = mk.merge_grouped(_copy(state), box, cap)
     _assert_tables(got, ref_merge_grouped(
         ref_state, ref_box, cap, block_nodes=8, interpret=True))
     _assert_tables(got, ref_apply(ref_state, *[jnp.asarray(x) for x in lanes]))
@@ -101,20 +112,53 @@ def test_cap_truncates_like_masking():
 
 
 def test_plain_version_is_the_cpu_path():
-    """On CPU tensors the wrapper runs the plain version and counts no
-    kernel launch."""
+    """On CPU tensors the wrapper runs the plain version, writes its
+    result into the planes it was given and counts no kernel launch."""
     rng = np.random.default_rng(3)
     n, r, c, cap = 8, 32, 4, 128
     _, state = _populated(rng, n, r, c)
     box = _routed(random_lanes(rng, n, r, c, 300), n, c, cap, mk.route_lanes)
     before = dict(mk.LAUNCHES)
-    args = (state.cv.reshape(n, -1), state.vr.reshape(n, -1),
-            state.site.reshape(n, -1), state.cl, box, cap, c)
-    got = mk.grouped_merge(*args)
-    want = mk.grouped_merge_reference(*args)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    planes = _planes(state)
+    want = mk.grouped_merge_reference(*planes, box, cap, c)
+    got = mk.grouped_merge(*planes, box, cap, c)
+    for g, p, w in zip(got, planes, want):
+        assert g is p
+        assert torch.equal(p, w)
     assert mk.LAUNCHES == before
+
+
+@pytest.mark.parametrize("rows,cols,cap", [
+    (256, 4, 128),  # the slice's shape
+    (8192, 1, 128),  # one column, the gate's 8192 cells
+    (128, 8, 128),
+    (256, 4, 256),
+])
+def test_grouped_merge_consumes_its_planes(rows, cols, cap):
+    """The merged values land in the storage the caller passed (same
+    data_ptr, also through merge_grouped's (N, R, C) views) and equal
+    the JAX package's scatter merge of the same lanes."""
+    rng = np.random.default_rng(rows + cols + cap)
+    n = 8
+    ref_state, state = _populated(rng, n, rows, cols)
+    lanes = random_lanes(rng, n, rows, cols, n * cap // 2)
+    box = _routed(lanes, n, cols, cap, mk.route_lanes)
+    ptrs = [getattr(state, f).data_ptr() for f in FIELDS]
+    got = mk.merge_grouped(state, box, cap)
+    assert [getattr(got, f).data_ptr() for f in FIELDS] == ptrs
+    want = ref_apply(ref_state, *[jnp.asarray(x) for x in lanes])
+    _assert_tables(state, want)
+    _assert_tables(got, want)
+
+
+def test_grouped_merge_refuses_non_contiguous_planes():
+    n, cells, cols, cap = 4, 128, 4, 128
+    planes = [torch.zeros((n, cells), dtype=torch.int32) for _ in range(3)]
+    planes.append(torch.zeros((n, cells // cols), dtype=torch.int32))
+    box = torch.zeros((mk.LANE_FIELDS, n * cap), dtype=torch.int32)
+    strided = torch.zeros((cells, n), dtype=torch.int32).T
+    with pytest.raises(ValueError):
+        mk.grouped_merge(strided, *planes[1:], box, cap, cols)
 
 
 def test_grouped_merge_refuses_bad_operands():
@@ -146,25 +190,3 @@ def test_kernel_supported_gate(mode, path, device, rows, cols, want):
         num_rows=rows, num_cols=cols, merge_kernel=mode,
     )))
     assert mk.kernel_supported(cfg, path, torch.device(device)) is want
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_cuda_kernel_matches_plain_version(seed):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    rng = np.random.default_rng(seed)
-    n, r, c, cap = 64, 256, 4, 128
-    _, state = _populated(rng, n, r, c)
-    box = _routed(random_lanes(rng, n, r, c, 64 * 100), n, c, cap,
-                  mk.route_lanes)
-    args = [state.cv.reshape(n, -1), state.vr.reshape(n, -1),
-            state.site.reshape(n, -1), state.cl, box]
-    args = [a.cuda() for a in args]
-    before = mk.LAUNCHES["grouped_merge"]
-    got = mk.grouped_merge(*args, cap, c)
-    want = mk.grouped_merge_reference(*args, cap, c)
-    torch.cuda.synchronize()
-    assert mk.LAUNCHES["grouped_merge"] == before + 1
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)

@@ -260,6 +260,15 @@ def case_broadcast_enqueue_sorted(port, ref, rng):
     return _enqueue(port, ref, rng, False)
 
 
+def _table_copy(port):
+    """The mailbox merge consumes its table; the module-scoped cluster is
+    shared by every case."""
+    return dataclasses.replace(port.table, **{
+        f.name: getattr(port.table, f.name).clone()
+        for f in dataclasses.fields(port.table)
+    })
+
+
 def _delivery(port, ref, rng, merge_kernel):
     cfg = _cfg()
     m = 800
@@ -277,7 +286,8 @@ def _delivery(port, ref, rng, merge_kernel):
         *map(_j, args), ref.round,
     )
     out_p = p_delivery.delivery_pass(
-        _port_cfg(_cfg(merge_kernel)), port.table, port.book, port.log, port.hlc,
+        _port_cfg(_cfg(merge_kernel)), _table_copy(port), port.book, port.log,
+        port.hlc,
         *map(_t, args),
     )
     return out_r, out_p
@@ -321,7 +331,8 @@ def _sync(port, ref, rng, merge_kernel):
         round_idx=ref.sync_rounds,
     )
     out_p = p_sync.sync_round(
-        _port_cfg(_cfg(merge_kernel)), port.book, port.log, port.table, port.hlc,
+        _port_cfg(_cfg(merge_kernel)), port.book, port.log, _table_copy(port),
+        port.hlc,
         port.last_cleared, port.cleared_hlc, key, _t(alive), _t(view),
         _t(pairs), round_idx=port.sync_rounds,
     )
