@@ -7,12 +7,15 @@ Run from the root of a checkout, with no arguments:
 
 It builds the port's CUDA kernels from the sources in the checkout,
 holds each kernel against its plain PyTorch version on the card, drives
-the port's main path (``corro_sim_torch.engine.driver.run_sim``) on a
-10 000-node anti-entropy cluster until it converges, and checks the
-kernel arm of a whole simulation against the scatter arm. Every phase
-prints one JSON line; any failure raises and exits non-zero. The last
-line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
-outside the repository, it exits non-zero and prints no result.
+the port's main path (``corro_sim_torch.engine.driver.run_sim``) on the
+10 000-node north-star cluster until it converges, with SWIM off (the
+first slice's path) and with full SWIM on (the JAX package's config 0
+exactly), holds two SWIM-on runs against digests of the JAX package's
+runs, and checks the kernel arm of a whole simulation against the
+scatter arm. Every phase prints one JSON line; any failure raises and
+exits non-zero. The last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or outside the repository, it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -23,8 +26,10 @@ import time
 
 import numpy as np
 
-# the round at which the 10k-node slice converges from seed 0
+# the round at which the 10k-node slice converges from seed 0, with SWIM
+# off and with SWIM on
 SLICE_ROUNDS = 22
+SWIM_SLICE_ROUNDS = 22
 
 
 def emit(obj) -> None:
@@ -51,7 +56,11 @@ def main() -> int:
         time_ms,
     )
     from corro_sim_torch.profile_slice import (
+        DIGEST_RUN_ARGS,
+        DIGESTS,
         RUN_ARGS,
+        digest_config,
+        run_digest,
         slice_config,
         slice_schedule,
     )
@@ -218,48 +227,88 @@ def main() -> int:
     max_abs_err = max(x["max_abs_err"] for x in cases)
 
     # ------------------------------------ the main path at full size
-    cfg = slice_config()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    state = init_state(cfg, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    mk.reset_launch_counts()
-    res = run_sim(cfg, state, slice_schedule(), device="cuda", **RUN_ARGS)
-    torch.cuda.synchronize()
-    launches = dict(mk.LAUNCHES)
-    final_gap = float(res.metrics["gap"][-1])
-    sweeps = int(res.state.sync_rounds)
-    table = res.state.table
-    uniform = all(
-        bool((getattr(table, f) == getattr(table, f)[:1]).all())
-        for f in ("cv", "vr", "site", "cl")
-    )
-    emit({"phase": "slice", "nodes": cfg.num_nodes,
-          "cells": cfg.num_rows * cfg.num_cols,
-          "rounds_to_convergence": res.converged_round,
-          "rounds_run": res.rounds, "repair_chunks": res.repair_chunks,
-          "final_gap": final_gap, "sync_sweeps": sweeps,
-          "writes": int(res.metrics["writes"].sum()),
-          "setup_s": init_s + res.setup_seconds, "sim_s": res.wall_seconds,
-          "wall_per_round_ms": res.wall_per_round_ms,
-          "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "tables_agree": uniform, "launches": launches})
-    if res.converged_round is None or final_gap != 0.0:
-        raise AssertionError("the 10k-node slice did not converge")
-    if res.converged_round != SLICE_ROUNDS:
-        raise AssertionError(
-            f"the slice converged at round {res.converged_round}, not "
-            f"{SLICE_ROUNDS}: the port is deterministic, so its trajectory "
-            "changed")
-    if not uniform:
-        raise AssertionError("converged replicas hold different tables")
-    if launches["grouped_merge"] != sweeps or sweeps == 0:
-        raise AssertionError(
-            f"expected one kernel launch per sync sweep ({sweeps}), "
-            f"counted {launches['grouped_merge']}"
+    def drive(cfg):
+        """One seeded run of the cell to convergence, the merge kernel's
+        launch count read around it; returns the run's JSON record."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = init_state(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        mk.reset_launch_counts()
+        res = run_sim(cfg, state, slice_schedule(), device="cuda", **RUN_ARGS)
+        torch.cuda.synchronize()
+        launches = dict(mk.LAUNCHES)
+        del state
+        table = res.state.table
+        uniform = all(
+            bool((getattr(table, f) == getattr(table, f)[:1]).all())
+            for f in ("cv", "vr", "site", "cl")
         )
-    del res, state, table
+        rec = {"nodes": cfg.num_nodes, "cells": cfg.num_rows * cfg.num_cols,
+               "rounds_to_convergence": res.converged_round,
+               "rounds_run": res.rounds, "repair_chunks": res.repair_chunks,
+               "final_gap": float(res.metrics["gap"][-1]),
+               "sync_sweeps": int(res.state.sync_rounds),
+               "writes": int(res.metrics["writes"].sum()),
+               "setup_s": init_s + res.setup_seconds,
+               "sim_s": res.wall_seconds,
+               "wall_per_round_ms": res.wall_per_round_ms,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "tables_agree": uniform, "launches": launches}
+        return rec, res.metrics
+
+    def check_run(label, rec, want_round):
+        if rec["rounds_to_convergence"] is None or rec["final_gap"] != 0.0:
+            raise AssertionError(f"the {label} did not converge")
+        if rec["rounds_to_convergence"] != want_round:
+            raise AssertionError(
+                f"the {label} converged at round "
+                f"{rec['rounds_to_convergence']}, not {want_round}: the "
+                "port is deterministic, so its trajectory changed")
+        if not rec["tables_agree"]:
+            raise AssertionError(f"converged replicas of the {label} hold "
+                                 "different tables")
+        sweeps, got = rec["sync_sweeps"], rec["launches"]["grouped_merge"]
+        if got != sweeps or sweeps == 0:
+            raise AssertionError(
+                f"{label}: expected one kernel launch per sync sweep "
+                f"({sweeps}), counted {got}")
+
+    slice_rec, _ = drive(slice_config())
+    emit(dict(phase="slice", **slice_rec))
+    check_run("10k-node slice", slice_rec, SLICE_ROUNDS)
+
+    # ------------- SWIM on: bit checks against the JAX package's digests
+    digests = {}
+    for case, want in DIGESTS.items():
+        cfg = digest_config(case)
+        res = run_sim(cfg, init_state(cfg, seed=0, device="cuda"),
+                      slice_schedule(), device="cuda", **DIGEST_RUN_ARGS)
+        got = run_digest(state_to_numpy(res.state), res.metrics)
+        digests[case] = {"nodes": cfg.num_nodes, "rounds": res.rounds,
+                         "view_size": cfg.swim_view_size, "digest": got,
+                         "match": got == want}
+        del res
+    emit({"phase": "swim_digest", "cases": digests})
+    if not all(d["match"] for d in digests.values()):
+        raise AssertionError("a SWIM-on run on the card differs from the "
+                             "JAX package's run")
+
+    # ------------------ SWIM on: config 0 exactly, 10 000 nodes
+    cfg = slice_config(swim=True)
+    swim_rec, m = drive(cfg)
+    swim_max = {k: int(m[k].max()) for k in
+                ("swim_suspects", "swim_down", "swim_probe_failures")}
+    emit(dict(phase="swim_slice", swim_interval=cfg.swim_interval,
+              swim_suspect_rounds=cfg.swim_suspect_rounds,
+              narrow_state=cfg.narrow_state,
+              swim_max_per_round=swim_max, **swim_rec))
+    check_run("10k-node SWIM-on cluster", swim_rec, SWIM_SLICE_ROUNDS)
+    if swim_max["swim_suspects"] == 0:
+        raise AssertionError("SWIM raised no suspicion across the partition")
+    del m
     torch.cuda.empty_cache()
 
     # ----------------------- kernel arm against scatter arm, whole run
@@ -289,7 +338,11 @@ def main() -> int:
         "route": "cuda",
         "source": "corro_sim_torch/core/csrc/merge_kernel.cu",
         "replaces": "corro_sim/core/merge_kernel.py:184",
-        "launches": launches["grouped_merge"],
+        "launches": (slice_rec["launches"]["grouped_merge"]
+                     + swim_rec["launches"]["grouped_merge"]),
+        "launches_by_path": {
+            "slice": slice_rec["launches"]["grouped_merge"],
+            "swim_slice": swim_rec["launches"]["grouped_merge"]},
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

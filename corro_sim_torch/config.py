@@ -725,7 +725,6 @@ def validate_torch_slice(cfg: SimConfig) -> SimConfig:
     Returns ``cfg`` (validated) so callers can chain it."""
     cfg.validate()
     refusals = (
-        (cfg.swim_enabled, "swim_enabled (queue 1: full SWIM)"),
         (cfg.seqs_per_version != 1 or cfg.chunks_per_version != 1,
          "seqs_per_version/chunks_per_version != 1 (queue 1: cpv and S > 1)"),
         (cfg.sync_hot_actors == 0,

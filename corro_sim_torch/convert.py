@@ -17,10 +17,12 @@ import numpy as np
 import torch
 
 from corro_sim_torch.engine.state import SimState
+from corro_sim_torch.membership.swim import SwimState
+from corro_sim_torch.membership.swim_window import SwimWindowState
 
 # leaves the port widens, and the unsigned type each carrier narrows to
 _NARROW = {torch.int64: np.uint32, torch.int32: np.uint16}
-WIDENED = ("book.win", "swim.p")
+WIDENED = ("book.win", "swim.p", "swim.belief")
 
 
 def _leaves(obj, prefix: str = ""):
@@ -38,6 +40,8 @@ def _build(cls, leaves: dict, device, prefix: str = ""):
     for f in dataclasses.fields(cls):
         key = f"{prefix}{f.name}"
         typ = hints[f.name]
+        if key == "swim":  # windowed when the leaves hold its planes
+            typ = SwimWindowState if "swim.member" in leaves else SwimState
         if dataclasses.is_dataclass(typ):
             kwargs[f.name] = _build(typ, leaves, device, key + ".")
             continue

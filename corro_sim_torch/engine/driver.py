@@ -180,6 +180,9 @@ def run_sim(
         build_kernel()
     setup_seconds = time.perf_counter() - t0
 
+    # the round counter on the host, for the SWIM cadence: one read here,
+    # none per round
+    round0 = int(state.round)
     root = prng.PRNGKey(seed)
     metrics_chunks: list = []
     converged_round = None
@@ -203,7 +206,7 @@ def run_sim(
         for r in range(chunk):
             state, m = sim_step(
                 cfg, state, keys[r], alive_t[r], part_t[r], bool(we[r]),
-                repair=use_repair,
+                round0 + rounds + r, repair=use_repair,
             )
             per_round.append(m)
         names = sorted(per_round[0])

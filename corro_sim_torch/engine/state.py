@@ -22,6 +22,10 @@ from corro_sim_torch.core.crdt import TableState, make_table_state
 from corro_sim_torch.device import resolve_device
 from corro_sim_torch.gossip.broadcast import GossipState, make_gossip_state
 from corro_sim_torch.membership.swim import SwimState, make_swim_state
+from corro_sim_torch.membership.swim_window import (
+    SwimWindowState,
+    make_swim_window_state,
+)
 
 
 @dataclasses.dataclass
@@ -59,7 +63,7 @@ class SimState:
     log: ChangeLog
     own: CellOwnership
     gossip: GossipState
-    swim: SwimState
+    swim: SwimState | SwimWindowState  # windowed when swim_view_size > 0
     ring0: torch.Tensor  # (N, ring0_size) int32 static eager-peer table
     row_cdf: torch.Tensor  # (R,) float32 cumulative row distribution
     round: torch.Tensor  # () int32
@@ -111,7 +115,14 @@ def init_state(cfg: SimConfig, seed: int = 0, device=None) -> SimState:
         ),
         own=make_ownership(cfg.num_rows, cfg.num_cols, dev),
         gossip=make_gossip_state(n, cfg.pend_slots, dev),
-        swim=make_swim_state(n, cfg.swim_enabled, cfg.narrow_state, dev),
+        swim=(
+            make_swim_window_state(
+                n, cfg.swim_view_size, seed, cfg.swim_enabled,
+                cfg.narrow_state, dev,
+            )
+            if cfg.swim_view_size > 0
+            else make_swim_state(n, cfg.swim_enabled, cfg.narrow_state, dev)
+        ),
         ring0=torch.as_tensor(_ring0(cfg, seed), device=dev),
         row_cdf=torch.as_tensor(_row_cdf(cfg), device=dev),
         round=torch.zeros((), **i32),

@@ -1,19 +1,24 @@
 """One simulation round: the whole cluster advances in one batched step.
 
 Port of ``corro_sim/engine/step.py`` for the configurations
-:func:`~corro_sim_torch.config.validate_torch_slice` admits (SWIM,
-faults, probes, RTT rings and the latency ring off; one cell and one
-chunk per changeset). Round structure:
+:func:`~corro_sim_torch.config.validate_torch_slice` admits (faults,
+probes, RTT rings and the latency ring off; one cell and one chunk per
+changeset). Round structure:
 
   local writes -> eager ring-0 broadcast -> gossip dissemination ->
   delivery + bookkeeping + CRDT merge -> rebroadcast of fresh changes ->
-  (every ``sync_interval`` rounds, or on the adaptive floor cadence)
-  anti-entropy sync -> HLC tick.
+  SWIM tick (every ``swim_interval`` rounds) -> (every ``sync_interval``
+  rounds, or on the adaptive floor cadence) anti-entropy sync -> HLC tick.
+
+Gossip and sync consult the membership view of the state at the start
+of the round; a SWIM tick's result shows from the next round on.
 
 Every stage is a batched tensor op over all nodes. One value crosses to
 the host each round: whether the sync sweep runs. Its adaptive term
 (``quiesced & behind_pre``) is device data, and the sweep is a branch
-of data-dependent size, so the step reads that one bool.
+of data-dependent size, so the step reads that one bool. The SWIM
+cadence and its announce gate depend on the round number only, which
+the caller passes on the host.
 """
 
 from __future__ import annotations
@@ -35,7 +40,16 @@ from corro_sim_torch.gossip.broadcast import (
     enqueue_broadcasts,
     enqueue_own,
 )
-from corro_sim_torch.membership.swim_window import membership_view
+from corro_sim_torch.membership.swim import (
+    plane_metrics,
+    swim_step,
+    tick_round,
+)
+from corro_sim_torch.membership.swim_window import (
+    membership_view,
+    swim_window_step,
+    window_metrics,
+)
 from corro_sim_torch.sync.sync import sync_round
 from corro_sim_torch.utils.sort import scatter_max
 
@@ -50,11 +64,10 @@ STEP_KEY_STREAMS = (
     "del",     # [4] delete coin
     "ncell",   # [5] cells-per-changeset draw (unconsumed by 1-cell cfgs)
     "bcast",   # [6] gossip broadcast targets
-    "swim",    # [7] SWIM (unconsumed while SWIM is off)
+    "swim",    # [7] SWIM probe, exchanges and announce
     "sync",    # [8] anti-entropy partner + payload
 )
 
-_SWIM_OFF_METRICS = ("swim_suspects", "swim_down", "swim_probe_failures")
 _SYNC_METRICS = ("sync_pairs", "sync_requests", "sync_rejections",
                  "sync_versions", "sync_empties", "sync_cells")
 
@@ -85,6 +98,7 @@ def sim_step(
     alive: torch.Tensor,  # (N,) bool ground truth
     part: torch.Tensor,  # (N,) int32 partition id
     write_enable: bool,  # workload phase switch
+    round_idx: int,  # ``state.round`` as the host counts it
     repair: bool = False,
 ):
     """Advance the cluster one round; returns ``(state, metrics)``.
@@ -98,12 +112,12 @@ def sim_step(
     bit-for-bit this step while no writes run and every gossip ring is
     drained."""
     if repair:
-        return _repair_step(cfg, state, key, alive, part)
+        return _repair_step(cfg, state, key, alive, part, round_idx)
     n = cfg.num_nodes
     s = cfg.seqs_per_version
     dev = state.hlc.device
     rows_idx = torch.arange(n, dtype=torch.int32, device=dev)
-    (k_write, k_row, k_col, k_val, k_del, _k_ncell, k_bcast, _k_swim,
+    (k_write, k_row, k_col, k_val, k_del, _k_ncell, k_bcast, k_swim,
      k_sync) = prng.split(key, len(STEP_KEY_STREAMS))
     reach = _reachable_fn(alive, part)
     view = membership_view(cfg, state.swim, n)
@@ -213,6 +227,9 @@ def sim_step(
         cfg.rebroadcast_transmissions, grouped=True,
     )
 
+    swim, swim_metrics = _swim_block(cfg, state.swim, k_swim, alive, reach,
+                                     round_idx)
+
     # last_cleared_ts analog, HLC-gated (handlers.rs:524-719)
     last_cleared = scatter_max(
         state.last_cleared, (dv.dst,),
@@ -251,7 +268,7 @@ def sim_step(
         "gap": gap,
         "log_wrapped": log_wrapped,
         "clock_skew": skew,
-        **{k: _i32(0, dev) for k in _SWIM_OFF_METRICS},
+        **swim_metrics,
         **sync_metrics,
     }
     new_state = dataclasses.replace(
@@ -261,6 +278,7 @@ def sim_step(
         log=log,
         own=own,
         gossip=gossip,
+        swim=swim,
         round=state.round + 1,
         sync_rounds=state.sync_rounds + int(is_sync),
         hlc=hlc,
@@ -268,6 +286,21 @@ def sim_step(
         cleared_hlc=cleared_hlc,
     )
     return new_state, metrics
+
+
+def _swim_block(cfg, swim_state, k_swim, alive, reach, round_idx: int):
+    """The SWIM cadence: a tick every ``swim_interval``-th round; on the
+    rounds between, the metrics of the standing beliefs."""
+    zero = _i32(0, alive.device)
+    if not cfg.swim_enabled:
+        return swim_state, dict.fromkeys(
+            ("swim_suspects", "swim_down", "swim_probe_failures"), zero)
+    windowed = cfg.swim_view_size > 0
+    if tick_round(cfg, round_idx):
+        step_fn = swim_window_step if windowed else swim_step
+        return step_fn(cfg, swim_state, k_swim, alive, reach, round_idx)
+    metrics_fn = window_metrics if windowed else plane_metrics
+    return swim_state, metrics_fn(swim_state, alive, zero)
 
 
 def _sync_predicate(cfg, round_, behind_pre, quiesced) -> bool:
@@ -327,13 +360,14 @@ def _hlc_tick(alive, hlc_s, hlc_recv, round_):
     return hlc, skew
 
 
-def _repair_step(cfg, state: SimState, key, alive, part):
-    """The post-quiesce round: sync + bookkeeping only. Preconditions
-    (driver-checked): no writes this round and every gossip ring
-    drained; under those this is bit-for-bit :func:`sim_step`."""
+def _repair_step(cfg, state: SimState, key, alive, part, round_idx: int):
+    """The post-quiesce round: SWIM + sync + bookkeeping only.
+    Preconditions (driver-checked): no writes this round and every gossip
+    ring drained; under those this is bit-for-bit :func:`sim_step`."""
     n = cfg.num_nodes
     dev = state.hlc.device
-    k_sync = prng.split(key, len(STEP_KEY_STREAMS))[8]
+    keys = prng.split(key, len(STEP_KEY_STREAMS))
+    k_swim, k_sync = keys[7], keys[8]
     view = membership_view(cfg, state.swim, n)
     log, book = state.log, state.book
     lag_pre = log.head[None, :] - book.head
@@ -342,6 +376,11 @@ def _repair_step(cfg, state: SimState, key, alive, part):
     behind_pre = ((lag_pre > 0) & alive[:, None]).any()
     del lag_pre
     hlc_recv = torch.zeros((n,), dtype=torch.int32, device=dev)
+
+    # SWIM keeps its tick cadence through the tail
+    swim, swim_metrics = _swim_block(
+        cfg, state.swim, k_swim, alive, _reachable_fn(alive, part), round_idx
+    )
 
     # quiesced is identically True here (no writers by precondition)
     is_sync = _sync_predicate(cfg, state.round, behind_pre, quiesced=True)
@@ -370,13 +409,14 @@ def _repair_step(cfg, state: SimState, key, alive, part):
         "gap": gap,
         "log_wrapped": log_wrapped,
         "clock_skew": skew,
-        **{k: zero for k in _SWIM_OFF_METRICS},
+        **swim_metrics,
         **sync_metrics,
     }
     new_state = dataclasses.replace(
         state,
         table=table,
         book=book,
+        swim=swim,
         round=state.round + 1,
         sync_rounds=state.sync_rounds + int(is_sync),
         hlc=hlc,

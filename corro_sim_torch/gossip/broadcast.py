@@ -152,7 +152,7 @@ def broadcast_step(
     gossip: GossipState,
     key,
     sender_alive: torch.Tensor,  # (N,) bool
-    target_alive_view: torch.Tensor,  # (1, N) or (N, N) believed up
+    target_alive_view,  # (1, N) or (N, N) believed up, or a callable
     fanout: int,
     emit_slots: int = 0,
     need_chunk: bool = True,
@@ -173,7 +173,11 @@ def broadcast_step(
     targets = prng.randint(tkey, (n, p, fanout), 0, n, dev)
     src = torch.arange(n, dtype=torch.int32, device=dev)[:, None, None]
     src = src.expand(targets.shape)
-    if target_alive_view.shape[0] == 1:
+    # a shared (1, N) view (SWIM off), the sender's row of an (N, N)
+    # plane, or the windowed per-pair membership test (a callable)
+    if callable(target_alive_view):
+        believed_up = target_alive_view(src, targets)
+    elif target_alive_view.shape[0] == 1:
         believed_up = target_alive_view[0][targets.long()]
     else:
         believed_up = target_alive_view[src.long(), targets.long()]

@@ -1,11 +1,14 @@
 """Where a round of the port's main path spends its time.
 
-    python -m corro_sim_torch.profile_slice [--out DIR]
+    python -m corro_sim_torch.profile_slice [--swim] [--out DIR]
 
-Defines the slice's cell — the north-star cluster without SWIM, its
-partition schedule and run arguments — which ``chip_smoke.py`` drives
-too, and runs it on the card from the same seed: once to warm the
-allocator and the kernel build (discarded), then three times:
+Defines the slice's cells — the north-star cluster with SWIM off and,
+with ``--swim``, exactly as the JAX package's config 0 (full-view SWIM,
+narrow layout), its partition schedule and run arguments — which
+``chip_smoke.py`` drives too, and the SWIM-on digest runs both hold
+against the JAX package. Runs one cell on the card from the same seed:
+once to warm the allocator and the kernel build (discarded), then three
+times:
 
 1. plain, timed — the wall per round a user sees;
 2. with each stage of the step wrapped in a device synchronize and a
@@ -13,7 +16,8 @@ allocator and the kernel build (discarded), then three times:
    (nested stages, such as the draws inside the sync sweep, count in
    both);
 3. under ``torch.profiler`` — device time by kernel name, the number of
-   kernels launched, and the device's busy share of the profiled wall;
+   kernels launched, the device's busy share of the profiled wall and,
+   with SWIM on, the share of kernel launches made inside SWIM ticks;
 4. with the sync sweep's merge wrapped — the merge kernel's in-place
    and out-of-place bounds (``merge_work``), its words counted in whole
    DRAM sectors (``merge_sector_bytes``) and what each real mailbox
@@ -21,14 +25,16 @@ allocator and the kernel build (discarded), then three times:
    device time per launch from run 3.
 
 Prints one JSON object and writes it, with the full kernel table, to
-``DIR/profile_slice.json``.
+``DIR/profile_slice.json`` (``profile_slice_swim.json`` with ``--swim``).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
+import hashlib
 import json
 import os
 import time
@@ -57,6 +63,8 @@ STAGES = (
     (step_mod, "enqueue_broadcasts"),
     (step_mod, "sync_round"),
     (step_mod, "_gap"),
+    (step_mod, "_swim_block"),  # SWIM tick rounds and skipped rounds
+    (step_mod, "swim_step"),  # the SWIM tick alone
     (sync_mod, "choose_sync_peers"),
     (sync_mod, "merge_grouped"),
     (sync_mod, "advance_heads"),
@@ -71,17 +79,66 @@ STAGES = (
 RUN_ARGS = dict(max_rounds=512, chunk=16, seed=0, min_rounds=16)
 
 
-def slice_config(n: int = 10000, merge_kernel: str = "auto") -> SimConfig:
-    """The north-star cluster (the JAX package's config 0,
-    ``corro_sim/benchmarks.py:237-282``) with SWIM off."""
+def slice_config(n: int = 10000, merge_kernel: str = "auto",
+                 swim: bool = False) -> SimConfig:
+    """The north-star cluster, the JAX package's config 0
+    (``corro_sim/benchmarks.py:237-282``), at ``n`` nodes: exactly, with
+    full-view SWIM in the narrow layout, when ``swim``; else with SWIM off
+    (the first slice's cell)."""
+    swim_kw = dict(
+        swim_enabled=True, swim_suspect_rounds=6, swim_interval=4,
+        narrow_state=True,
+    ) if swim else dict(swim_enabled=False)
     return SimConfig(
         num_nodes=n, num_rows=256, num_cols=4, log_capacity=512,
-        write_rate=1000.0 / (n * 8), zipf_alpha=0.8, swim_enabled=False,
-        sync_interval=8, pend_slots=8, fanout=2, sync_adaptive=True,
-        sync_floor_rounds=1, sync_actor_topk=128, sync_cap_per_actor=1,
-        sync_req_actors=128, sync_need_sample=64, sync_deal_probes=0,
-        merge_kernel=merge_kernel,
+        write_rate=1000.0 / (n * 8), zipf_alpha=0.8, sync_interval=8,
+        pend_slots=8, fanout=2, sync_adaptive=True, sync_floor_rounds=1,
+        sync_actor_topk=128, sync_cap_per_actor=1, sync_req_actors=128,
+        sync_need_sample=64, sync_deal_probes=0, merge_kernel=merge_kernel,
+        **swim_kw,
     )
+
+
+def digest_config(case: str) -> SimConfig:
+    """The configurations of :data:`DIGESTS`: config 0 at 1024 nodes, and
+    config 0's shape at 256 nodes with windowed SWIM."""
+    if case == "config0_1024":
+        return slice_config(1024, swim=True)
+    return dataclasses.replace(
+        slice_config(256, swim=True), swim_view_size=16,
+        swim_payload_members=8, swim_interval=1,
+    )
+
+
+# run_sim arguments of the digest runs, with slice_schedule()
+DIGEST_RUN_ARGS = dict(max_rounds=24, chunk=8, seed=0,
+                       stop_on_convergence=False)
+
+# sha256 (run_digest) of the state and metric series after the digest
+# runs. Made with the JAX package on the CPU: run_sim of digest_config(
+# case) from init_state(cfg, seed=0) under the same schedule and
+# arguments, its state flattened by jax.tree_util.keystr (leading dot
+# dropped) and its metrics as run_sim returned them. The port matches
+# them on every device.
+DIGESTS = {
+    "config0_1024":
+        "e5e2f46901a6fe6edce729ad662605a2b76c6d67409b818e09cf1ea349680140",
+    "windowed_256":
+        "3ff3f989bbfe501b20313b9db490ac3b265180d9e129f68acb5a28a9caea3860",
+}
+
+
+def run_digest(leaves: dict, metrics: dict) -> str:
+    """sha256 over the state leaves in sorted path order, then the metric
+    series in sorted name order; each entry contributes its name, numpy
+    dtype, shape and bytes."""
+    h = hashlib.sha256()
+    for group in (leaves, metrics):
+        for name in sorted(group):
+            a = np.ascontiguousarray(group[name])
+            h.update(f"{name}|{a.dtype.str}|{a.shape}|".encode())
+            h.update(a.tobytes())
+    return h.hexdigest()
 
 
 def partition_upper_half(r: int, num: int) -> np.ndarray:
@@ -94,6 +151,43 @@ def partition_upper_half(r: int, num: int) -> np.ndarray:
 
 def slice_schedule() -> Schedule:
     return Schedule(write_rounds=8, part_fn=partition_upper_half)
+
+
+def _launches_in(events, name: str) -> tuple[int, int]:
+    """``(inside, total)``: host-side kernel launch calls made inside the
+    host-side profiler ranges called ``name``, and in all. (The profiler
+    also records each range on the device's timeline, spanning the
+    range's kernels; those spans are not counted.)"""
+    from bisect import bisect_left, bisect_right
+
+    from torch.autograd import DeviceType
+
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    launch = sorted(e.time_range.start for e in host
+                    if e.name.startswith("cudaLaunchKernel"))
+    inside = sum(
+        bisect_right(launch, e.time_range.end)
+        - bisect_left(launch, e.time_range.start)
+        for e in host if e.name == name
+    )
+    return inside, len(launch)
+
+
+@contextlib.contextmanager
+def _swim_ranges():
+    """Mark each SWIM tick as a profiler range called ``swim_tick``."""
+    fn = step_mod.swim_step
+
+    @functools.wraps(fn)
+    def marked(*a, **kw):
+        with torch.profiler.record_function("swim_tick"):
+            return fn(*a, **kw)
+
+    step_mod.swim_step = marked
+    try:
+        yield
+    finally:
+        step_mod.swim_step = fn
 
 
 def _run(cfg, device):
@@ -182,9 +276,11 @@ def _busy_ms(intervals) -> float:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="bench_out")
+    ap.add_argument("--swim", action="store_true",
+                    help="profile the cell with SWIM on (config 0 exactly)")
     args = ap.parse_args(argv)
     device = torch.device("cuda")
-    cfg = slice_config()
+    cfg = slice_config(swim=args.swim)
 
     _run(cfg, device)  # warm-up: allocator growth, kernel build
     torch.cuda.reset_peak_memory_stats(device)
@@ -192,7 +288,8 @@ def main(argv=None) -> dict:
     rounds = plain.rounds
     smi = mp.nvidia_smi()
     report = {
-        "nodes": cfg.num_nodes, "card": torch.cuda.get_device_name(device),
+        "nodes": cfg.num_nodes, "swim": cfg.swim_enabled,
+        "card": torch.cuda.get_device_name(device),
         "nvidia_smi": smi, "rounds": rounds,
         "converged_round": plain.converged_round,
         "wall_per_round_ms": plain.wall_per_round_ms,
@@ -208,17 +305,23 @@ def main(argv=None) -> dict:
             totals.items(), key=lambda kv: -kv[1])
     }
     report["stage_calls"] = dict(counts)
+    if counts["swim_step"]:
+        report["swim_tick_ms"] = 1e3 * totals["swim_step"] / counts[
+            "swim_step"]
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _swim_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         profiled = _run(cfg, device)
         torch.cuda.synchronize(device)
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name != "swim_tick"]
+    swim_launches, host_launches = _launches_in(events, "swim_tick")
     by_name = defaultdict(lambda: [0.0, 0])
     for e in kernels:
         by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
@@ -228,13 +331,32 @@ def main(argv=None) -> dict:
          for k, v in by_name.items()),
         key=lambda r: -r["ms"],
     )
-    busy = _busy_ms([(e.time_range.start, e.time_range.end)
-                     for e in kernels])
+    spans = [(e.time_range.start, e.time_range.end) for e in kernels]
+    busy = _busy_ms(spans)
+    # the device-side spans of the ticks hold exactly the ticks' kernels:
+    # one stream runs its kernels in launch order
+    ticks = [(e.time_range.start, e.time_range.end) for e in events
+             if e.device_type == DeviceType.CUDA and e.name == "swim_tick"]
+    tick_busy = sum(
+        _busy_ms([(max(s, a), min(e, b)) for s, e in spans
+                  if s < b and e > a])
+        for a, b in ticks
+    )
     report.update({
         "profiled_rounds": profiled.rounds,
         "profiled_wall_ms": wall_ms,
         "kernel_launches": len(kernels),
         "kernel_launches_per_round": len(kernels) / profiled.rounds,
+        "host_launch_calls": host_launches,
+        "swim_tick_launch_calls": swim_launches,
+        "swim_share_of_launches": (swim_launches / host_launches
+                                   if host_launches else None),
+        "swim_ticks_profiled": len(ticks),
+        "swim_tick_device_busy_ms": (tick_busy / len(ticks)
+                                     if ticks else None),
+        "swim_tick_device_span_ms": (
+            sum(b - a for a, b in ticks) / 1e3 / len(ticks)
+            if ticks else None),
         "device_kernel_ms": sum(r["ms"] for r in table),
         "device_busy_ms": busy,
         "device_busy_share": busy / wall_ms,
@@ -263,7 +385,8 @@ def main(argv=None) -> dict:
         "bounded_launches": len(works),
     }
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "profile_slice.json"), "w") as f:
+    name = "profile_slice_swim.json" if args.swim else "profile_slice.json"
+    with open(os.path.join(args.out, name), "w") as f:
         json.dump(dict(report, kernels=table), f, indent=1)
     print(json.dumps(report))
     return report

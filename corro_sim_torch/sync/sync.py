@@ -52,7 +52,10 @@ def choose_sync_peers(cfg, book: Bookkeeping, key, alive, view_alive,
     ).sum(dim=-1, dtype=torch.int32)  # (N, C)
 
     rows = torch.arange(n, dtype=torch.int32, device=dev)
-    if view_alive.shape[0] == 1:
+    if callable(view_alive):
+        # windowed SWIM: the per-pair membership test over K-entry views
+        believed = view_alive(rows[:, None].expand(n, c), cand)
+    elif view_alive.shape[0] == 1:
         believed = view_alive[0][cand_l]
     else:
         believed = view_alive[rows.long()[:, None], cand_l]

@@ -78,7 +78,7 @@ def test_entry_points_refuse_without_cuda():
 
 
 @pytest.mark.parametrize("change", [
-    dict(swim_enabled=True), dict(seqs_per_version=2),
+    dict(swim_enabled=True, rtt_rings=True), dict(seqs_per_version=2),
     dict(chunks_per_version=2), dict(sync_hot_actors=0),
     dict(sync_deal_probes=1), dict(probes=1), dict(rtt_rings=True),
     dict(latency_regions=2), dict(faults=pconfig.FaultConfig(loss=0.1)),
@@ -89,3 +89,12 @@ def test_unported_features_are_refused(change):
     cfg = dataclasses.replace(_small_cfg(), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP|queue 1"):
         pconfig.validate_torch_slice(cfg)
+
+
+@pytest.mark.parametrize("swim", [
+    dict(swim_enabled=True), dict(swim_enabled=True, narrow_state=True),
+    dict(swim_enabled=True, swim_view_size=4, swim_payload_members=2),
+], ids=["full_view_wide", "full_view_narrow", "windowed"])
+def test_swim_configs_are_admitted(swim):
+    cfg = dataclasses.replace(_small_cfg(), **swim)
+    assert pconfig.validate_torch_slice(cfg) is cfg

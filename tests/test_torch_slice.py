@@ -4,7 +4,10 @@ corro_sim.engine.driver.run_sim on the CPU.
 Every state leaf, every metric of every round, ``converged_round`` and
 ``repair_chunks`` must be equal (tolerance: exact — the main path is
 integer arithmetic plus float32 threshold compares, and ``gap`` sums
-stay far below 2**24 at these sizes).
+stay far below 2**24 at these sizes). The SWIM-on runs keep
+``swim_payload_members < swim_view_size`` where the view is windowed:
+beyond it the JAX package leaves a duplicate write's winner unspecified.
+tests/test_torch_swim.py holds a long SWIM-on run and the digests.
 """
 
 import dataclasses
@@ -50,6 +53,29 @@ def north_star_small(merge_kernel="on"):
     )
 
 
+def north_star_swim(narrow=True, interval=4, **kw):
+    """The north-star cluster with SWIM on, as config 0 runs it
+    (``swim_suspect_rounds=6``, narrow layout, a tick every 4 rounds), at
+    32 nodes."""
+    return dataclasses.replace(
+        north_star_small("on"), swim_enabled=True, swim_suspect_rounds=6,
+        swim_interval=interval, narrow_state=narrow, **kw,
+    )
+
+
+def north_star_swim_wide():
+    return north_star_swim(narrow=False, interval=1)
+
+
+def north_star_swim_windowed():
+    return north_star_swim(swim_view_size=8, swim_payload_members=4)
+
+
+def north_star_swim_windowed_wide():
+    return north_star_swim(narrow=False, swim_view_size=8,
+                           swim_payload_members=4)
+
+
 def config_2():
     """benchmarks.py config 2: 64 nodes, one column, SWIM off."""
     return SimConfig(
@@ -73,13 +99,21 @@ def _assert_runs_equal(ref, got):
         np.testing.assert_array_equal(have[k], want[k], err_msg=k)
 
 
-@pytest.mark.parametrize("case", ["north_star_32_kernel_on", "config_2_64"])
+NORTH_STAR = {
+    "north_star_32_kernel_on": lambda: north_star_small("on"),
+    "north_star_swim_32": north_star_swim,
+    "north_star_swim_32_wide": north_star_swim_wide,
+    "north_star_swim_32_windowed": north_star_swim_windowed,
+}
+
+
+@pytest.mark.parametrize("case", [*NORTH_STAR, "config_2_64"])
 def test_run_sim_bit_identical(case):
     if case == "config_2_64":
         cfg, kw = config_2(), dict(max_rounds=256, chunk=16, seed=0)
         ref_sched, sched = RefSchedule(write_rounds=16), Schedule(write_rounds=16)
     else:
-        cfg = north_star_small("on")
+        cfg = NORTH_STAR[case]()
         kw = dict(max_rounds=512, chunk=16, seed=0, min_rounds=16)
         ref_sched = RefSchedule(write_rounds=8, part_fn=_part)
         sched = Schedule(write_rounds=8, part_fn=_part)
@@ -91,10 +125,15 @@ def test_run_sim_bit_identical(case):
     assert float(ref.metrics["gap"][-1]) == 0.0
     if case == "config_2_64":
         assert ref.repair_chunks > 0  # the repair step is exercised
+    if cfg.swim_enabled:
+        assert ref.metrics["swim_suspects"].max() > 0  # the cut is seen
     _assert_runs_equal(ref, got)
 
 
-@pytest.mark.parametrize("cfg_fn", [north_star_small, config_2])
+@pytest.mark.parametrize("cfg_fn", [
+    north_star_small, config_2, north_star_swim, north_star_swim_wide,
+    north_star_swim_windowed, north_star_swim_windowed_wide,
+])
 def test_convert_round_trip(cfg_fn):
     """reference init_state -> port -> numpy equals the original, and the
     port's own init_state builds the same leaves."""
