@@ -12,8 +12,12 @@ the port's main path (``corro_sim_torch.engine.driver.run_sim``) on the
 first slice's path) and with full SWIM on (the JAX package's config 0
 exactly), holds two SWIM-on runs against digests of the JAX package's
 runs, and checks the kernel arm of a whole simulation against the
-scatter arm. Every phase prints one JSON line; any failure raises and
-exits non-zero. The last line is ``{"ok": true, "device": {...}}``.
+scatter arm. Then the same for multi-cell, multi-chunk changesets: the
+JAX package's config 3 (the Consul-schema cluster: 4-cell changesets in
+2 chunks) at its own 1000 nodes to convergence, held to the round and
+the digest of the JAX package's run; config 3's shape at 10 000 nodes
+for 64 rounds; and its kernel arm against its scatter arm. Every phase
+prints one JSON line; any failure raises and exits non-zero. The last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.
 """
@@ -30,6 +34,11 @@ import numpy as np
 # off and with SWIM on
 SLICE_ROUNDS = 22
 SWIM_SLICE_ROUNDS = 22
+# the round at which config 3 converges at 1000 nodes from seed 0, as the
+# JAX package's run does (the run behind DIGESTS["config3_1000"])
+CONFIG3_ROUNDS = 1144
+# rounds of config 3's shape run at 10 000 nodes
+CONFIG3_10K_ROUNDS = 64
 
 
 def emit(obj) -> None:
@@ -56,9 +65,13 @@ def main() -> int:
         time_ms,
     )
     from corro_sim_torch.profile_slice import (
+        CONFIG3_RUN_ARGS,
         DIGEST_RUN_ARGS,
         DIGESTS,
         RUN_ARGS,
+        SWIM_DIGEST_CASES,
+        config3_config,
+        config3_schedule,
         digest_config,
         run_digest,
         slice_config,
@@ -213,6 +226,45 @@ def main() -> int:
         del state, box
         torch.cuda.empty_cache()
 
+    # config 3's shapes: 1000 nodes, 512 x 6 cells (the run-time cols
+    # instance); the sync sweep's mailbox holds K' * cap * S = 32 * 8 * 4
+    # = 1024 lanes per node, delivery's under "on" apply_queue_cap * S =
+    # 512 (one warp per block at cap 1024: 74.6 KB of shared memory)
+    n, r, c = 1000, 512, 6
+    state = populated_table(rng, n, r, c, dev)
+    routed = routed_box(*to_dev(random_lanes(rng, n, r, c, n * 400)),
+                        n, c, 512)
+    check("routed_1000x3072x512_cols6", state, routed, 512, c)
+    del routed
+    box3 = sync_box(random_lanes(rng, n, r, c, n * 1024), c, dev)
+    c3_before, c3_after = check("sync_1000x3072x1024_cols6", state, box3,
+                                1024, c)
+    c3_ms = time_in_place_ms(launch(1024, c, box3), c3_before, 20)
+    c3_plain_ms = time_ms(
+        lambda: mk.grouped_merge_reference(*c3_before, box3, 1024, c), 5,
+        batch=5)
+    c3_work = mk.merge_work(c3_before, box3, 1024, c, c3_after)
+    c3_bound_ms, c3_bound_by = mk.bound_ms(c3_work)
+    empty3 = box3.clone()
+    empty3[mk.LANE_VALID] = 0
+    state = populated_table(rng, n, r, c, dev)
+    pre, got = check("all_invalid_1000x3072x1024_cols6", state, empty3,
+                     1024, c)
+    if not all(torch.equal(a, b) for a, b in zip(pre, got)):
+        raise AssertionError("an all-invalid cap-1024 mailbox changed the "
+                             "table")
+    del state, box3, empty3, pre, got, c3_before, c3_after
+    torch.cuda.empty_cache()
+    config3_kernel = {
+        "shape": {"nodes": n, "cells": r * c, "cols": c, "cap": 1024},
+        "kernel_ms": c3_ms, "plain_ms": c3_plain_ms,
+        "bound_ms": c3_bound_ms, "bound_by": c3_bound_by,
+        "bytes": c3_work[0], "ops": c3_work[1],
+        "share_of_bound": c3_bound_ms / c3_ms,
+        "smem_bytes_per_warp": mk.build_kernel().grouped_merge_smem_bytes(
+            1024, r * c, c),
+    }
+
     emit({"phase": "kernel_check", "kernel": "grouped_merge",
           "cases": cases, "bit_equal": True, "shape": shape,
           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
@@ -223,13 +275,15 @@ def main() -> int:
           "sector_bytes": sector_bytes,
           "sector_bound_ms": 1e3 * sector_bytes / mk.HBM_BYTES_PER_S,
           "share_of_bound": bound_ms / kernel_ms,
-          "all_invalid_ms": empty_ms, "all_invalid_bound_ms": empty_bound_ms})
+          "all_invalid_ms": empty_ms, "all_invalid_bound_ms": empty_bound_ms,
+          "config3": config3_kernel})
     max_abs_err = max(x["max_abs_err"] for x in cases)
 
     # ------------------------------------ the main path at full size
-    def drive(cfg):
-        """One seeded run of the cell to convergence, the merge kernel's
-        launch count read around it; returns the run's JSON record."""
+    def drive(cfg, schedule=None, run_args=RUN_ARGS):
+        """One seeded run of the cell (to convergence, under the slice's
+        schedule and arguments by default), the merge kernel's launch
+        count read around it; returns the run's JSON record and result."""
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -237,7 +291,8 @@ def main() -> int:
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         mk.reset_launch_counts()
-        res = run_sim(cfg, state, slice_schedule(), device="cuda", **RUN_ARGS)
+        res = run_sim(cfg, state, schedule or slice_schedule(),
+                      device="cuda", **run_args)
         torch.cuda.synchronize()
         launches = dict(mk.LAUNCHES)
         del state
@@ -257,7 +312,7 @@ def main() -> int:
                "wall_per_round_ms": res.wall_per_round_ms,
                "max_memory_allocated": torch.cuda.max_memory_allocated(),
                "tables_agree": uniform, "launches": launches}
-        return rec, res.metrics
+        return rec, res
 
     def check_run(label, rec, want_round):
         if rec["rounds_to_convergence"] is None or rec["final_gap"] != 0.0:
@@ -276,13 +331,15 @@ def main() -> int:
                 f"{label}: expected one kernel launch per sync sweep "
                 f"({sweeps}), counted {got}")
 
-    slice_rec, _ = drive(slice_config())
+    slice_rec, res = drive(slice_config())
+    del res
     emit(dict(phase="slice", **slice_rec))
     check_run("10k-node slice", slice_rec, SLICE_ROUNDS)
 
     # ------------- SWIM on: bit checks against the JAX package's digests
     digests = {}
-    for case, want in DIGESTS.items():
+    for case in SWIM_DIGEST_CASES:
+        want = DIGESTS[case]
         cfg = digest_config(case)
         res = run_sim(cfg, init_state(cfg, seed=0, device="cuda"),
                       slice_schedule(), device="cuda", **DIGEST_RUN_ARGS)
@@ -298,7 +355,9 @@ def main() -> int:
 
     # ------------------ SWIM on: config 0 exactly, 10 000 nodes
     cfg = slice_config(swim=True)
-    swim_rec, m = drive(cfg)
+    swim_rec, res = drive(cfg)
+    m = res.metrics
+    del res
     swim_max = {k: int(m[k].max()) for k in
                 ("swim_suspects", "swim_down", "swim_probe_failures")}
     emit(dict(phase="swim_slice", swim_interval=cfg.swim_interval,
@@ -332,17 +391,92 @@ def main() -> int:
           "differing": diff})
     if diff or l_on == 0 or l_off != 0:
         raise AssertionError("merge_kernel='on' and 'off' runs differ")
+    del runs, s_on, s_off, m_on, m_off
+    torch.cuda.empty_cache()
 
+    # ------- config 3 exactly, 1000 nodes: multi-cell, multi-chunk
+    cfg = config3_config(1000)
+    c3_rec, res = drive(cfg, config3_schedule(), CONFIG3_RUN_ARGS)
+    got = run_digest(state_to_numpy(res.state), res.metrics)
+    m = res.metrics
+    del res
+    emit(dict(
+        phase="config3", seqs_per_version=cfg.seqs_per_version,
+        chunks_per_version=cfg.chunks_per_version,
+        rows=cfg.num_rows, cols=cfg.num_cols,
+        digest=got, match=got == DIGESTS["config3_1000"],
+        max_buffered_partials=int(m["buffered_partials"].max()),
+        sync_cells=int(m["sync_cells"].sum()),
+        cells_written=int(m["cells_written"].sum()),
+        dropped_window=int(m["dropped_window"].sum()),
+        log_wrapped_max=int(m["log_wrapped"].max()),
+        **c3_rec))
+    check_run("config-3 cluster", c3_rec, CONFIG3_ROUNDS)
+    if got != DIGESTS["config3_1000"]:
+        raise AssertionError("config 3 on the card differs from the JAX "
+                             "package's run")
+    del m
+    torch.cuda.empty_cache()
+
+    # ------- config 3's shape at 10 000 nodes, a fixed number of rounds
+    cfg = config3_config(10000)
+    c3k_rec, res = drive(cfg, config3_schedule(), dict(
+        max_rounds=CONFIG3_10K_ROUNDS, chunk=8, seed=0,
+        stop_on_convergence=False))
+    m = res.metrics
+    del res
+    emit(dict(
+        phase="config3_10k", max_buffered_partials=int(
+            m["buffered_partials"].max()),
+        sync_cells=int(m["sync_cells"].sum()),
+        cells_written=int(m["cells_written"].sum()),
+        log_wrapped_max=int(m["log_wrapped"].max()),
+        **{k: v for k, v in c3k_rec.items() if k != "tables_agree"}))
+    if c3k_rec["rounds_run"] != CONFIG3_10K_ROUNDS or m["log_wrapped"].any():
+        raise AssertionError("config 3 at 10k: the run stopped early or the "
+                             "change log wrapped")
+    sweeps, got = c3k_rec["sync_sweeps"], c3k_rec["launches"]["grouped_merge"]
+    if got != sweeps or sweeps == 0:
+        raise AssertionError(f"config 3 at 10k: expected one kernel launch "
+                             f"per sync sweep ({sweeps}), counted {got}")
+    del m
+    torch.cuda.empty_cache()
+
+    # --------- config 3's kernel arm against its scatter arm, whole run:
+    # delivery merges S = 4 cells per lane (cap 512), the sweep cap 1024
+    runs = {}
+    for arm in ("on", "off"):
+        cfg_arm = config3_config(256, arm)
+        mk.reset_launch_counts()
+        res = run_sim(
+            cfg_arm, init_state(cfg_arm, seed=0, device="cuda"),
+            config3_schedule(), max_rounds=48, chunk=8, seed=0,
+            stop_on_convergence=False, device="cuda",
+        )
+        runs[arm] = (state_to_numpy(res.state), res.metrics,
+                     mk.LAUNCHES["grouped_merge"])
+    (s_on, m_on, l3_on), (s_off, m_off, l3_off) = runs["on"], runs["off"]
+    diff = [k for k in s_off if not np.array_equal(s_on[k], s_off[k])]
+    diff += [k for k in m_off if not np.array_equal(m_on[k], m_off[k])]
+    emit({"phase": "kernel_vs_scatter_config3", "nodes": 256, "rounds": 48,
+          "launches_on": l3_on, "launches_off": l3_off,
+          "state_leaves": len(s_off), "metrics": len(m_off),
+          "partials_max": int(m_off["buffered_partials"].max()),
+          "differing": diff})
+    if diff or l3_on == 0 or l3_off != 0:
+        raise AssertionError("config 3: merge_kernel='on' and 'off' runs "
+                             "differ")
+
+    by_path = {label: rec["launches"]["grouped_merge"] for label, rec in (
+        ("slice", slice_rec), ("swim_slice", swim_rec), ("config3", c3_rec),
+        ("config3_10k", c3k_rec))}
     emit({"kernels": [{
         "name": "grouped_merge",
         "route": "cuda",
         "source": "corro_sim_torch/core/csrc/merge_kernel.cu",
         "replaces": "corro_sim/core/merge_kernel.py:184",
-        "launches": (slice_rec["launches"]["grouped_merge"]
-                     + swim_rec["launches"]["grouped_merge"]),
-        "launches_by_path": {
-            "slice": slice_rec["launches"]["grouped_merge"],
-            "swim_slice": swim_rec["launches"]["grouped_merge"]},
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -350,6 +484,8 @@ def main() -> int:
         "bound_out_of_place_ms": bound_oop_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "config3_cap1024": {k: config3_kernel[k] for k in (
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -6,8 +6,9 @@ gathers and the CRDT merge. The merge routes through the mailbox and
 :func:`~corro_sim_torch.core.merge_kernel.grouped_merge` when
 ``kernel_supported(cfg, "delivery", device)`` says so, and through the
 scatter merge :func:`~corro_sim_torch.core.crdt.apply_cell_changes`
-otherwise. Only single-chunk configs are ported
-(``chunks_per_version == 1``).
+otherwise. Single-chunk configs (``chunks_per_version == 1``) pack
+``(dst, actor)`` into one sort key and carry a constant chunk plane;
+multi-chunk configs sort on four keys and carry the permuted chunks.
 """
 
 from __future__ import annotations
@@ -56,19 +57,21 @@ def delivery_pass(cfg, table, book, log, hlc, dst, src, actor, ver, chunk,
     mailbox path ``table`` is merged in place (consumed)."""
     n = cfg.num_nodes
     s = cfg.seqs_per_version
-    if cfg.chunks_per_version != 1:
-        raise NotImplementedError("chunks_per_version > 1 is not ported")
+    cpv = cfg.chunks_per_version
     dev = dst.device
 
     sort_dst = torch.where(delivered, dst, n + 1)
-    if (n + 2) * (n + 2) < 2 ** 31:
-        # pack (dst, actor) into one key
+    if cpv == 1 and (n + 2) * (n + 2) < 2 ** 31:
+        # pack (dst, actor) into one key; chunk is identically 0
         order = lexsort((ver, sort_dst * (n + 2) + actor))
     else:
-        order = lexsort((ver, actor, sort_dst))
+        order = lexsort((chunk, ver, actor, sort_dst))
     dst, src, actor, ver = dst[order], src[order], actor[order], ver[order]
     delivered = delivered[order]
-    chunk = torch.zeros(dst.shape, dtype=torch.int32, device=dev)
+    if cpv == 1:
+        chunk = torch.zeros(dst.shape, dtype=torch.int32, device=dev)
+    else:
+        chunk = chunk[order]
 
     # HLC merge: every delivered message carries the sender's clock
     hlc_recv = scatter_max(
@@ -83,7 +86,8 @@ def delivery_pass(cfg, table, book, log, hlc, dst, src, actor, ver, chunk,
     overcap = delivered & (rankd >= cfg.apply_queue_cap)
     delivered = delivered & ~overcap
     book, fresh_chunk, complete, dropped = deliver_versions(
-        book, dst, actor, ver, delivered
+        book, dst, actor, ver, delivered,
+        chunk=None if cpv == 1 else chunk, bits_per_version=cpv,
     )
     dropped = dropped | overcap
     g_actor = torch.where(complete, actor, 0)

@@ -2,8 +2,10 @@
 
 Port of ``corro_sim/engine/step.py`` for the configurations
 :func:`~corro_sim_torch.config.validate_torch_slice` admits (faults,
-probes, RTT rings and the latency ring off; one cell and one chunk per
-changeset). Round structure:
+probes, RTT rings and the latency ring off). A version is one
+transaction's changeset of up to ``seqs_per_version`` cells, gossiped as
+``chunks_per_version`` chunks; a receiver buffers partial versions and
+merges a version once every chunk arrived. Round structure:
 
   local writes -> eager ring-0 broadcast -> gossip dissemination ->
   delivery + bookkeeping + CRDT merge -> rebroadcast of fresh changes ->
@@ -62,7 +64,7 @@ STEP_KEY_STREAMS = (
     "col",     # [2] write target column
     "val",     # [3] written value
     "del",     # [4] delete coin
-    "ncell",   # [5] cells-per-changeset draw (unconsumed by 1-cell cfgs)
+    "ncell",   # [5] cells-per-changeset draw (multi-cell configs only)
     "bcast",   # [6] gossip broadcast targets
     "swim",    # [7] SWIM probe, exchanges and announce
     "sync",    # [8] anti-entropy partner + payload
@@ -91,6 +93,35 @@ def _i32(x: int, device) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.int32, device=device)
 
 
+def _tile_chunks(cpv: int, *arrays):
+    """Repeat each lane ``cpv`` times, appending a chunk index array."""
+    out = [a.repeat_interleave(cpv) for a in arrays]
+    n = arrays[0].shape[0]
+    chunk = torch.arange(cpv, dtype=torch.int32,
+                         device=arrays[0].device).repeat(n)
+    return (*out, chunk)
+
+
+def _write_cells(cfg: SimConfig, k_col, k_ncell, n: int, dev):
+    """``(w_col (n, S), w_ncells (n,))``: each writer's changeset touches
+    1..min(S, num_cols) distinct columns of its row (a transaction
+    writing several columns, one seq-numbered cell each); unused cell
+    lanes are zero-padded and masked by ``w_ncells``."""
+    s = cfg.seqs_per_version
+    s_eff = min(s, cfg.num_cols)
+    if s_eff > 1:
+        w_ncells = prng.randint(k_ncell, (n,), 1, s_eff + 1, dev)
+        w_col = torch.argsort(
+            prng.uniform(k_col, (n, cfg.num_cols), dev), dim=1, stable=True,
+        ).to(torch.int32)[:, :s_eff]
+    else:
+        w_ncells = torch.ones((n,), dtype=torch.int32, device=dev)
+        w_col = prng.randint(k_col, (n, 1), 0, cfg.num_cols, dev)
+    if w_col.shape[1] < s:
+        w_col = torch.nn.functional.pad(w_col, (0, s - w_col.shape[1]))
+    return w_col, w_ncells
+
+
 def sim_step(
     cfg: SimConfig,
     state: SimState,
@@ -115,9 +146,10 @@ def sim_step(
         return _repair_step(cfg, state, key, alive, part, round_idx)
     n = cfg.num_nodes
     s = cfg.seqs_per_version
+    cpv = cfg.chunks_per_version
     dev = state.hlc.device
     rows_idx = torch.arange(n, dtype=torch.int32, device=dev)
-    (k_write, k_row, k_col, k_val, k_del, _k_ncell, k_bcast, k_swim,
+    (k_write, k_row, k_col, k_val, k_del, k_ncell, k_bcast, k_swim,
      k_sync) = prng.split(key, len(STEP_KEY_STREAMS))
     reach = _reachable_fn(alive, part)
     view = membership_view(cfg, state.swim, n)
@@ -136,8 +168,9 @@ def sim_step(
     w_del = (
         prng.uniform(k_del, (n,), dev) < torch.tensor(cfg.delete_rate, **f32)
     ) & writers
-    w_col = prng.randint(k_col, (n, 1), 0, cfg.num_cols, dev)
-    w_ncells = torch.ones((n,), dtype=torch.int32, device=dev)
+    w_col, w_ncells = _write_cells(cfg, k_col, k_ncell, n, dev)
+    # a DELETE is one cl-only change
+    w_ncells = torch.where(w_del, 1, w_ncells)
     w_val = prng.randint(k_val, (n, s), 0, cfg.value_universe, dev)
     w_row_s = w_row[:, None].expand(n, s)
 
@@ -190,22 +223,23 @@ def sim_step(
     )
 
     # ------------------------------------------------- eager ring-0 messages
+    # every chunk of a fresh local changeset goes to every ring-0 peer
     r0 = state.ring0.shape[1]
-    e_dst = state.ring0.reshape(-1)
-    e_src = rows_idx.repeat_interleave(r0)
-    e_ver = w_ver.repeat_interleave(r0)
-    e_valid = writers.repeat_interleave(r0)
+    e_dst, e_src, e_ver, e_valid, e_chunk = _tile_chunks(
+        cpv, state.ring0.reshape(-1), rows_idx.repeat_interleave(r0),
+        w_ver.repeat_interleave(r0), writers.repeat_interleave(r0),
+    )
 
     # ------------------------------------------------- gossip dissemination
     gossip, g_dst, g_src, g_actor, g_ver, g_chunk, g_valid = broadcast_step(
         state.gossip, k_bcast, alive, view, cfg.fanout,
-        emit_slots=cfg.emit_slots, need_chunk=False,
+        emit_slots=cfg.emit_slots, need_chunk=cpv > 1,
     )
     dst = torch.cat([e_dst, g_dst])
     src = torch.cat([e_src, g_src])
     actor = torch.cat([e_src, g_actor])
     ver = torch.cat([e_ver, g_ver])
-    chunk = torch.cat([torch.zeros_like(e_dst), g_chunk])
+    chunk = torch.cat([e_chunk, g_chunk])
     valid = torch.cat([e_valid, g_valid])
     msgs_sent = valid.sum(dtype=torch.int32)
     delivered = valid & reach(src, dst)
@@ -218,10 +252,25 @@ def sim_step(
     table, book = dv.table, dv.book
 
     # ------------------------------------------------- rebroadcast + enqueue
-    gossip = enqueue_own(
-        gossip, rows_idx, w_ver, torch.zeros_like(rows_idx), writers,
-        cfg.max_transmissions, 1,
-    )
+    if cpv <= cfg.pend_slots:
+        # own-write lanes are node-major with cpv lanes per node, so the
+        # ring-slot rank is the lane index
+        gossip = enqueue_own(
+            gossip, rows_idx.repeat_interleave(cpv),
+            w_ver.repeat_interleave(cpv),
+            torch.arange(cpv, dtype=torch.int32, device=dev).repeat(n),
+            writers, cfg.max_transmissions, cpv,
+        )
+    else:
+        # degenerate ring (cpv > pend_slots): the grouped path's overflow
+        # rotation picks which chunks survive
+        wq_dst, wq_actor, wq_ver, wq_valid, wq_chunk = _tile_chunks(
+            cpv, rows_idx, rows_idx, w_ver, writers
+        )
+        gossip = enqueue_broadcasts(
+            gossip, wq_dst, wq_actor, wq_ver, wq_chunk, wq_valid,
+            cfg.max_transmissions, grouped=True,
+        )
     gossip = enqueue_broadcasts(
         gossip, dv.dst, dv.actor, dv.ver, dv.chunk, dv.fresh_chunk,
         cfg.rebroadcast_transmissions, grouped=True,
@@ -260,7 +309,8 @@ def sim_step(
         "fresh": dv.complete.sum(dtype=torch.int32),
         "fresh_chunks": dv.fresh_chunk.sum(dtype=torch.int32),
         "gossip_cells": dv.cell_live.sum(dtype=torch.int32),
-        "buffered_partials": partial_versions(book, 1),
+        "buffered_partials": partial_versions(
+            book, cfg.chunks_per_version),
         "dropped_window": dv.dropped.sum(dtype=torch.int32),
         "queue_overflow": gossip.overflow,
         "pend_live": (gossip.pend_tx > 0).sum(dtype=torch.int32),
@@ -401,7 +451,8 @@ def _repair_step(cfg, state: SimState, key, alive, part, round_idx: int):
         "fresh": zero,
         "fresh_chunks": zero,
         "gossip_cells": zero,
-        "buffered_partials": partial_versions(book, 1),
+        "buffered_partials": partial_versions(
+            book, cfg.chunks_per_version),
         "dropped_window": zero,
         "queue_overflow": state.gossip.overflow,
         "pend_live": (state.gossip.pend_tx > 0).sum(dtype=torch.int32),

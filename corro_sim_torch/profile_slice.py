@@ -1,14 +1,17 @@
 """Where a round of the port's main path spends its time.
 
-    python -m corro_sim_torch.profile_slice [--swim] [--out DIR]
+    python -m corro_sim_torch.profile_slice [--swim | --config3] [--out DIR]
 
 Defines the slice's cells — the north-star cluster with SWIM off and,
 with ``--swim``, exactly as the JAX package's config 0 (full-view SWIM,
-narrow layout), its partition schedule and run arguments — which
-``chip_smoke.py`` drives too, and the SWIM-on digest runs both hold
-against the JAX package. Runs one cell on the card from the same seed:
-once to warm the allocator and the kernel build (discarded), then three
-times:
+narrow layout), its partition schedule and run arguments; and the JAX
+package's config 3 (the Consul-schema cluster with multi-cell,
+multi-chunk changesets) — which ``chip_smoke.py`` drives too, and the
+digest runs both hold against the JAX package. Runs one cell on the card
+from the same seed (``--config3``: config 3 at 1000 nodes over its first
+128 rounds, ``CONFIG3_PROFILE_ARGS``: the write phase, the drain and the
+start of the repair tail): once to warm the allocator and the kernel
+build (discarded), then three times:
 
 1. plain, timed — the wall per round a user sees;
 2. with each stage of the step wrapped in a device synchronize and a
@@ -25,7 +28,8 @@ times:
    device time per launch from run 3.
 
 Prints one JSON object and writes it, with the full kernel table, to
-``DIR/profile_slice.json`` (``profile_slice_swim.json`` with ``--swim``).
+``DIR/profile_slice.json`` (``profile_slice_swim.json`` with ``--swim``,
+``profile_slice_config3.json`` with ``--config3``).
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ STAGES = (
     (step_mod, "enqueue_broadcasts"),
     (step_mod, "sync_round"),
     (step_mod, "_gap"),
+    (step_mod, "partial_versions"),  # 32 // cpv passes over the window
     (step_mod, "_swim_block"),  # SWIM tick rounds and skipped rounds
     (step_mod, "swim_step"),  # the SWIM tick alone
     (sync_mod, "choose_sync_peers"),
@@ -99,9 +104,48 @@ def slice_config(n: int = 10000, merge_kernel: str = "auto",
     )
 
 
+# The Consul-services schema's table layout (the JAX package's
+# TableLayout(parse_and_constrain(consul_schema_sql()),
+# default_capacity=256)): two tables at 256 row slots each, six value
+# columns. The port keeps it as a constant; a parity test holds it equal.
+CONSUL_ROWS, CONSUL_COLS = 512, 6
+
+
+def config3_config(n: int = 1000, merge_kernel: str = "auto") -> SimConfig:
+    """The JAX package's config 3 (``corro_sim/benchmarks.py:567-593``,
+    the realism configuration) at ``n`` nodes, exactly: the Consul
+    schema's layout, zipf 1.1 hot rows, changesets of up to 4 cells
+    gossiped as 2 chunks, full-view SWIM (wide layout, a tick every
+    round), sync every 8 rounds with 16 actors per peer."""
+    return SimConfig(
+        num_nodes=n, num_rows=CONSUL_ROWS, num_cols=CONSUL_COLS,
+        log_capacity=512, write_rate=0.5, zipf_alpha=1.1,
+        seqs_per_version=4, chunks_per_version=2, swim_enabled=True,
+        sync_interval=8, sync_actor_topk=16, merge_kernel=merge_kernel,
+    )
+
+
+def config3_schedule() -> Schedule:
+    """Config 3's schedule: writes for 32 rounds, everybody up."""
+    return Schedule(write_rounds=32)
+
+
+# run_sim arguments of config 3, as the JAX package's _sim_report runs it
+CONFIG3_RUN_ARGS = dict(max_rounds=4096, chunk=8, seed=0)
+
+# the window of config 3 that --config3 profiles: the 32 write rounds,
+# the drain and the start of the repair tail
+CONFIG3_PROFILE_ARGS = dict(max_rounds=128, chunk=8, seed=0,
+                            stop_on_convergence=False)
+
+# the SWIM-on digest runs (digest_config, DIGEST_RUN_ARGS, slice_schedule)
+SWIM_DIGEST_CASES = ("config0_1024", "windowed_256")
+
+
 def digest_config(case: str) -> SimConfig:
-    """The configurations of :data:`DIGESTS`: config 0 at 1024 nodes, and
-    config 0's shape at 256 nodes with windowed SWIM."""
+    """The configurations of the SWIM-on digests: config 0 at 1024 nodes,
+    and config 0's shape at 256 nodes with windowed SWIM. (The config-3
+    digest's run is ``config3_config(1000)``.)"""
     if case == "config0_1024":
         return slice_config(1024, swim=True)
     return dataclasses.replace(
@@ -116,15 +160,18 @@ DIGEST_RUN_ARGS = dict(max_rounds=24, chunk=8, seed=0,
 
 # sha256 (run_digest) of the state and metric series after the digest
 # runs. Made with the JAX package on the CPU: run_sim of digest_config(
-# case) from init_state(cfg, seed=0) under the same schedule and
-# arguments, its state flattened by jax.tree_util.keystr (leading dot
-# dropped) and its metrics as run_sim returned them. The port matches
-# them on every device.
+# case) from init_state(cfg, seed=0) — the SWIM cases under
+# slice_schedule() and DIGEST_RUN_ARGS, config 3 under config3_schedule()
+# and CONFIG3_RUN_ARGS, to convergence — its state flattened by
+# jax.tree_util.keystr (leading dot dropped) and its metrics as run_sim
+# returned them. The port matches them on every device.
 DIGESTS = {
     "config0_1024":
         "e5e2f46901a6fe6edce729ad662605a2b76c6d67409b818e09cf1ea349680140",
     "windowed_256":
         "3ff3f989bbfe501b20313b9db490ac3b265180d9e129f68acb5a28a9caea3860",
+    "config3_1000":
+        "76478f214e3b261a2736b916e53c707a19f191cbabcadb6150851132241a438b",
 }
 
 
@@ -191,7 +238,12 @@ def _swim_ranges():
 
 
 def _run(cfg, device):
+    """One seeded run of a cell: config 3 (multi-chunk) over its profiled
+    window, the north-star cells to convergence."""
     state = init_state(cfg, seed=0, device=device)
+    if cfg.chunks_per_version > 1:
+        return run_sim(cfg, state, config3_schedule(), device=device,
+                       **CONFIG3_PROFILE_ARGS)
     return run_sim(cfg, state, slice_schedule(), device=device, **RUN_ARGS)
 
 
@@ -276,11 +328,15 @@ def _busy_ms(intervals) -> float:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="bench_out")
-    ap.add_argument("--swim", action="store_true",
-                    help="profile the cell with SWIM on (config 0 exactly)")
+    cell = ap.add_mutually_exclusive_group()
+    cell.add_argument("--swim", action="store_true",
+                      help="profile the cell with SWIM on (config 0 exactly)")
+    cell.add_argument("--config3", action="store_true",
+                      help="profile config 3 at 1000 nodes (its first 128 "
+                           "rounds)")
     args = ap.parse_args(argv)
     device = torch.device("cuda")
-    cfg = slice_config(swim=args.swim)
+    cfg = config3_config() if args.config3 else slice_config(swim=args.swim)
 
     _run(cfg, device)  # warm-up: allocator growth, kernel build
     torch.cuda.reset_peak_memory_stats(device)
@@ -289,6 +345,9 @@ def main(argv=None) -> dict:
     smi = mp.nvidia_smi()
     report = {
         "nodes": cfg.num_nodes, "swim": cfg.swim_enabled,
+        "seqs_per_version": cfg.seqs_per_version,
+        "chunks_per_version": cfg.chunks_per_version,
+        "repair_chunks": plain.repair_chunks,
         "card": torch.cuda.get_device_name(device),
         "nvidia_smi": smi, "rounds": rounds,
         "converged_round": plain.converged_round,
@@ -385,7 +444,9 @@ def main(argv=None) -> dict:
         "bounded_launches": len(works),
     }
     os.makedirs(args.out, exist_ok=True)
-    name = "profile_slice_swim.json" if args.swim else "profile_slice.json"
+    name = ("profile_slice_config3.json" if args.config3
+            else "profile_slice_swim.json" if args.swim
+            else "profile_slice.json")
     with open(os.path.join(args.out, name), "w") as f:
         json.dump(dict(report, kernels=table), f, indent=1)
     print(json.dumps(report))

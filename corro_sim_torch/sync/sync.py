@@ -171,6 +171,9 @@ def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
     req = cfg.sync_req_actors or 2 * kp
     kprime = min(req, kp * p_cnt, a)
     cap = cfg.sync_cap_per_actor
+    bpv = cfg.chunks_per_version
+    vwin = WINDOW_BITS // bpv
+    group_mask = (1 << bpv) - 1
     rows = torch.arange(n, dtype=torch.int32, device=dev)
     rows_l = rows.long()
     s = log.seqs
@@ -250,13 +253,18 @@ def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
     )
     site_l = torch.where(vr == NEG, NEG, actor_l[:, None].expand(m, s))
 
-    # cells the receiver already buffered via gossip do not ship
+    # seq-granular partial serving (SyncNeedV1::Partial): cells whose
+    # chunk the receiver already buffered via gossip do not ship, while
+    # the merge applies the whole changeset. Served versions are base +
+    # o, so the window offset of version o is o - 1.
     win_k = book.win[rows_l[:, None], topa_l]  # (N, K') int64
-    voff_o = (offs - 1).clamp(0, WINDOW_BITS - 1).long()
+    chunk_of_seq = torch.arange(s, dtype=torch.int64, device=dev) * bpv // s
+    voff_o = (offs - 1).clamp(0, vwin - 1).long()
+    bit_off = voff_o[:, None] * bpv + chunk_of_seq[None, :]  # (cap, S)
     buffered = (
-        ((win_k[:, :, None] >> voff_o[None, None, :]) & 1) != 0
-    ) & ((offs - 1) < WINDOW_BITS)[None, None, :]  # (N, K', cap); S == 1
-    shipped = cell_live & ~buffered.reshape(m, 1)
+        ((win_k[:, :, None, None] >> bit_off[None, None]) & 1) != 0
+    ) & ((offs - 1) < vwin)[None, None, :, None]  # (N, K', cap, S)
+    shipped = cell_live & ~buffered.reshape(m, s)
 
     if kernel_supported(cfg, "sync", dev):
         # sync lanes are node-major by construction: the mailbox is a
@@ -294,9 +302,9 @@ def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
     # versions already complete in the window came via gossip and were
     # counted then
     already = torch.zeros(take.shape, dtype=torch.int32, device=dev)
-    for o in range(min(cap, WINDOW_BITS)):
-        g = (win_k >> o) & 1
-        already = already + ((g == 1) & (o < take)).to(torch.int32)
+    for o in range(min(cap, vwin)):
+        g = (win_k >> (o * bpv)) & group_mask
+        already = already + ((g == group_mask) & (o < take)).to(torch.int32)
     new_versions = (take - already).sum(dtype=torch.int32)
     empties = (valid_l & cleared_l).sum(dtype=torch.int32)
 
@@ -305,7 +313,7 @@ def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
         cleared_hlc[g_actor_l.long(), g_slot_l.long()], valid_l & cleared_l,
     )
 
-    book = advance_heads(book, floor, 1)
+    book = advance_heads(book, floor, bpv)
 
     metrics = {
         "sync_pairs": granted.sum(dtype=torch.int32),

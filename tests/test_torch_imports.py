@@ -13,8 +13,10 @@ import pytest
 import torch
 
 from corro_sim_torch import config as pconfig
+from corro_sim_torch import prng
 from corro_sim_torch.engine.driver import run_sim
 from corro_sim_torch.engine.state import init_state
+from corro_sim_torch.gossip.broadcast import broadcast_step, make_gossip_state
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "corro_sim_torch").rglob("*.py")) + [
@@ -78,8 +80,8 @@ def test_entry_points_refuse_without_cuda():
 
 
 @pytest.mark.parametrize("change", [
-    dict(swim_enabled=True, rtt_rings=True), dict(seqs_per_version=2),
-    dict(chunks_per_version=2), dict(sync_hot_actors=0),
+    dict(swim_enabled=True, rtt_rings=True), dict(emit_slots=4, pend_slots=8),
+    dict(emit_slots=1), dict(sync_hot_actors=0),
     dict(sync_deal_probes=1), dict(probes=1), dict(rtt_rings=True),
     dict(latency_regions=2), dict(faults=pconfig.FaultConfig(loss=0.1)),
     dict(node_faults=pconfig.NodeFaultConfig(skew=((0, 3),))),
@@ -97,4 +99,37 @@ def test_unported_features_are_refused(change):
 ], ids=["full_view_wide", "full_view_narrow", "windowed"])
 def test_swim_configs_are_admitted(swim):
     cfg = dataclasses.replace(_small_cfg(), **swim)
+    assert pconfig.validate_torch_slice(cfg) is cfg
+
+
+def test_emit_slots_cap_is_refused_up_front():
+    """Config 6's egress shape (emit_slots 4 < pend_slots 8) passes the
+    JAX package's own validation, and the port used to admit it too, so
+    it failed in round 1 inside broadcast_step; now validate_torch_slice
+    and init_state refuse it before anything runs."""
+    cfg = dataclasses.replace(_small_cfg(), emit_slots=4, pend_slots=8)
+    assert cfg.validate() is cfg
+    with pytest.raises(NotImplementedError, match="emit_slots"):
+        pconfig.validate_torch_slice(cfg)
+    with pytest.raises(NotImplementedError, match="emit_slots"):
+        init_state(cfg, device="cpu")
+    # the step itself still refuses the cap, as it did mid-run
+    with pytest.raises(NotImplementedError, match="emit_slots"):
+        broadcast_step(
+            make_gossip_state(8, 8, "cpu"), prng.PRNGKey(0),
+            torch.ones(8, dtype=torch.bool),
+            torch.ones((1, 8), dtype=torch.bool), 2, emit_slots=4,
+        )
+    # emit_slots 0 (service every slot) or >= pend_slots stays admitted
+    for emit in (0, 8, 12):
+        ok = dataclasses.replace(cfg, emit_slots=emit)
+        assert pconfig.validate_torch_slice(ok) is ok
+
+
+@pytest.mark.parametrize("change", [
+    dict(seqs_per_version=4, chunks_per_version=2),
+    dict(seqs_per_version=8), dict(chunks_per_version=32),
+], ids=["config3_shape", "multi_cell", "max_chunks"])
+def test_multi_cell_multi_chunk_configs_are_admitted(change):
+    cfg = dataclasses.replace(_small_cfg(), **change)
     assert pconfig.validate_torch_slice(cfg) is cfg

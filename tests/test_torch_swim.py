@@ -38,6 +38,7 @@ from corro_sim_torch.membership import swim_window as p_win
 from corro_sim_torch.profile_slice import (
     DIGEST_RUN_ARGS,
     DIGESTS,
+    SWIM_DIGEST_CASES,
     digest_config,
     run_digest,
     slice_schedule,
@@ -386,7 +387,7 @@ def test_since_wrap_past_round_256_bit_identical():
     _assert_runs_equal(ref, got)
 
 
-@pytest.mark.parametrize("case", sorted(DIGESTS))
+@pytest.mark.parametrize("case", sorted(SWIM_DIGEST_CASES))
 def test_swim_digest(case):
     """The port on the CPU reproduces the digests of the JAX package's
     runs that chip_smoke.py holds the card to."""
