@@ -16,14 +16,23 @@ scatter arm. Then the same for multi-cell, multi-chunk changesets: the
 JAX package's config 3 (the Consul-schema cluster: 4-cell changesets in
 2 chunks) at its own 1000 nodes to convergence, held to the round and
 the digest of the JAX package's run; config 3's shape at 10 000 nodes
-for 64 rounds; and its kernel arm against its scatter arm. Every phase
-prints one JSON line; any failure raises and exits non-zero. The last line is ``{"ok": true, "device": {...}}``.
+for 64 rounds; and its kernel arm against its scatter arm. Then the
+workload engine and trace replay: the batched half of the JAX package's
+config 6 (Zipf + churn-storm traffic through ``run_sim(workload=...)``
+under an egress cap) at 1000 nodes, held to the JAX package's round and
+digest, and at its own 10 000 nodes to convergence; its kernel arm
+against its scatter arm; and the replay of the repository's
+``corro-api-types`` changeset fixtures, held to the JAX package's final
+tables, rounds and digests. Every phase prints one JSON line; any
+failure raises and exits non-zero. The last line is
+``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 import time
@@ -39,6 +48,19 @@ SWIM_SLICE_ROUNDS = 22
 CONFIG3_ROUNDS = 1144
 # rounds of config 3's shape run at 10 000 nodes
 CONFIG3_10K_ROUNDS = 64
+# config 6's kernel arm against its scatter arm: nodes and rounds; the
+# row count is pinned to 2048 (config 6's formula gives 2046 at 256
+# nodes) so that the 4096-cell space lets the kernel run
+CONFIG6_TWIN_NODES, CONFIG6_TWIN_ROUNDS, CONFIG6_TWIN_ROWS = 256, 48, 2048
+
+# The converged tables of tests/fixtures/replay_parity.ndjson on every
+# node, hand-derived from the reference's semantics (the JAX package's
+# tests/test_replay_parity.py::EXPECTED).
+REPLAY_EXPECTED = {
+    ("tests", (1,)): {"text": "hello world 1 bis"},
+    ("tests", (2,)): {"text": "zzz"},
+    ("tests", (3,)): {"text": "three v2"},
+}
 
 
 def emit(obj) -> None:
@@ -54,8 +76,10 @@ def main() -> int:
     from corro_sim_torch.convert import state_to_numpy
     from corro_sim_torch.core import merge_kernel as mk
     from corro_sim_torch.core.crdt import apply_cell_changes, make_table_state
-    from corro_sim_torch.engine.driver import run_sim
+    from corro_sim_torch.engine.driver import Schedule, run_sim
+    from corro_sim_torch.engine.replay import read_table, replay
     from corro_sim_torch.engine.state import init_state
+    from corro_sim_torch.io.traces import ingest_file
     from corro_sim_torch.merge_probe import (
         nvidia_smi,
         populated_table,
@@ -66,12 +90,20 @@ def main() -> int:
     )
     from corro_sim_torch.profile_slice import (
         CONFIG3_RUN_ARGS,
+        CONFIG6_DIGEST_EXCLUDE,
+        CONFIG6_ROUNDS,
+        CONFIG6_RUN_ARGS,
         DIGEST_RUN_ARGS,
         DIGESTS,
+        REPLAY_CASES,
+        REPLAY_MAX_ROUNDS,
+        REPLAY_ROUNDS,
         RUN_ARGS,
         SWIM_DIGEST_CASES,
         config3_config,
         config3_schedule,
+        config6_config,
+        config6_workload,
         digest_config,
         run_digest,
         slice_config,
@@ -265,6 +297,32 @@ def main() -> int:
             1024, r * c, c),
     }
 
+    # config 6's shape at 10 000 nodes: 2048 x 2 cells (the cols-2
+    # template instance); the sweep's mailbox holds K' * cap * S =
+    # min(64, 32 * 10, A) * 8 * 1 = 512 lanes per node
+    n, r, c, cap6 = 10000, 2048, 2, 512
+    state = populated_table(rng, n, r, c, dev)
+    box6 = sync_box(random_lanes(rng, n, r, c, n * cap6), c, dev)
+    c6_before, c6_after = check(f"sync_{n}x{r * c}x{cap6}_cols{c}", state,
+                                box6, cap6, c)
+    c6_ms = time_in_place_ms(launch(cap6, c, box6), c6_before, 20)
+    c6_plain_ms = time_ms(
+        lambda: mk.grouped_merge_reference(*c6_before, box6, cap6, c), 5,
+        batch=5)
+    c6_work = mk.merge_work(c6_before, box6, cap6, c, c6_after)
+    c6_bound_ms, c6_bound_by = mk.bound_ms(c6_work)
+    del state, box6, c6_before, c6_after
+    torch.cuda.empty_cache()
+    config6_kernel = {
+        "shape": {"nodes": n, "cells": r * c, "cols": c, "cap": cap6},
+        "kernel_ms": c6_ms, "plain_ms": c6_plain_ms,
+        "bound_ms": c6_bound_ms, "bound_by": c6_bound_by,
+        "bytes": c6_work[0], "ops": c6_work[1],
+        "share_of_bound": c6_bound_ms / c6_ms,
+    }
+    emit(dict(phase="kernel_check_config6", kernel="grouped_merge",
+              bit_equal=True, **config6_kernel))
+
     emit({"phase": "kernel_check", "kernel": "grouped_merge",
           "cases": cases, "bit_equal": True, "shape": shape,
           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
@@ -280,7 +338,7 @@ def main() -> int:
     max_abs_err = max(x["max_abs_err"] for x in cases)
 
     # ------------------------------------ the main path at full size
-    def drive(cfg, schedule=None, run_args=RUN_ARGS):
+    def drive(cfg, schedule=None, run_args=RUN_ARGS, workload=None):
         """One seeded run of the cell (to convergence, under the slice's
         schedule and arguments by default), the merge kernel's launch
         count read around it; returns the run's JSON record and result."""
@@ -292,7 +350,7 @@ def main() -> int:
         init_s = time.perf_counter() - t0
         mk.reset_launch_counts()
         res = run_sim(cfg, state, schedule or slice_schedule(),
-                      device="cuda", **run_args)
+                      device="cuda", workload=workload, **run_args)
         torch.cuda.synchronize()
         launches = dict(mk.LAUNCHES)
         del state
@@ -307,6 +365,8 @@ def main() -> int:
                "final_gap": float(res.metrics["gap"][-1]),
                "sync_sweeps": int(res.state.sync_rounds),
                "writes": int(res.metrics["writes"].sum()),
+               "deletes": int(res.metrics["deletes"].sum()),
+               "log_wrapped_max": int(res.metrics["log_wrapped"].max()),
                "setup_s": init_s + res.setup_seconds,
                "sim_s": res.wall_seconds,
                "wall_per_round_ms": res.wall_per_round_ms,
@@ -409,7 +469,6 @@ def main() -> int:
         sync_cells=int(m["sync_cells"].sum()),
         cells_written=int(m["cells_written"].sum()),
         dropped_window=int(m["dropped_window"].sum()),
-        log_wrapped_max=int(m["log_wrapped"].max()),
         **c3_rec))
     check_run("config-3 cluster", c3_rec, CONFIG3_ROUNDS)
     if got != DIGESTS["config3_1000"]:
@@ -430,7 +489,6 @@ def main() -> int:
             m["buffered_partials"].max()),
         sync_cells=int(m["sync_cells"].sum()),
         cells_written=int(m["cells_written"].sum()),
-        log_wrapped_max=int(m["log_wrapped"].max()),
         **{k: v for k, v in c3k_rec.items() if k != "tables_agree"}))
     if c3k_rec["rounds_run"] != CONFIG3_10K_ROUNDS or m["log_wrapped"].any():
         raise AssertionError("config 3 at 10k: the run stopped early or the "
@@ -467,9 +525,143 @@ def main() -> int:
         raise AssertionError("config 3: merge_kernel='on' and 'off' runs "
                              "differ")
 
+    del runs, s_on, s_off, m_on, m_off
+    torch.cuda.empty_cache()
+
+    # ------- config 6 exactly, 1000 nodes: the workload engine, emit cap
+    # (2046 rows: 4092 cells, so every merge takes the scatter arm)
+    wl = config6_workload(1000)
+    cfg = config6_config(1000)
+    c6_rec, res = drive(cfg, Schedule(), CONFIG6_RUN_ARGS, workload=wl)
+    got = run_digest(state_to_numpy(res.state), res.metrics,
+                     exclude=CONFIG6_DIGEST_EXCLUDE)
+    del res
+    emit(dict(phase="config6_1000", spec=wl.spec, rows=cfg.num_rows,
+              emit_slots=cfg.emit_slots, pend_slots=cfg.pend_slots,
+              schedule_writes=wl.total_writes,
+              schedule_deletes=wl.total_deletes, digest=got,
+              match=got == DIGESTS["config6_1000"], **c6_rec))
+    if (c6_rec["rounds_to_convergence"] != CONFIG6_ROUNDS
+            or c6_rec["final_gap"] != 0.0 or got != DIGESTS["config6_1000"]):
+        raise AssertionError("config 6 at 1000 nodes differs from the JAX "
+                             "package's run")
+    if (c6_rec["writes"], c6_rec["deletes"]) != (wl.total_writes,
+                                                 wl.total_deletes):
+        raise AssertionError("config 6 at 1000 nodes: writes or deletes "
+                             "differ from the schedule's")
+    if not c6_rec["tables_agree"] or c6_rec["log_wrapped_max"]:
+        raise AssertionError("config 6 at 1000 nodes: replicas disagree or "
+                             "the change log wrapped")
+    if c6_rec["launches"]["grouped_merge"] != 0:
+        raise AssertionError("config 6 at 1000 nodes has 4092 cells: no "
+                             "kernel launch expected")
+    del wl
+    torch.cuda.empty_cache()
+
+    # ------- config 6 exactly, 10 000 nodes, to convergence
+    t0 = time.perf_counter()
+    wl = config6_workload(10000)
+    gen_s = time.perf_counter() - t0
+    cfg = config6_config(10000)
+    c6k_rec, res = drive(cfg, Schedule(), CONFIG6_RUN_ARGS, workload=wl)
+    stage_s = res.stage_seconds
+    del res
+    emit(dict(phase="config6_10k", spec=wl.spec, rows=cfg.num_rows,
+              emit_slots=cfg.emit_slots, pend_slots=cfg.pend_slots,
+              schedule_writes=wl.total_writes,
+              schedule_deletes=wl.total_deletes,
+              schedule_generation_s=gen_s, schedule_staging_s=stage_s,
+              **c6k_rec))
+    if c6k_rec["rounds_to_convergence"] is None or c6k_rec["final_gap"]:
+        raise AssertionError("config 6 at 10k did not converge")
+    if not c6k_rec["tables_agree"] or c6k_rec["log_wrapped_max"]:
+        raise AssertionError("config 6 at 10k: replicas disagree or the "
+                             "change log wrapped")
+    if (c6k_rec["writes"], c6k_rec["deletes"]) != (wl.total_writes,
+                                                   wl.total_deletes):
+        raise AssertionError("config 6 at 10k: writes or deletes differ "
+                             "from the schedule's")
+    sweeps, got = c6k_rec["sync_sweeps"], c6k_rec["launches"]["grouped_merge"]
+    if got != sweeps or sweeps == 0:
+        raise AssertionError(f"config 6 at 10k: expected one kernel launch "
+                             f"per sync sweep ({sweeps}), counted {got}")
+    del wl
+    torch.cuda.empty_cache()
+
+    # --------- config 6's kernel arm against its scatter arm, whole run:
+    # delivery under the emit window at cap 128, the sweep at cap 512
+    runs = {}
+    wl = config6_workload(CONFIG6_TWIN_NODES)
+    for arm in ("on", "off"):
+        cfg_arm = dataclasses.replace(config6_config(CONFIG6_TWIN_NODES, arm),
+                                      num_rows=CONFIG6_TWIN_ROWS)
+        mk.reset_launch_counts()
+        res = run_sim(
+            cfg_arm, init_state(cfg_arm, seed=0, device="cuda"), Schedule(),
+            max_rounds=CONFIG6_TWIN_ROUNDS, chunk=8, seed=0,
+            stop_on_convergence=False, device="cuda", workload=wl,
+        )
+        runs[arm] = (state_to_numpy(res.state), res.metrics,
+                     mk.LAUNCHES["grouped_merge"])
+    (s_on, m_on, l6_on), (s_off, m_off, l6_off) = runs["on"], runs["off"]
+    diff = [k for k in s_off if not np.array_equal(s_on[k], s_off[k])]
+    diff += [k for k in m_off if not np.array_equal(m_on[k], m_off[k])]
+    emit({"phase": "kernel_vs_scatter_config6", "nodes": CONFIG6_TWIN_NODES,
+          "rows": CONFIG6_TWIN_ROWS, "rounds": CONFIG6_TWIN_ROUNDS,
+          "launches_on": l6_on, "launches_off": l6_off,
+          "state_leaves": len(s_off), "metrics": len(m_off),
+          "writes": int(m_off["writes"].sum()), "differing": diff})
+    if diff or l6_on == 0 or l6_off != 0:
+        raise AssertionError("config 6: merge_kernel='on' and 'off' runs "
+                             "differ")
+    del runs, s_on, s_off, m_on, m_off, wl
+    torch.cuda.empty_cache()
+
+    # ------- trace replay of the corro-api-types changeset fixtures
+    replays = {}
+    replay_launches = 0
+    for case, (path, overrides) in REPLAY_CASES.items():
+        trace = ingest_file(path)
+        cfg = trace.suggest_config(**overrides)
+        mk.reset_launch_counts()
+        res = replay(trace, cfg, max_rounds=REPLAY_MAX_ROUNDS, device="cuda")
+        torch.cuda.synchronize()
+        replay_launches += mk.LAUNCHES["grouped_merge"]
+        got = run_digest(state_to_numpy(res.state), res.metrics)
+        tables = [read_table(res.state, trace, i)
+                  for i in range(cfg.num_nodes)]
+        cleared = res.state.log.cleared.cpu().numpy()
+        replays[case] = {
+            "actors": trace.num_actors, "rounds": trace.rounds,
+            "nodes": cfg.num_nodes, "converged_round": res.converged_round,
+            "poisoned": res.poisoned, "digest": got,
+            "match": got == DIGESTS[case],
+            "tables_agree": all(t == tables[0] for t in tables),
+        }
+        if case == "replay_parity":
+            replays[case]["tables_expected"] = all(
+                t == REPLAY_EXPECTED for t in tables)
+            replays[case]["cleared_0_3_and_0_1"] = bool(
+                cleared[0, 3] and cleared[0, 1])
+        del res
+    emit({"phase": "replay", "cases": replays,
+          "launches": replay_launches})
+    for case, rec in replays.items():
+        if (rec["converged_round"] != REPLAY_ROUNDS[case] or not rec["match"]
+                or not rec["tables_agree"]):
+            raise AssertionError(f"replay of {case} differs from the JAX "
+                                 "package's")
+    rp = replays["replay_parity"]
+    if not (rp["tables_expected"] and rp["cleared_0_3_and_0_1"]):
+        raise AssertionError("replay of replay_parity.ndjson does not reach "
+                             "the expected tables and cleared versions")
+
     by_path = {label: rec["launches"]["grouped_merge"] for label, rec in (
         ("slice", slice_rec), ("swim_slice", swim_rec), ("config3", c3_rec),
-        ("config3_10k", c3k_rec))}
+        ("config3_10k", c3k_rec), ("config6_1000", c6_rec),
+        ("config6_10k", c6k_rec))}
+    by_path["kernel_vs_scatter_config6"] = l6_on
+    by_path["replay"] = replay_launches
     emit({"kernels": [{
         "name": "grouped_merge",
         "route": "cuda",
@@ -485,6 +677,8 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
         "config3_cap1024": {k: config3_kernel[k] for k in (
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
+        "config6_cap512": {k: config6_kernel[k] for k in (
             "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
     }]})
     print(smi, flush=True)

@@ -725,8 +725,6 @@ def validate_torch_slice(cfg: SimConfig) -> SimConfig:
     Returns ``cfg`` (validated) so callers can chain it."""
     cfg.validate()
     refusals = (
-        (0 < cfg.emit_slots < cfg.pend_slots,
-         "0 < emit_slots < pend_slots (queue 1: emit_slots egress cap)"),
         (cfg.sync_hot_actors == 0,
          "sync_hot_actors == 0 (queue 1: legacy sync schedule)"),
         (cfg.sync_deal_probes > 0,

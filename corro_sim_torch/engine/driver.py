@@ -128,10 +128,27 @@ class RunResult:
     wall_seconds: float  # chunk execution wall, device-synchronized
     setup_seconds: float  # kernel build/load before the first chunk
     poisoned: bool = False  # change-log ring wrapped past a live laggard
+    stage_seconds: float = 0.0  # of wall_seconds: workload schedule
+    # uploads, host to device
 
     @property
     def wall_per_round_ms(self) -> float:
         return 1000.0 * self.wall_seconds / max(self.rounds, 1)
+
+
+def metrics_to_numpy(per_round: list) -> dict:
+    """Per-round metric dicts of device scalars → ``name -> (rounds,)``
+    numpy series, in two transfers: the integer metrics as int32, ``gap``
+    as float32."""
+    ikeys = [k for k in sorted(per_round[0]) if k != "gap"]
+    i_stack = torch.stack([
+        torch.stack([m[k] for m in per_round]).to(torch.int32)
+        for k in ikeys
+    ]).cpu().numpy()
+    gaps = torch.stack([m["gap"] for m in per_round]).cpu().numpy()
+    out = {k: i_stack[j] for j, k in enumerate(ikeys)}
+    out["gap"] = gaps.astype(np.float32)
+    return out
 
 
 def _sync(device: torch.device) -> None:
@@ -149,6 +166,7 @@ def run_sim(
     stop_on_convergence: bool = True,
     min_rounds: int | None = None,
     device=None,
+    workload=None,
 ) -> RunResult:
     """Run ``state`` forward in chunks of ``chunk`` rounds until
     convergence (or ``max_rounds``) — the JAX package's sequential
@@ -159,7 +177,15 @@ def run_sim(
 
     ``device``: where the run happens (default ``cuda``; the state must
     already live there). ``min_rounds``: do not test convergence before
-    this round (default: the write phase length)."""
+    this round (default: the write phase length).
+
+    ``workload``: a compiled
+    :class:`~corro_sim_torch.workload.generators.Workload`. Its load
+    phase is the write phase (``schedule.write_rounds`` extends to its
+    rounds), and every full chunk feeds its rows through ``sim_step``'s
+    ``writes`` port in place of the sampler; the rows are uploaded once
+    per chunk, and past the schedule's end one all-idle chunk is
+    uploaded once and reused."""
     validate_torch_slice(cfg)
     want = resolve_device(device)
     if state.hlc.device.type != want.type:
@@ -168,6 +194,12 @@ def run_sim(
         )
     dev = state.hlc.device
     schedule = schedule or Schedule()
+    if workload is not None:
+        workload.validate(cfg)
+        if schedule.write_rounds < workload.rounds:
+            schedule = dataclasses.replace(
+                schedule, write_rounds=workload.rounds
+            )
     if min_rounds is None:
         min_rounds = schedule.write_rounds
     n = cfg.num_nodes
@@ -191,6 +223,25 @@ def run_sim(
     wall = 0.0
     last_pend_live = None
     repair_chunks = 0
+    stage_seconds = 0.0
+    idle_writes = None
+
+    def stage_writes(base: int) -> tuple:
+        """The chunk's write-schedule rows on the device."""
+        nonlocal idle_writes, stage_seconds
+        if base >= workload.rounds and idle_writes is not None:
+            return idle_writes
+        t = time.perf_counter()
+        staged = tuple(
+            torch.as_tensor(x, device=dev)
+            for x in workload.slice(base, chunk, cfg.seqs_per_version)
+        )
+        _sync(dev)
+        stage_seconds += time.perf_counter() - t
+        if base >= workload.rounds:
+            idle_writes = staged
+        return staged
+
     ci = 0
     while rounds < max_rounds:
         alive, part, we = schedule.slice(rounds, chunk, n)
@@ -202,22 +253,18 @@ def run_sim(
         t_chunk = time.perf_counter()
         alive_t = torch.as_tensor(alive, device=dev)
         part_t = torch.as_tensor(part, device=dev)
+        staged = (stage_writes(rounds)
+                  if workload is not None and not use_repair else None)
         per_round = []
         for r in range(chunk):
             state, m = sim_step(
                 cfg, state, keys[r], alive_t[r], part_t[r], bool(we[r]),
                 round0 + rounds + r, repair=use_repair,
+                writes=None if staged is None else tuple(
+                    x[r] for x in staged),
             )
             per_round.append(m)
-        names = sorted(per_round[0])
-        ikeys = [k for k in names if k != "gap"]
-        i_stack = torch.stack([
-            torch.stack([m[k] for m in per_round]).to(torch.int32)
-            for k in ikeys
-        ]).cpu().numpy()
-        gaps = torch.stack([m["gap"] for m in per_round]).cpu().numpy()
-        m_np = {k: i_stack[j] for j, k in enumerate(ikeys)}
-        m_np["gap"] = gaps.astype(np.float32)
+        m_np = metrics_to_numpy(per_round)
         _sync(dev)
         wall += time.perf_counter() - t_chunk
         if use_repair:
@@ -248,4 +295,5 @@ def run_sim(
         wall_seconds=wall,
         setup_seconds=setup_seconds,
         poisoned=poisoned,
+        stage_seconds=stage_seconds,
     )

@@ -122,39 +122,14 @@ def _write_cells(cfg: SimConfig, k_col, k_ncell, n: int, dev):
     return w_col, w_ncells
 
 
-def sim_step(
-    cfg: SimConfig,
-    state: SimState,
-    key,
-    alive: torch.Tensor,  # (N,) bool ground truth
-    part: torch.Tensor,  # (N,) int32 partition id
-    write_enable: bool,  # workload phase switch
-    round_idx: int,  # ``state.round`` as the host counts it
-    repair: bool = False,
-):
-    """Advance the cluster one round; returns ``(state, metrics)``.
-
-    The step consumes ``state``: the mailbox merge updates table planes
-    in place (on the repair step, ``state.table`` itself), so the caller
-    must not read ``state`` afterwards; the returned state may share its
-    tensors. The JAX package's ``run_sim(donate=True)`` is the precedent.
-
-    ``repair``: the post-quiesce specialization (:func:`_repair_step`),
-    bit-for-bit this step while no writes run and every gossip ring is
-    drained."""
-    if repair:
-        return _repair_step(cfg, state, key, alive, part, round_idx)
-    n = cfg.num_nodes
-    s = cfg.seqs_per_version
-    cpv = cfg.chunks_per_version
-    dev = state.hlc.device
-    rows_idx = torch.arange(n, dtype=torch.int32, device=dev)
-    (k_write, k_row, k_col, k_val, k_del, k_ncell, k_bcast, k_swim,
-     k_sync) = prng.split(key, len(STEP_KEY_STREAMS))
-    reach = _reachable_fn(alive, part)
-    view = membership_view(cfg, state.swim, n)
-
-    # ---------------------------------------------------------- local writes
+def _sample_writes(cfg: SimConfig, state: SimState, write_keys, alive,
+                   write_enable: bool):
+    """The sampler's round of local writes, in the ``writes`` tuple's
+    form: Bernoulli writers at ``write_rate``, Zipf rows from the
+    state's row distribution, deletes at ``delete_rate``."""
+    k_write, k_row, k_col, k_val, k_del, k_ncell = write_keys
+    n, s = cfg.num_nodes, cfg.seqs_per_version
+    dev = alive.device
     f32 = dict(dtype=torch.float32, device=dev)
     writers = (
         (prng.uniform(k_write, (n,), dev) < torch.tensor(cfg.write_rate, **f32))
@@ -172,7 +147,59 @@ def sim_step(
     # a DELETE is one cl-only change
     w_ncells = torch.where(w_del, 1, w_ncells)
     w_val = prng.randint(k_val, (n, s), 0, cfg.value_universe, dev)
-    w_row_s = w_row[:, None].expand(n, s)
+    return writers, w_row[:, None].expand(n, s), w_col, w_val, w_del, w_ncells
+
+
+def sim_step(
+    cfg: SimConfig,
+    state: SimState,
+    key,
+    alive: torch.Tensor,  # (N,) bool ground truth
+    part: torch.Tensor,  # (N,) int32 partition id
+    write_enable: bool,  # workload phase switch
+    round_idx: int,  # ``state.round`` as the host counts it
+    repair: bool = False,
+    writes: tuple | None = None,
+):
+    """Advance the cluster one round; returns ``(state, metrics)``.
+
+    The step consumes ``state``: the mailbox merge updates table planes
+    in place (on the repair step, ``state.table`` itself), so the caller
+    must not read ``state`` afterwards; the returned state may share its
+    tensors. The JAX package's ``run_sim(donate=True)`` is the precedent.
+
+    ``writes``: when None, the sampler draws this round's local writes.
+    Otherwise the round's changesets as tensors ``(writers (N,) bool,
+    rows (N, S) int32, cols (N, S) int32, vals (N, S) int32, dels (N,)
+    bool, ncells (N,) int32)`` — a compiled workload's round or a live
+    agent's accepted transactions — replace the sampler: none of its
+    draws run, the key split stays the same, and ``write_enable`` is
+    ignored.
+
+    ``repair``: the post-quiesce specialization (:func:`_repair_step`),
+    bit-for-bit this step while no writes run and every gossip ring is
+    drained; it takes no ``writes``."""
+    if repair:
+        return _repair_step(cfg, state, key, alive, part, round_idx)
+    n = cfg.num_nodes
+    s = cfg.seqs_per_version
+    cpv = cfg.chunks_per_version
+    dev = state.hlc.device
+    rows_idx = torch.arange(n, dtype=torch.int32, device=dev)
+    (k_write, k_row, k_col, k_val, k_del, k_ncell, k_bcast, k_swim,
+     k_sync) = prng.split(key, len(STEP_KEY_STREAMS))
+    reach = _reachable_fn(alive, part)
+    view = membership_view(cfg, state.swim, n)
+
+    # ---------------------------------------------------------- local writes
+    if writes is not None:
+        writers, w_row_s, w_col, w_val, w_del, w_ncells = writes
+        writers = writers & alive
+        w_del = w_del & writers
+    else:
+        writers, w_row_s, w_col, w_val, w_del, w_ncells = _sample_writes(
+            cfg, state, (k_write, k_row, k_col, k_val, k_del, k_ncell),
+            alive, write_enable)
 
     table, ch_cv, ch_cl, ch_vr = local_write(
         state.table, rows_idx, w_row_s, w_col, w_val, w_del, w_ncells, writers
@@ -233,7 +260,7 @@ def sim_step(
     # ------------------------------------------------- gossip dissemination
     gossip, g_dst, g_src, g_actor, g_ver, g_chunk, g_valid = broadcast_step(
         state.gossip, k_bcast, alive, view, cfg.fanout,
-        emit_slots=cfg.emit_slots, need_chunk=cpv > 1,
+        emit_slots=cfg.emit_slots, round_idx=round_idx, need_chunk=cpv > 1,
     )
     dst = torch.cat([e_dst, g_dst])
     src = torch.cat([e_src, g_src])

@@ -2,8 +2,9 @@
 
 Port of ``corro_sim/gossip/broadcast.py``. Each node owns a ring of
 pending broadcasts ``(N, P, 4)`` int32 — ``[actor, ver, chunk, tx]`` per
-slot. One round, every live slot goes to ``fanout`` random members the
-sender believes are up and spends one transmission
+slot. One round, every live serviced slot (all of them, or an
+``emit_slots`` window) goes to ``fanout`` random members the sender
+believes are up and spends one transmission
 (``broadcast/mod.rs:532-597``); receivers re-enqueue fresh changes
 (``handlers.rs:950-960``); a full ring overwrites and counts overflow
 (``handlers.rs:866-884``).
@@ -148,6 +149,30 @@ def enqueue_own(
     )
 
 
+def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values wrapped to the int32 range, as int32 arithmetic
+    wraps (two's complement)."""
+    return ((x + 2 ** 31) & 0xFFFFFFFF) - 2 ** 31
+
+
+def serviced_slots(n: int, p: int, e: int, round_idx: int,
+                   device) -> torch.Tensor:
+    """``(N, E)`` int64 ring slots each node services this round under
+    an egress cap of ``e < p`` slots: a window that advances by ``e``
+    every round, offset per node by a static phase so nodes decorrelate.
+
+    The JAX package computes ``round_idx * e`` and ``node * 0x9E37`` in
+    int32 (wrapping past 2**31, which ``node * 0x9E37`` does beyond
+    53 020 nodes) and then takes the remainder with the divisor's sign;
+    so does this, in int64 carriers."""
+    rnd = torch.tensor(round_idx, dtype=torch.int64, device=device)
+    base = _wrap_i32(_wrap_i32(rnd) * e) % p
+    node = torch.arange(n, dtype=torch.int64, device=device)
+    node_phase = _wrap_i32(node * 0x9E37) % p
+    lane = torch.arange(e, dtype=torch.int64, device=device)
+    return (base + node_phase[:, None] + lane[None, :]) % p
+
+
 def broadcast_step(
     gossip: GossipState,
     key,
@@ -155,22 +180,32 @@ def broadcast_step(
     target_alive_view,  # (1, N) or (N, N) believed up, or a callable
     fanout: int,
     emit_slots: int = 0,
+    round_idx: int = 0,
     need_chunk: bool = True,
 ):
     """Emit one round of gossip; decrement transmission budgets.
 
+    ``emit_slots`` (0 = all): egress cap per node per round — the
+    reference's bounded flush (``broadcast/mod.rs:378,394,446-455``). A
+    round-rotating window (:func:`serviced_slots` of ``round_idx``, the
+    round number) picks which slots are serviced; unserviced slots keep
+    their transmission budget and wait.
+
     Returns ``(gossip, dst, src, actor, ver, chunk, valid)`` flat lanes
-    of length ``N * serviced_slots * fanout``. Only ``emit_slots`` of 0
-    (service every slot) is ported."""
+    of length ``N * serviced_slots * fanout``."""
     n, p, _ = gossip.pend.shape
-    if emit_slots and emit_slots < p:
-        raise NotImplementedError("emit_slots < pend_slots is not ported")
+    e = p if not emit_slots or emit_slots >= p else emit_slots
     dev = gossip.pend.device
-    pend_e = gossip.pend
+    if e < p:
+        slot_ids = serviced_slots(n, p, e, round_idx, dev)
+        rows = torch.arange(n, device=dev)[:, None]
+        pend_e = gossip.pend[rows, slot_ids]  # (N, E, 4)
+    else:
+        pend_e = gossip.pend
     live = (pend_e[..., PEND_TX] > 0) & sender_alive[:, None]  # (N, E)
 
     tkey = prng.fold_in(key, BROADCAST_TARGET_KEY_TAG)
-    targets = prng.randint(tkey, (n, p, fanout), 0, n, dev)
+    targets = prng.randint(tkey, (n, e, fanout), 0, n, dev)
     src = torch.arange(n, dtype=torch.int32, device=dev)[:, None, None]
     src = src.expand(targets.shape)
     # a shared (1, N) view (SWIM off), the sender's row of an (N, N)
@@ -193,7 +228,12 @@ def broadcast_step(
     else:
         chunk = torch.zeros(dst.shape, dtype=torch.int32, device=dev)
     new_pend = gossip.pend.clone()
-    new_pend[..., PEND_TX] -= live.to(torch.int32)
+    if e < p:
+        # a node's serviced slots are distinct, so the update is a set
+        new_pend[rows, slot_ids, PEND_TX] = (
+            pend_e[..., PEND_TX] - live.to(torch.int32))
+    else:
+        new_pend[..., PEND_TX] -= live.to(torch.int32)
     return (
         dataclasses.replace(gossip, pend=new_pend),
         dst,

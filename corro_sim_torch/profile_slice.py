@@ -1,17 +1,22 @@
 """Where a round of the port's main path spends its time.
 
-    python -m corro_sim_torch.profile_slice [--swim | --config3] [--out DIR]
+    python -m corro_sim_torch.profile_slice [--swim | --config3 | --config6]
+                                            [--out DIR]
 
 Defines the slice's cells — the north-star cluster with SWIM off and,
 with ``--swim``, exactly as the JAX package's config 0 (full-view SWIM,
 narrow layout), its partition schedule and run arguments; and the JAX
 package's config 3 (the Consul-schema cluster with multi-cell,
-multi-chunk changesets) — which ``chip_smoke.py`` drives too, and the
-digest runs both hold against the JAX package. Runs one cell on the card
-from the same seed (``--config3``: config 3 at 1000 nodes over its first
-128 rounds, ``CONFIG3_PROFILE_ARGS``: the write phase, the drain and the
-start of the repair tail): once to warm the allocator and the kernel
-build (discarded), then three times:
+multi-chunk changesets); the batched half of the JAX package's config 6
+(Zipf + churn-storm service-discovery traffic from the workload engine
+under an egress cap); and the replay fixtures — which ``chip_smoke.py``
+drives too, and the digest runs hold against the JAX package. Runs one
+cell on the card from the same seed (``--config3``: config 3 at 1000
+nodes over its first 128 rounds, ``CONFIG3_PROFILE_ARGS``: the write
+phase, the drain and the start of the repair tail; ``--config6``: config
+6 at 10 000 nodes over its first 128 rounds, ``CONFIG6_PROFILE_ARGS``:
+the 64 load rounds and the drain): once to warm the allocator and the
+kernel build (discarded), then three times:
 
 1. plain, timed — the wall per round a user sees;
 2. with each stage of the step wrapped in a device synchronize and a
@@ -29,7 +34,8 @@ build (discarded), then three times:
 
 Prints one JSON object and writes it, with the full kernel table, to
 ``DIR/profile_slice.json`` (``profile_slice_swim.json`` with ``--swim``,
-``profile_slice_config3.json`` with ``--config3``).
+``profile_slice_config3.json`` with ``--config3``,
+``profile_slice_config6.json`` with ``--config6``).
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from corro_sim_torch.engine import step as step_mod
 from corro_sim_torch.engine.driver import Schedule, run_sim
 from corro_sim_torch.engine.state import init_state
 from corro_sim_torch.sync import sync as sync_mod
+from corro_sim_torch.workload import Workload, make_workload
 
 # (module, attribute) of each timed stage, as the step calls it
 STAGES = (
@@ -138,6 +145,56 @@ CONFIG3_RUN_ARGS = dict(max_rounds=4096, chunk=8, seed=0)
 CONFIG3_PROFILE_ARGS = dict(max_rounds=128, chunk=8, seed=0,
                             stop_on_convergence=False)
 
+# The JAX package's config 6, batched half (corro_sim/benchmarks.py:
+# 800-834): Zipf + churn-storm traffic over 2048 service keys, 64 load
+# rounds from seed 0, at 10 000 nodes by default.
+CONFIG6_SPEC = ("zipf:alpha=1.1,rate=0.3,keys=2048"
+                "+churn_storm:waves=6,batch=64,keys=2048")
+CONFIG6_LOAD_ROUNDS = 64
+
+
+def config6_workload(n: int = 10000) -> Workload:
+    """Config 6's write schedule for ``n`` nodes."""
+    return make_workload(CONFIG6_SPEC, n, rounds=CONFIG6_LOAD_ROUNDS, seed=0)
+
+
+def config6_config(n: int = 10000, merge_kernel: str = "auto") -> SimConfig:
+    """Config 6's batched half at ``n`` nodes, exactly: one row slot per
+    key the schedule touches (at least 256), two columns, an egress cap
+    of 4 of 8 ring slots per round, fanout 3, adaptive sync every 4
+    rounds. At 256 and 1000 nodes the schedule touches 2046 keys (4092
+    cells, not a multiple of 128, so every merge takes the scatter arm);
+    at 10 000 nodes 2048 (4096 cells: the kernel runs)."""
+    return SimConfig(
+        num_nodes=n, num_rows=max(config6_workload(n).key_universe(), 256),
+        num_cols=2, log_capacity=max(2 * CONFIG6_LOAD_ROUNDS, 256),
+        pend_slots=8, emit_slots=4, fanout=3, sync_interval=4,
+        sync_adaptive=True, merge_kernel=merge_kernel,
+    )
+
+
+# run_sim arguments of config 6, as the JAX package's run_config_6 runs it
+CONFIG6_RUN_ARGS = dict(max_rounds=4096, chunk=8, seed=0)
+# the round at which config 6 converges at 1000 nodes from seed 0, as the
+# JAX package's run does (the run behind DIGESTS["config6_1000"])
+CONFIG6_ROUNDS = 155
+# the window of config 6 that --config6 profiles: the load and the drain
+CONFIG6_PROFILE_ARGS = dict(max_rounds=128, chunk=8, seed=0,
+                            stop_on_convergence=False)
+
+# The replay fixtures: (path in the repository, config overrides on the
+# trace's suggest_config()); replayed with max_rounds=256. The first is
+# the JAX package's tests/test_replay_parity.py case.
+REPLAY_CASES = {
+    "replay_parity": ("tests/fixtures/replay_parity.ndjson", dict(
+        seqs_per_version=4, chunks_per_version=2, fanout=2,
+        sync_interval=2, pend_slots=8)),
+    "flyio_small": ("tests/fixtures/traces/flyio_small.ndjson", {}),
+}
+REPLAY_MAX_ROUNDS = 256
+# the round at which each replay converges, as the JAX package's does
+REPLAY_ROUNDS = {"replay_parity": 5, "flyio_small": 4}
+
 # the SWIM-on digest runs (digest_config, DIGEST_RUN_ARGS, slice_schedule)
 SWIM_DIGEST_CASES = ("config0_1024", "windowed_256")
 
@@ -162,9 +219,14 @@ DIGEST_RUN_ARGS = dict(max_rounds=24, chunk=8, seed=0,
 # runs. Made with the JAX package on the CPU: run_sim of digest_config(
 # case) from init_state(cfg, seed=0) — the SWIM cases under
 # slice_schedule() and DIGEST_RUN_ARGS, config 3 under config3_schedule()
-# and CONFIG3_RUN_ARGS, to convergence — its state flattened by
-# jax.tree_util.keystr (leading dot dropped) and its metrics as run_sim
-# returned them. The port matches them on every device.
+# and CONFIG3_RUN_ARGS, config 6 with workload=config6_workload(1000) and
+# CONFIG6_RUN_ARGS, to convergence — and replay of each REPLAY_CASES
+# fixture; the state flattened by jax.tree_util.keystr (leading dot
+# dropped) and the metrics as run_sim or replay returned them. The port
+# matches them on every device. The config-6 digest leaves out the "gap"
+# series (CONFIG6_DIGEST_EXCLUDE): at 1000 nodes its lag sums pass 2**24
+# in 13 rounds, where the JAX package's float32 sum rounds and the
+# port's int64 sum is exact (ROADMAP.md queue 3).
 DIGESTS = {
     "config0_1024":
         "e5e2f46901a6fe6edce729ad662605a2b76c6d67409b818e09cf1ea349680140",
@@ -172,14 +234,23 @@ DIGESTS = {
         "3ff3f989bbfe501b20313b9db490ac3b265180d9e129f68acb5a28a9caea3860",
     "config3_1000":
         "76478f214e3b261a2736b916e53c707a19f191cbabcadb6150851132241a438b",
+    "config6_1000":
+        "0e6304baae4d36fbde19efac54491cbbb4097a8fd87af43edbcd2d59f173e9c5",
+    "replay_parity":
+        "beb02da908031648cbfd69e7084c7148922f3051c27bc3185cf607ea235db26c",
+    "flyio_small":
+        "4e2fab708f86fe0a71fd2ef7ac625dd554bb1a06de22111f710a63e527673f6d",
 }
+CONFIG6_DIGEST_EXCLUDE = ("gap",)
 
 
-def run_digest(leaves: dict, metrics: dict) -> str:
+def run_digest(leaves: dict, metrics: dict, exclude=()) -> str:
     """sha256 over the state leaves in sorted path order, then the metric
-    series in sorted name order; each entry contributes its name, numpy
-    dtype, shape and bytes."""
+    series in sorted name order, leaving out the metrics named in
+    ``exclude``; each entry contributes its name, numpy dtype, shape and
+    bytes."""
     h = hashlib.sha256()
+    metrics = {k: v for k, v in metrics.items() if k not in exclude}
     for group in (leaves, metrics):
         for name in sorted(group):
             a = np.ascontiguousarray(group[name])
@@ -237,10 +308,14 @@ def _swim_ranges():
         step_mod.swim_step = fn
 
 
-def _run(cfg, device):
-    """One seeded run of a cell: config 3 (multi-chunk) over its profiled
-    window, the north-star cells to convergence."""
+def _run(cfg, device, workload=None):
+    """One seeded run of a cell: config 3 (multi-chunk) and config 6 (a
+    workload) over their profiled windows, the north-star cells to
+    convergence."""
     state = init_state(cfg, seed=0, device=device)
+    if workload is not None:
+        return run_sim(cfg, state, device=device, workload=workload,
+                       **CONFIG6_PROFILE_ARGS)
     if cfg.chunks_per_version > 1:
         return run_sim(cfg, state, config3_schedule(), device=device,
                        **CONFIG3_PROFILE_ARGS)
@@ -275,7 +350,7 @@ def _stage_timers(device, totals, counts):
             setattr(mod, name, fn)
 
 
-def _merge_bounds(cfg, device) -> list:
+def _merge_bounds(cfg, device, workload=None) -> list:
     """Run the cell with the sync sweep's merge wrapped; per launch, a
     dict of the merge's in-place and out-of-place work, its sector bytes
     and the mailbox's counts. The wrapper copies the pre-merge planes,
@@ -306,7 +381,7 @@ def _merge_bounds(cfg, device) -> list:
 
     sync_mod.merge_grouped = counted
     try:
-        _run(cfg, device)
+        _run(cfg, device, workload)
     finally:
         sync_mod.merge_grouped = merge
     return works
@@ -334,30 +409,42 @@ def main(argv=None) -> dict:
     cell.add_argument("--config3", action="store_true",
                       help="profile config 3 at 1000 nodes (its first 128 "
                            "rounds)")
+    cell.add_argument("--config6", action="store_true",
+                      help="profile config 6 at 10 000 nodes (its first "
+                           "128 rounds)")
     args = ap.parse_args(argv)
     device = torch.device("cuda")
-    cfg = config3_config() if args.config3 else slice_config(swim=args.swim)
+    wl = None
+    if args.config6:
+        cfg, wl = config6_config(), config6_workload()
+    elif args.config3:
+        cfg = config3_config()
+    else:
+        cfg = slice_config(swim=args.swim)
+    run = functools.partial(_run, cfg, device, wl)
 
-    _run(cfg, device)  # warm-up: allocator growth, kernel build
+    run()  # warm-up: allocator growth, kernel build
     torch.cuda.reset_peak_memory_stats(device)
-    plain = _run(cfg, device)
+    plain = run()
     rounds = plain.rounds
     smi = mp.nvidia_smi()
     report = {
         "nodes": cfg.num_nodes, "swim": cfg.swim_enabled,
         "seqs_per_version": cfg.seqs_per_version,
         "chunks_per_version": cfg.chunks_per_version,
+        "workload": None if wl is None else wl.spec,
         "repair_chunks": plain.repair_chunks,
         "card": torch.cuda.get_device_name(device),
         "nvidia_smi": smi, "rounds": rounds,
         "converged_round": plain.converged_round,
         "wall_per_round_ms": plain.wall_per_round_ms,
+        "stage_ms_per_round_workload": 1e3 * plain.stage_seconds / rounds,
         "max_memory_allocated": torch.cuda.max_memory_allocated(device),
     }
 
     totals, counts = defaultdict(float), defaultdict(int)
     with _stage_timers(device, totals, counts):
-        timed = _run(cfg, device)
+        timed = run()
     report["timed_wall_per_round_ms"] = timed.wall_per_round_ms
     report["stage_ms_per_round"] = {
         k: 1e3 * v / rounds for k, v in sorted(
@@ -374,7 +461,7 @@ def main(argv=None) -> dict:
     with _swim_ranges(), profile(activities=[ProfilerActivity.CPU,
                                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        profiled = _run(cfg, device)
+        profiled = run()
         torch.cuda.synchronize(device)
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events = prof.events()
@@ -422,7 +509,7 @@ def main(argv=None) -> dict:
         "top_kernels": table[:15],
     })
     merge_rows = [r for r in table if "grouped_merge" in r["kernel"]]
-    works = _merge_bounds(cfg, device)
+    works = _merge_bounds(cfg, device, wl)
     launches = sum(r["launches"] for r in merge_rows)
     def mean(f):
         return float(np.mean([f(w) for w in works]))
@@ -444,7 +531,8 @@ def main(argv=None) -> dict:
         "bounded_launches": len(works),
     }
     os.makedirs(args.out, exist_ok=True)
-    name = ("profile_slice_config3.json" if args.config3
+    name = ("profile_slice_config6.json" if args.config6
+            else "profile_slice_config3.json" if args.config3
             else "profile_slice_swim.json" if args.swim
             else "profile_slice.json")
     with open(os.path.join(args.out, name), "w") as f:

@@ -31,6 +31,12 @@ def test_port_imports_without_jax():
         "for m in pkgutil.walk_packages(corro_sim_torch.__path__,"
         " 'corro_sim_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "missing = [m for m in ('corro_sim_torch.utils.spec',"
+        " 'corro_sim_torch.workload.generators',"
+        " 'corro_sim_torch.workload.inject', 'corro_sim_torch.io.columns',"
+        " 'corro_sim_torch.io.values', 'corro_sim_torch.io.traces',"
+        " 'corro_sim_torch.engine.replay') if m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'corro_sim' or m.startswith('corro_sim.')]\n"
         "assert not bad, bad\n"
@@ -80,8 +86,9 @@ def test_entry_points_refuse_without_cuda():
 
 
 @pytest.mark.parametrize("change", [
-    dict(swim_enabled=True, rtt_rings=True), dict(emit_slots=4, pend_slots=8),
-    dict(emit_slots=1), dict(sync_hot_actors=0),
+    dict(swim_enabled=True, rtt_rings=True),
+    dict(emit_slots=4, pend_slots=8, sync_hot_actors=0),
+    dict(emit_slots=1, sync_deal_probes=2), dict(sync_hot_actors=0),
     dict(sync_deal_probes=1), dict(probes=1), dict(rtt_rings=True),
     dict(latency_regions=2), dict(faults=pconfig.FaultConfig(loss=0.1)),
     dict(node_faults=pconfig.NodeFaultConfig(skew=((0, 3),))),
@@ -103,23 +110,27 @@ def test_swim_configs_are_admitted(swim):
 
 
 def test_emit_slots_cap_is_refused_up_front():
-    """Config 6's egress shape (emit_slots 4 < pend_slots 8) passes the
-    JAX package's own validation, and the port used to admit it too, so
-    it failed in round 1 inside broadcast_step; now validate_torch_slice
-    and init_state refuse it before anything runs."""
+    """Config 6's egress shape (emit_slots 4 < pend_slots 8) is ported:
+    validate_torch_slice and init_state admit it and broadcast_step
+    services an emit_slots window. What stays refused up front, with or
+    without the cap, are the legacy and deal-probe sync schedules."""
     cfg = dataclasses.replace(_small_cfg(), emit_slots=4, pend_slots=8)
-    assert cfg.validate() is cfg
-    with pytest.raises(NotImplementedError, match="emit_slots"):
-        pconfig.validate_torch_slice(cfg)
-    with pytest.raises(NotImplementedError, match="emit_slots"):
-        init_state(cfg, device="cpu")
-    # the step itself still refuses the cap, as it did mid-run
-    with pytest.raises(NotImplementedError, match="emit_slots"):
-        broadcast_step(
-            make_gossip_state(8, 8, "cpu"), prng.PRNGKey(0),
-            torch.ones(8, dtype=torch.bool),
-            torch.ones((1, 8), dtype=torch.bool), 2, emit_slots=4,
-        )
+    assert pconfig.validate_torch_slice(cfg) is cfg
+    init_state(cfg, device="cpu")
+    for change, what in ((dict(sync_hot_actors=0), "legacy"),
+                         (dict(sync_deal_probes=1), "deal-probe")):
+        bad = dataclasses.replace(cfg, **change)
+        with pytest.raises(NotImplementedError, match=what):
+            pconfig.validate_torch_slice(bad)
+        with pytest.raises(NotImplementedError, match=what):
+            init_state(bad, device="cpu")
+    # the step services 4 of the 8 slots: 8 nodes x 4 slots x fanout 2
+    out = broadcast_step(
+        make_gossip_state(8, 8, "cpu"), prng.PRNGKey(0),
+        torch.ones(8, dtype=torch.bool),
+        torch.ones((1, 8), dtype=torch.bool), 2, emit_slots=4,
+    )
+    assert out[1].shape == (8 * 4 * 2,)
     # emit_slots 0 (service every slot) or >= pend_slots stays admitted
     for emit in (0, 8, 12):
         ok = dataclasses.replace(cfg, emit_slots=emit)

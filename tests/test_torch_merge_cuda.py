@@ -80,6 +80,8 @@ def _check(state, box, cap, cols):
     (64, 32, 4, 100),  # cap not a multiple of 32
     (1000, 512, 6, 1024),  # config 3's sync mailbox: one warp per block
     (1000, 512, 6, 512),  # config 3's delivery mailbox under "on"
+    (1000, 2048, 2, 512),  # config 6's sync mailbox (4096 cells)
+    (1000, 2048, 2, 128),  # config 6's delivery mailbox under "on"
 ])
 def test_cuda_kernel_matches_plain_version(dev, n, rows, cols, cap):
     rng = np.random.default_rng(n + rows + cols + cap)
