@@ -23,9 +23,15 @@ under an egress cap) at 1000 nodes, held to the JAX package's round and
 digest, and at its own 10 000 nodes to convergence; its kernel arm
 against its scatter arm; and the replay of the repository's
 ``corro-api-types`` changeset fixtures, held to the JAX package's final
-tables, rounds and digests. Every phase prints one JSON line; any
-failure raises and exits non-zero. The last line is
-``{"ok": true, "device": {...}}``.
+tables, rounds and digests. Then this slice: the kernel at config 5's
+8192-lane mailbox (merged tile by tile); the JAX package's config 4
+(the headline: its rate, ms per round and peak) at 10 000 nodes and its
+digest run; configs 5 and 7 at the node count the card's memory and the
+JAX package's one-device rules give, to convergence, and their digest
+runs; config 6 at 4000 nodes held to the JAX package's round and
+digest; and the pipelined driver against the sequential one. Every
+phase prints one JSON line with its seconds; any failure raises and
+exits non-zero. The last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.
 """
@@ -63,7 +69,15 @@ REPLAY_EXPECTED = {
 }
 
 
+_T0 = [time.perf_counter(), time.perf_counter()]
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line carries its seconds."""
+    now = time.perf_counter()
+    if "phase" in obj:
+        obj = dict(obj, phase_s=now - _T0[1], total_s=now - _T0[0])
+    _T0[1] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -81,6 +95,7 @@ def main() -> int:
     from corro_sim_torch.engine.state import init_state
     from corro_sim_torch.io.traces import ingest_file
     from corro_sim_torch.merge_probe import (
+        device_sync_box,
         nvidia_smi,
         populated_table,
         random_lanes,
@@ -88,8 +103,14 @@ def main() -> int:
         time_in_place_ms,
         time_ms,
     )
+    from corro_sim_torch.engine.state import clone_state, state_nbytes
     from corro_sim_torch.profile_slice import (
+        CONFIG_DIGEST_CASES,
         CONFIG3_RUN_ARGS,
+        CONFIG4_RUN_ARGS,
+        CONFIG5_RUN_ARGS,
+        CONFIG7_RUN_ARGS,
+        CONFIG_DIGEST_ROUNDS,
         CONFIG6_DIGEST_EXCLUDE,
         CONFIG6_ROUNDS,
         CONFIG6_RUN_ARGS,
@@ -102,12 +123,23 @@ def main() -> int:
         SWIM_DIGEST_CASES,
         config3_config,
         config3_schedule,
+        config4_config,
+        config4_rate,
+        config4_schedule,
+        config5_config,
+        config5_schedule,
         config6_config,
         config6_workload,
+        config7_config,
+        config7_schedule,
+        config_digest_case,
         digest_config,
         run_digest,
+        size_config5,
+        size_config7,
         slice_config,
         slice_schedule,
+        state_bytes,
     )
     from corro_sim_torch.utils.slots import ranks_within_group
 
@@ -323,6 +355,59 @@ def main() -> int:
     emit(dict(phase="kernel_check_config6", kernel="grouped_merge",
               bit_equal=True, **config6_kernel))
 
+    # config 5's sweep mailbox at its sized 16 384 nodes: K' * cap * S =
+    # 512 * 16 * 1 = 8192 lanes per node over 128 x 2 cells, more than a
+    # warp's share of shared memory: merged tile by tile in lane order
+    n, r, c, cap8 = 16384, 128, 2, 8192
+    tile = mk.merge_tile(cap8, r * c, c, dev)
+    state = populated_table(rng, n, r, c, dev)
+    box8 = device_sync_box(n, r, c, cap8, 5, dev)
+    c8_before, c8_after = check(f"sync_{n}x{r * c}x{cap8}_cols{c}", state,
+                                box8, cap8, c)
+    c8_ms = time_in_place_ms(launch(cap8, c, box8), c8_before, 10)
+    c8_plain_ms = time_ms(
+        lambda: mk.grouped_merge_reference(*c8_before, box8, cap8, c), 2,
+        batch=1)
+    c8_work = mk.merge_work(c8_before, box8, cap8, c, c8_after)
+    c8_bound_ms, c8_bound_by = mk.bound_ms(c8_work)
+    del state, c8_before, c8_after
+    # the tile boundary inside one row's lanes, and a delete at a higher
+    # cl in a later tile than a value at a lower cl, on node 0 of a box
+    # that holds nothing else
+    for label, lanes8 in (
+        ("tile_boundary_in_row", {
+            tile - 2: (10, 7, 10, 1, 1), tile - 1: (11, 9, 3, 2, 1),
+            tile: (10, 7, 11, 0, 1), tile + 1: (11, 9, 3, 3, 1),
+            tile + 2: (10, 2, 20, 1, 3)}),
+        ("later_tile_delete", {
+            3: (18, 5, 40, 2, 1), tile + 17: (19, 1, mk.NEG, 1, 2),
+            3 * tile + 1: (19, 6, 50, 3, 1)})):
+        one = torch.zeros((mk.LANE_FIELDS, 64 * cap8), dtype=torch.int32,
+                          device=dev)
+        for pos, fields in lanes8.items():
+            one[:5, pos] = torch.tensor(fields, dtype=torch.int32)
+            one[mk.LANE_VALID, pos] = 1
+        check(f"{label}_cap{cap8}", populated_table(rng, 64, r, c, dev),
+              one, cap8, c)
+    empty8 = box8[:, :64 * cap8].clone()
+    empty8[mk.LANE_VALID] = 0
+    state = populated_table(rng, 64, r, c, dev)
+    pre, got = check(f"all_invalid_cap{cap8}", state, empty8, cap8, c)
+    if not all(torch.equal(a, b) for a, b in zip(pre, got)):
+        raise AssertionError("an all-invalid cap-8192 mailbox changed the "
+                             "table")
+    del box8, empty8, one, state, pre, got
+    torch.cuda.empty_cache()
+    cap8_kernel = {
+        "shape": {"nodes": n, "cells": r * c, "cols": c, "cap": cap8},
+        "tile": tile, "kernel_ms": c8_ms, "plain_ms": c8_plain_ms,
+        "bound_ms": c8_bound_ms, "bound_by": c8_bound_by,
+        "bytes": c8_work[0], "ops": c8_work[1],
+        "share_of_bound": c8_bound_ms / c8_ms,
+    }
+    emit(dict(phase="kernel_check_cap8192", kernel="grouped_merge",
+              bit_equal=True, **cap8_kernel))
+
     emit({"phase": "kernel_check", "kernel": "grouped_merge",
           "cases": cases, "bit_equal": True, "shape": shape,
           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
@@ -338,7 +423,8 @@ def main() -> int:
     max_abs_err = max(x["max_abs_err"] for x in cases)
 
     # ------------------------------------ the main path at full size
-    def drive(cfg, schedule=None, run_args=RUN_ARGS, workload=None):
+    def drive(cfg, schedule=None, run_args=RUN_ARGS, workload=None,
+              **kw):
         """One seeded run of the cell (to convergence, under the slice's
         schedule and arguments by default), the merge kernel's launch
         count read around it; returns the run's JSON record and result."""
@@ -350,7 +436,7 @@ def main() -> int:
         init_s = time.perf_counter() - t0
         mk.reset_launch_counts()
         res = run_sim(cfg, state, schedule or slice_schedule(),
-                      device="cuda", workload=workload, **run_args)
+                      device="cuda", workload=workload, **run_args, **kw)
         torch.cuda.synchronize()
         launches = dict(mk.LAUNCHES)
         del state
@@ -364,6 +450,7 @@ def main() -> int:
                "rounds_run": res.rounds, "repair_chunks": res.repair_chunks,
                "final_gap": float(res.metrics["gap"][-1]),
                "sync_sweeps": int(res.state.sync_rounds),
+               "sweeps_run": res.pipeline["sweeps_run"],
                "writes": int(res.metrics["writes"].sum()),
                "deletes": int(res.metrics["deletes"].sum()),
                "log_wrapped_max": int(res.metrics["log_wrapped"].max()),
@@ -371,8 +458,20 @@ def main() -> int:
                "sim_s": res.wall_seconds,
                "wall_per_round_ms": res.wall_per_round_ms,
                "max_memory_allocated": torch.cuda.max_memory_allocated(),
-               "tables_agree": uniform, "launches": launches}
+               "tables_agree": uniform, "launches": launches,
+               "pipeline": res.pipeline}
         return rec, res
+
+    def one_launch_per_sweep(label, rec):
+        """Each sweep run launches the kernel once: the committed sweeps,
+        and the sweeps of rounds past the converged round in the last
+        chunk and of a discarded speculative chunk."""
+        sweeps, run = rec["sync_sweeps"], rec["sweeps_run"]
+        got = rec["launches"]["grouped_merge"]
+        if got != run or sweeps == 0 or run < sweeps:
+            raise AssertionError(
+                f"{label}: expected one kernel launch per sweep run ({run}; "
+                f"{sweeps} committed), counted {got}")
 
     def check_run(label, rec, want_round):
         if rec["rounds_to_convergence"] is None or rec["final_gap"] != 0.0:
@@ -385,11 +484,7 @@ def main() -> int:
         if not rec["tables_agree"]:
             raise AssertionError(f"converged replicas of the {label} hold "
                                  "different tables")
-        sweeps, got = rec["sync_sweeps"], rec["launches"]["grouped_merge"]
-        if got != sweeps or sweeps == 0:
-            raise AssertionError(
-                f"{label}: expected one kernel launch per sync sweep "
-                f"({sweeps}), counted {got}")
+        one_launch_per_sweep(label, rec)
 
     slice_rec, res = drive(slice_config())
     del res
@@ -493,10 +588,7 @@ def main() -> int:
     if c3k_rec["rounds_run"] != CONFIG3_10K_ROUNDS or m["log_wrapped"].any():
         raise AssertionError("config 3 at 10k: the run stopped early or the "
                              "change log wrapped")
-    sweeps, got = c3k_rec["sync_sweeps"], c3k_rec["launches"]["grouped_merge"]
-    if got != sweeps or sweeps == 0:
-        raise AssertionError(f"config 3 at 10k: expected one kernel launch "
-                             f"per sync sweep ({sweeps}), counted {got}")
+    one_launch_per_sweep("config 3 at 10k", c3k_rec)
     del m
     torch.cuda.empty_cache()
 
@@ -581,10 +673,7 @@ def main() -> int:
                                                    wl.total_deletes):
         raise AssertionError("config 6 at 10k: writes or deletes differ "
                              "from the schedule's")
-    sweeps, got = c6k_rec["sync_sweeps"], c6k_rec["launches"]["grouped_merge"]
-    if got != sweeps or sweeps == 0:
-        raise AssertionError(f"config 6 at 10k: expected one kernel launch "
-                             f"per sync sweep ({sweeps}), counted {got}")
+    one_launch_per_sweep("config 6 at 10k", c6k_rec)
     del wl
     torch.cuda.empty_cache()
 
@@ -656,12 +745,148 @@ def main() -> int:
         raise AssertionError("replay of replay_parity.ndjson does not reach "
                              "the expected tables and cleared versions")
 
+    # ------- config 4, the headline: 10 000 nodes, 40 rounds, no stop
+    cfg = config4_config(10000)
+    walls = {}
+    c4_rec, res = drive(cfg, config4_schedule(), CONFIG4_RUN_ARGS,
+                        on_chunk=lambda d: walls.__setitem__(
+                            d["chunk"], d["chunk_wall_s"]))
+    rate = config4_rate(walls, res.metrics)
+    c4_metrics = res.metrics
+    del res
+    torch.cuda.empty_cache()
+    emit(dict(phase="config4",
+              metric=f"crdt_changes_applied_per_sec_{cfg.num_nodes}_node_sim",
+              value=rate, unit="changes/s", chunk_walls_s=walls,
+              state_bytes=state_bytes(cfg),
+              swim_suspects_max=int(c4_metrics["swim_suspects"].max()),
+              **c4_rec))
+    if c4_rec["rounds_run"] != 40 or c4_rec["log_wrapped_max"] or rate <= 0:
+        raise AssertionError("config 4 at 10k: the run stopped early, the "
+                             "change log wrapped or nothing was applied")
+    one_launch_per_sweep("config 4 at 10k", c4_rec)
+    del c4_metrics
+
+    # ------- configs 5 and 7 at the node count the one-device rules give
+    device_bytes = torch.cuda.mem_get_info()[1]
+    sized = {}
+    for name, size, make, sched, run_args in (
+            ("config5", size_config5, config5_config, config5_schedule,
+             CONFIG5_RUN_ARGS),
+            ("config7", size_config7, config7_config,
+             lambda n: config7_schedule(), CONFIG7_RUN_ARGS)):
+        n, reason = size(device_bytes)
+        cfg = make(n)
+        rec, res = drive(cfg, sched(n), run_args)
+        flight_events = {}
+        for e in res.flight.events():
+            flight_events[e["name"]] = flight_events.get(e["name"], 0) + 1
+        del res
+        torch.cuda.empty_cache()
+        sized[name] = rec
+        emit(dict(phase=name, sized_by=reason, device_bytes=device_bytes,
+                  state_bytes=state_bytes(cfg),
+                  hot_actors=cfg.sync_hot_actors,
+                  mailbox_lanes_per_node=min(
+                      cfg.sync_req_actors, cfg.sync_actor_topk * 4,
+                      cfg.num_actors) * cfg.sync_cap_per_actor,
+                  flight_events=flight_events, **rec))
+        if (rec["rounds_to_convergence"] is None or rec["final_gap"] != 0.0
+                or not rec["tables_agree"] or rec["log_wrapped_max"]):
+            raise AssertionError(f"{name} at {n} nodes did not converge to "
+                                 "identical tables")
+        one_launch_per_sweep(f"{name} at {n} nodes", rec)
+
+    # ------- the configuration digests: JAX package CPU runs
+    cdig = {}
+    cdig_launches = {}
+    for case in CONFIG_DIGEST_CASES:
+        spec = config_digest_case(case)
+        rec, res = drive(spec["cfg"], spec["schedule"], spec["run_args"],
+                         workload=spec["workload"])
+        got = run_digest(state_to_numpy(res.state), res.metrics,
+                         exclude=spec["exclude"])
+        del res
+        torch.cuda.empty_cache()
+        cdig[case] = {"nodes": rec["nodes"], "rounds_run": rec["rounds_run"],
+                      "converged_round": rec["rounds_to_convergence"],
+                      "want_round": CONFIG_DIGEST_ROUNDS[case],
+                      "sync_sweeps": rec["sync_sweeps"],
+                      "wall_per_round_ms": rec["wall_per_round_ms"],
+                      "digest": got, "match": got == DIGESTS[case]}
+        cdig_launches[case] = rec["launches"]["grouped_merge"]
+        if mk.kernel_supported(spec["cfg"], "sync", dev):
+            one_launch_per_sweep(case, rec)
+    emit({"phase": "config_digests", "cases": cdig})
+    for case, d in cdig.items():
+        if not d["match"] or d["converged_round"] != d["want_round"]:
+            raise AssertionError(f"{case} on the card differs from the JAX "
+                                 "package's run")
+
+    # ------- the pipelined driver against the sequential one: config 6
+    # at 1000 nodes, both to the JAX package's round and digest
+    pipe = {}
+    wl = config6_workload(1000)
+    cfg = config6_config(1000)
+    for pipelined in (True, False):
+        rec, res = drive(cfg, Schedule(), CONFIG6_RUN_ARGS, workload=wl,
+                         pipeline=pipelined)
+        got = run_digest(state_to_numpy(res.state), res.metrics,
+                         exclude=CONFIG6_DIGEST_EXCLUDE)
+        events = {}
+        for e in res.flight.events():
+            events[e["name"]] = events.get(e["name"], 0) + 1
+        pipe["pipelined" if pipelined else "sequential"] = {
+            "converged_round": rec["rounds_to_convergence"],
+            "digest": got, "match": got == DIGESTS["config6_1000"],
+            "wall_per_round_ms": rec["wall_per_round_ms"],
+            "pipeline": res.pipeline, "flight_events": events,
+            "flight_phases": res.flight.diagnostics()["wall_s_by_phase"],
+        }
+        del res
+    # host syncs per round: the card's sync debug mode warns at every
+    # host wait on the device; 16 rounds of config 6's load
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = run_sim(cfg, init_state(cfg, seed=0, device="cuda"),
+                          Schedule(), max_rounds=16, chunk=8, seed=0,
+                          device="cuda", workload=wl, pipeline=False,
+                          stop_on_convergence=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    del res
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    # the speculative chunk's copy of a 10k state (config 6)
+    st10 = init_state(config6_config(10000), seed=0, device="cuda")
+    clone_ms = time_ms(lambda: clone_state(st10), 3, batch=5)
+    clone_bytes = state_nbytes(st10)
+    del st10
+    torch.cuda.empty_cache()
+    emit({"phase": "pipeline", "nodes": 1000, "runs": pipe,
+          "host_syncs_per_round_sequential_load": syncs / 16,
+          "speculative_copy": {"state_bytes": clone_bytes,
+                               "ms": clone_ms, "nodes": 10000}})
+    for mode, d in pipe.items():
+        if d["converged_round"] != CONFIG6_ROUNDS or not d["match"]:
+            raise AssertionError(f"config 6 at 1000 nodes, {mode}: differs "
+                                 "from the JAX package's run")
+    if not pipe["pipelined"]["pipeline"]["enabled"]:
+        raise AssertionError("the default run is not pipelined")
+    del wl
+    torch.cuda.empty_cache()
+
     by_path = {label: rec["launches"]["grouped_merge"] for label, rec in (
         ("slice", slice_rec), ("swim_slice", swim_rec), ("config3", c3_rec),
         ("config3_10k", c3k_rec), ("config6_1000", c6_rec),
-        ("config6_10k", c6k_rec))}
+        ("config6_10k", c6k_rec), ("config4", c4_rec),
+        ("config5", sized["config5"]), ("config7", sized["config7"]))}
     by_path["kernel_vs_scatter_config6"] = l6_on
     by_path["replay"] = replay_launches
+    by_path.update(cdig_launches)
     emit({"kernels": [{
         "name": "grouped_merge",
         "route": "cuda",
@@ -680,6 +905,8 @@ def main() -> int:
             "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
         "config6_cap512": {k: config6_kernel[k] for k in (
             "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
+        "config5_cap8192": {k: cap8_kernel[k] for k in (
+            "tile", "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {

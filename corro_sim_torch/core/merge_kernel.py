@@ -9,7 +9,9 @@ sublane tiling and are dropped) — and merge into the table planes: cv,
 vr and site flat ``(N, cells)``, cl ``(N, rows)``. :func:`grouped_merge`
 launches ``csrc/merge_kernel.cu`` (one warp per node, the rows and
 cells the lanes hit numbered in memory order through shared bitmaps,
-atomicMax passes, in place) on CUDA tensors and runs
+atomicMax passes, in place; a mailbox larger than a warp's share of
+shared memory is merged tile by tile in lane order,
+:func:`merge_tile`) on CUDA tensors and runs
 :func:`grouped_merge_reference`, which is
 :func:`corro_sim_torch.core.crdt.apply_cell_changes` on the unpacked
 mailbox, on CPU tensors. The choice is made by device; a CUDA tensor
@@ -128,6 +130,8 @@ def build_kernel() -> ctypes.CDLL:
     lib.grouped_merge_launch.restype = ctypes.c_int
     lib.grouped_merge_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.grouped_merge_smem_bytes.restype = ctypes.c_size_t
+    lib.grouped_merge_tile.argtypes = [ctypes.c_int] * 3
+    lib.grouped_merge_tile.restype = ctypes.c_int
     lib.grouped_merge_init.argtypes = []
     lib.grouped_merge_init.restype = ctypes.c_longlong
     BUILD_INFO.update(info)
@@ -149,6 +153,18 @@ def _smem_limit(lib, device: torch.device) -> int:
             )
         _SMEM_LIMIT[idx] = got
     return _SMEM_LIMIT[idx]
+
+
+def merge_tile(cap: int, cells: int, cols: int, device=None) -> int:
+    """Lanes per tile the kernel takes for a ``cap``-lane mailbox over
+    ``cells`` cells on ``device`` (default: the current CUDA device):
+    ``cap`` itself wherever one warp's share of shared memory holds the
+    whole mailbox, else the largest multiple of 128 lanes that fits."""
+    lib = build_kernel()
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    _smem_limit(lib, dev)
+    with torch.cuda.device(dev):
+        return lib.grouped_merge_tile(cap, cells, cols)
 
 
 def route_lanes(
@@ -222,7 +238,8 @@ def grouped_merge(cv, vr, site, cl, lanes, cap: int, cols: int):
     contiguous.
 
     CUDA tensors launch the kernel, which updates the planes where they
-    lie and allocates nothing; CPU tensors run
+    lie and allocates nothing, at any ``cap`` (a mailbox larger than a
+    warp's share of shared memory is merged tile by tile); CPU tensors run
     :func:`grouped_merge_reference` and copy its result into the planes.
     Returns the planes it was given, ``(cv, vr, site, cl)``."""
     n, cells = cv.shape
@@ -246,13 +263,7 @@ def grouped_merge(cv, vr, site, cl, lanes, cap: int, cols: int):
     if any(t.data_ptr() % 16 for t in planes):
         raise ValueError("grouped_merge: planes must be 16-byte aligned")
     lib = build_kernel()
-    smem = lib.grouped_merge_smem_bytes(cap, cells, cols)
-    limit = _smem_limit(lib, cv.device)
-    if smem > limit:
-        raise ValueError(
-            f"grouped_merge: {cap} lanes per node need {smem} B of shared "
-            f"memory, more than one block holds ({limit} B)"
-        )
+    _smem_limit(lib, cv.device)
     with torch.cuda.device(cv.device):
         stream = torch.cuda.current_stream(cv.device).cuda_stream
         err = lib.grouped_merge_launch(

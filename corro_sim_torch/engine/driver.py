@@ -1,18 +1,34 @@
 """Run loop: chunks of rounds with a host-side convergence exit.
 
-Port of the sequential loop of ``corro_sim/engine/driver.py::run_sim``.
-The simulator's contract is rounds-to-convergence: drive rounds until
-every live node has applied every written version (``gap == 0``) after
-the write phase ends. Rounds run in chunks; after each chunk the host
-reads the chunk's metrics (one transfer), applies the convergence rule
-and decides whether the next chunk may run on the repair-specialized
-step. Keys, schedule rows and chunk boundaries are the JAX package's, so
-a seeded run walks the same trajectory.
+Port of ``corro_sim/engine/driver.py::run_sim``. The simulator's
+contract is rounds-to-convergence: drive rounds until every live node
+has applied every written version (``gap == 0``) after the write phase
+ends. Rounds run in chunks; after each chunk the host reads the chunk's
+metrics (two stacks, one copy), applies the convergence rule, records
+the chunk in the flight recorder and decides whether the next chunk may
+run on the repair-specialized step. Keys, schedule rows and chunk
+boundaries are the JAX package's, so a seeded run walks the same
+trajectory.
+
+Chunk dispatch is **pipelined** by default (``SimConfig.pipeline``):
+chunk N+1's kernels are queued before chunk N's metrics land on the
+host, whose copy started when chunk N was queued; the host's work for
+chunk N (convergence, flight, ``on_chunk``) then overlaps the card
+running chunk N+1. Chunks commit strictly in order, so results equal
+the sequential loop's: a speculative chunk the sequential loop would
+not have run (the run converged or was poisoned one chunk earlier, or
+the repair-program choice changed) is discarded and, on a program
+mispredict, run again on the right program. A step consumes its input
+state, so a speculative chunk runs on a device copy of the committed
+state (the JAX package's donation double-buffer): one state's bytes of
+memory and one copy per chunk.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import time
 from typing import Callable
 
@@ -23,8 +39,22 @@ from corro_sim_torch import prng
 from corro_sim_torch.config import SimConfig, validate_torch_slice
 from corro_sim_torch.core.merge_kernel import build_kernel, kernel_supported
 from corro_sim_torch.device import resolve_device
-from corro_sim_torch.engine.state import SimState
+from corro_sim_torch.engine import step as step_mod
+from corro_sim_torch.engine.state import SimState, clone_state, state_nbytes
 from corro_sim_torch.engine.step import sim_step
+from corro_sim_torch.obs.flight import FlightRecorder
+from corro_sim_torch.utils.metrics import (
+    PIPELINE_FETCH_WAIT,
+    PIPELINE_FETCH_WAIT_HELP,
+    PIPELINE_OVERLAP_SECONDS,
+    PIPELINE_SPECULATIVE_TOTAL,
+    PIPELINE_SPECULATIVE_WASTED,
+    SECONDS_BUCKETS,
+    counters,
+    histograms,
+)
+from corro_sim_torch.utils.runtime import AsyncFetch, start_async_fetch
+from corro_sim_torch.utils.tracing import tracer
 
 
 @dataclasses.dataclass
@@ -34,13 +64,20 @@ class Schedule:
     Default: everybody up, one partition, writes for ``write_rounds``
     rounds, then quiesce. ``alive``/``part`` may be precomputed ``(R,
     n)`` arrays (rounds past the end hold the last row) or callables
-    ``(round, n) -> (n,)``, each evaluated once per round."""
+    ``(round, n) -> (n,)``, each evaluated once per round.
+
+    ``events``: sparse ``(round, name, attrs)`` markers (node kill or
+    rejoin, partition split or heal); ``run_sim`` copies the ones inside
+    each executed chunk into the flight recorder as ``fault_event``.
+    ``name``: the scenario's label, kept in the flight recorder's meta."""
 
     write_rounds: int = 16
     alive_fn: Callable[[int, int], np.ndarray] | None = None
     part_fn: Callable[[int, int], np.ndarray] | None = None
     alive: np.ndarray | None = None  # (R, n) bool
     part: np.ndarray | None = None  # (R, n) int32
+    events: list = dataclasses.field(default_factory=list)
+    name: str | None = None
     _alive_rows: list = dataclasses.field(
         default_factory=list, repr=False, compare=False
     )
@@ -93,6 +130,10 @@ class Schedule:
             np.ascontiguousarray(we, dtype=bool),
         )
 
+    def events_in(self, start: int, length: int) -> list:
+        """The events falling inside rounds ``[start, start + length)``."""
+        return [ev for ev in self.events if start <= ev[0] < start + length]
+
 
 def chunk_keys(root, ci: int, chunk: int) -> np.ndarray:
     """The ``chunk`` per-round keys of chunk ``ci``:
@@ -130,30 +171,75 @@ class RunResult:
     poisoned: bool = False  # change-log ring wrapped past a live laggard
     stage_seconds: float = 0.0  # of wall_seconds: workload schedule
     # uploads, host to device
+    flight: FlightRecorder | None = None  # per-round telemetry timeline
+    pipeline: dict | None = None  # the chunk pipeline's counts and
+    # walls (the JAX package's keys), and how the dispatched rounds'
+    # sweeps were decided: host_decided, masked_sweeps (run under the
+    # device predicate), host_reads, sweeps_run
 
     @property
     def wall_per_round_ms(self) -> float:
         return 1000.0 * self.wall_seconds / max(self.rounds, 1)
 
 
-def metrics_to_numpy(per_round: list) -> dict:
-    """Per-round metric dicts of device scalars → ``name -> (rounds,)``
-    numpy series, in two transfers: the integer metrics as int32, ``gap``
-    as float32."""
+def pack_metrics(per_round: list) -> tuple:
+    """Per-round metric dicts of device scalars → ``(int_stack,
+    float_stack, int_keys)`` on the device: the integer metrics as an
+    int32 ``(K, rounds)`` stack in sorted name order, ``gap`` as a
+    float32 ``(1, rounds)`` stack."""
     ikeys = [k for k in sorted(per_round[0]) if k != "gap"]
     i_stack = torch.stack([
         torch.stack([m[k] for m in per_round]).to(torch.int32)
         for k in ikeys
-    ]).cpu().numpy()
-    gaps = torch.stack([m["gap"] for m in per_round]).cpu().numpy()
-    out = {k: i_stack[j] for j, k in enumerate(ikeys)}
-    out["gap"] = gaps.astype(np.float32)
+    ])
+    f_stack = torch.stack([m["gap"] for m in per_round])[None].to(
+        torch.float32)
+    return i_stack, f_stack, ikeys
+
+
+def unpack_metrics(i_np: np.ndarray, f_np: np.ndarray, ikeys) -> dict:
+    out = {k: i_np[j] for j, k in enumerate(ikeys)}
+    out["gap"] = f_np[0]
     return out
+
+
+def metrics_to_numpy(per_round: list) -> dict:
+    """Per-round metric dicts of device scalars → ``name -> (rounds,)``
+    numpy series, in one blocking copy of two stacks."""
+    i_stack, f_stack, ikeys = pack_metrics(per_round)
+    return unpack_metrics(*start_async_fetch(i_stack, f_stack).resolve(),
+                          ikeys)
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on the device, without waiting for the card: through
+    pinned memory with ``non_blocking`` (a pageable copy would first
+    drain the card's queue)."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+@dataclasses.dataclass
+class _InFlight:
+    """One dispatched chunk whose metrics have not been read yet."""
+
+    ci: int
+    base: int  # first round the chunk covers (0-based)
+    state_out: SimState  # the chunk's final state (chunk N+1's input)
+    fetch: AsyncFetch  # its metric stacks on their way to the host
+    ikeys: list
+    use_repair: bool
+    speculative: bool  # dispatched before the previous chunk's metrics
+    alive: np.ndarray
+    part: np.ndarray
+    we: np.ndarray
 
 
 def run_sim(
@@ -167,10 +253,13 @@ def run_sim(
     min_rounds: int | None = None,
     device=None,
     workload=None,
+    on_chunk: Callable[[dict], None] | None = None,
+    flight: FlightRecorder | None = None,
+    profile_dir: str | None = None,
+    pipeline: bool | None = None,
 ) -> RunResult:
     """Run ``state`` forward in chunks of ``chunk`` rounds until
-    convergence (or ``max_rounds``) — the JAX package's sequential
-    ``run_sim`` loop.
+    convergence (or ``max_rounds``) — the JAX package's ``run_sim``.
 
     Consumes ``state``, as :func:`~corro_sim_torch.engine.step.sim_step`
     does: its tensors may be updated in place; read the result's state.
@@ -185,7 +274,24 @@ def run_sim(
     rounds), and every full chunk feeds its rows through ``sim_step``'s
     ``writes`` port in place of the sampler; the rows are uploaded once
     per chunk, and past the schedule's end one all-idle chunk is
-    uploaded once and reused."""
+    uploaded once and reused. Its events land in the flight recorder as
+    ``workload_event``.
+
+    ``on_chunk``: called after every executed chunk with the JAX
+    package's progress dict (chunk index, rounds done, this chunk's and
+    the cumulative wall, ``compile_s`` — here the kernel build seconds —,
+    which program ran, the last gap and ``pend_live``).
+
+    ``flight``: a :class:`~corro_sim_torch.obs.flight.FlightRecorder` to
+    fill with the per-round metric timeline and the run's annotations;
+    one is created when not given (``RunResult.flight``).
+
+    ``profile_dir``: run the chunk loop under ``torch.profiler`` and
+    write its Chrome trace to ``profile_dir/trace.json``.
+
+    ``pipeline``: dispatch each chunk before the previous chunk's
+    metrics are read (module docstring); None follows ``cfg.pipeline``.
+    Both loops give the same state and metrics."""
     validate_torch_slice(cfg)
     want = resolve_device(device)
     if state.hlc.device.type != want.type:
@@ -202,7 +308,17 @@ def run_sim(
             )
     if min_rounds is None:
         min_rounds = schedule.write_rounds
+    if pipeline is None:
+        pipeline = cfg.pipeline
+    if flight is None:
+        flight = FlightRecorder()
     n = cfg.num_nodes
+    flight.set_meta(
+        driver="run_sim", nodes=n, chunk=chunk, seed=seed,
+        max_rounds=max_rounds, pipeline=bool(pipeline),
+        **({"scenario": schedule.name} if schedule.name else {}),
+        **({"workload": workload.spec} if workload is not None else {}),
+    )
 
     t0 = time.perf_counter()
     if dev.type == "cuda" and (
@@ -211,77 +327,332 @@ def run_sim(
     ):
         build_kernel()
     setup_seconds = time.perf_counter() - t0
+    flight.record_phase("setup", setup_seconds)
 
-    # the round counter on the host, for the SWIM cadence: one read here,
-    # none per round
+    # the round counter on the host, for the SWIM cadence and the sweep
+    # gate: one read here, none per round
     round0 = int(state.round)
     root = prng.PRNGKey(seed)
+    gates0 = dict(step_mod.SWEEP_GATES)
     metrics_chunks: list = []
     converged_round = None
     poisoned = False
     rounds = 0
     wall = 0.0
     last_pend_live = None
+    prev_writes = False
+    repair_seen = False
     repair_chunks = 0
     stage_seconds = 0.0
     idle_writes = None
+    fetch_wait_total = 0.0
+    spec_dispatched = 0
+    spec_wasted = 0
+    copy_bytes = 0
 
-    def stage_writes(base: int) -> tuple:
-        """The chunk's write-schedule rows on the device."""
+    def stage_writes(base: int, alive: np.ndarray) -> tuple:
+        """The chunk's write-schedule rows on the device, and whether
+        each round is quiesced (no live writer), read from the host
+        rows."""
         nonlocal idle_writes, stage_seconds
         if base >= workload.rounds and idle_writes is not None:
-            return idle_writes
+            return idle_writes, [True] * chunk
         t = time.perf_counter()
-        staged = tuple(
-            torch.as_tensor(x, device=dev)
-            for x in workload.slice(base, chunk, cfg.seqs_per_version)
-        )
-        _sync(dev)
+        rows = workload.slice(base, chunk, cfg.seqs_per_version)
+        staged = tuple(_upload(x, dev) for x in rows)
         stage_seconds += time.perf_counter() - t
         if base >= workload.rounds:
             idle_writes = staged
-        return staged
+        return staged, [not (rows[0][r] & alive[r]).any()
+                        for r in range(chunk)]
 
-    ci = 0
-    while rounds < max_rounds:
-        alive, part, we = schedule.slice(rounds, chunk, n)
+    def select_repair(pend_live, we) -> bool:
+        """Repair once the rings report drained and the chunk schedules
+        no writes (validate_torch_slice refuses in-flight slots and RTT
+        rings, the features that keep the JAX package off the repair
+        step)."""
+        return bool(pend_live == 0 and not we.any())
+
+    def dispatch(ci, base, state_in, known_pend_live, blocked_by_writes,
+                 speculative) -> _InFlight:
+        """Queue one chunk of rounds on the device and start the copy of
+        its metrics; the program follows the sequential rule against
+        ``known_pend_live`` (one chunk stale when speculative), and
+        ``blocked_by_writes`` vetoes the repair step while an unread
+        chunk still carries write rounds."""
+        alive, part, we = schedule.slice(base, chunk, n)
         keys = chunk_keys(root, ci, chunk)
-        # validate_torch_slice refuses in-flight slots and RTT rings, the
-        # features that keep the JAX package's driver off the repair step
-        use_repair = bool(last_pend_live == 0 and not we.any())
-        _sync(dev)
-        t_chunk = time.perf_counter()
-        alive_t = torch.as_tensor(alive, device=dev)
-        part_t = torch.as_tensor(part, device=dev)
-        staged = (stage_writes(rounds)
-                  if workload is not None and not use_repair else None)
+        use_repair = (select_repair(known_pend_live, we)
+                      and not blocked_by_writes)
+        alive_t = _upload(alive, dev)
+        part_t = _upload(part, dev)
+        staged, quiesced = None, [None] * chunk
+        if workload is not None and not use_repair:
+            staged, quiesced = stage_writes(base, alive)
+        st = state_in
         per_round = []
-        for r in range(chunk):
-            state, m = sim_step(
-                cfg, state, keys[r], alive_t[r], part_t[r], bool(we[r]),
-                round0 + rounds + r, repair=use_repair,
-                writes=None if staged is None else tuple(
-                    x[r] for x in staged),
+        with tracer.span("chunk dispatch", ci=ci, slow_warn=False,
+                         runner="repair" if use_repair else "full"):
+            for r in range(chunk):
+                st, m = sim_step(
+                    cfg, st, keys[r], alive_t[r], part_t[r], bool(we[r]),
+                    round0 + base + r, repair=use_repair,
+                    writes=None if staged is None else tuple(
+                        x[r] for x in staged),
+                    quiesced=quiesced[r],
+                )
+                per_round.append(m)
+            i_s, f_s, ikeys = pack_metrics(per_round)
+            fetch = start_async_fetch(i_s, f_s)
+        return _InFlight(ci=ci, base=base, state_out=st, fetch=fetch,
+                         ikeys=ikeys, use_repair=use_repair,
+                         speculative=speculative, alive=alive, part=part,
+                         we=we)
+
+    def process(ci, base, m, we, use_repair, chunk_elapsed,
+                annot_extra=None) -> bool:
+        """Host-side bookkeeping of one executed chunk, shared by both
+        loops. Returns False when the run must stop (converged or
+        poisoned)."""
+        nonlocal rounds, prev_writes, last_pend_live, poisoned
+        nonlocal converged_round, repair_seen, repair_chunks
+        runner = "repair" if use_repair else "full"
+        if use_repair and not repair_seen:
+            counters.inc(
+                "corro_repair_program_switches_total",
+                help_="post-quiesce switches to the repair-specialized "
+                      "step",
             )
-            per_round.append(m)
-        m_np = metrics_to_numpy(per_round)
-        _sync(dev)
-        wall += time.perf_counter() - t_chunk
+            flight.annotate(base + 1, "repair_program_switch")
+            repair_seen = True
         if use_repair:
             repair_chunks += 1
-        metrics_chunks.append(m_np)
-        last_pend_live = int(m_np["pend_live"][-1])
-        base = rounds
+        counters.inc("corro_chunk_dispatch_total",
+                     labels=f'{{runner="{runner}"}}',
+                     help_="chunk dispatches by program")
+        histograms.observe(
+            "corro_chunk_wall_seconds", chunk_elapsed,
+            labels=f'{{runner="{runner}"}}',
+            help_="per-chunk execution wall by program (pipelined mode: "
+                  "the commit-to-commit interval)",
+            buckets=SECONDS_BUCKETS,
+        )
+        metrics_chunks.append(m)
+        flight.record_rounds(base + 1, m)
+        flight.annotate(base + chunk, "chunk", chunk=ci, runner=runner,
+                        wall_s=round(chunk_elapsed, 6),
+                        **(annot_extra or {}))
+        for ev_r, ev_name, ev_attrs in schedule.events_in(base, chunk):
+            flight.annotate(ev_r + 1, "fault_event", kind=ev_name,
+                            **ev_attrs)
+            counters.inc("corro_fault_events_total",
+                         labels=f'{{kind="{ev_name}"}}',
+                         help_="scheduled fault events executed, by kind")
+        if workload is not None:
+            for ev_r, ev_name, ev_attrs in workload.events_in(base, chunk):
+                flight.annotate(ev_r + 1, "workload_event", kind=ev_name,
+                                **ev_attrs)
+                counters.inc("corro_workload_events_total",
+                             labels=f'{{kind="{ev_name}"}}',
+                             help_="scheduled workload events executed, "
+                                   "by kind")
+        if prev_writes and not bool(we.any()):
+            flight.annotate(base + 1, "schedule_transition",
+                            kind="write_phase_end")
+        prev_writes = bool(we.any())
+        last_pend_live = int(m["pend_live"][-1])
         rounds = base + chunk
-        ci += 1
-        if m_np["log_wrapped"].any():
+        if on_chunk is not None:
+            on_chunk({
+                "chunk": ci,
+                "rounds_done": rounds,
+                "chunk_wall_s": round(chunk_elapsed, 3),
+                "wall_s": round(wall, 3),
+                "compile_s": round(setup_seconds, 3),
+                "runner": runner,
+                "gap": float(m["gap"][-1]),
+                "pend_live": last_pend_live,
+            })
+        if m["log_wrapped"].any():
+            # a live node lagged some actor past log_capacity: gathers may
+            # have read overwritten slots, so convergence cannot be trusted
             poisoned = True
-            break
+            wrapped_at = base + 1 + int(np.argmax(m["log_wrapped"] != 0))
+            flight.annotate(wrapped_at, "log_wrapped")
+            return False
         if stop_on_convergence:
-            conv = converged_at(m_np["gap"], base, chunk, min_rounds)
+            conv = converged_at(m["gap"], base, chunk, min_rounds)
             if conv is not None:
                 converged_round = conv
-                break
+                flight.annotate(converged_round, "converged")
+                return False
+        return True
+
+    def resolve(inflight: _InFlight, mode: str) -> tuple:
+        """The chunk's metrics on the host, and the seconds the host
+        waited for them."""
+        t_f = time.perf_counter()
+        m = unpack_metrics(*inflight.fetch.resolve(), inflight.ikeys)
+        waited = time.perf_counter() - t_f
+        histograms.observe(PIPELINE_FETCH_WAIT, waited,
+                           labels=f'{{mode="{mode}"}}',
+                           help_=PIPELINE_FETCH_WAIT_HELP,
+                           buckets=SECONDS_BUCKETS)
+        return m, waited
+
+    profiler = None
+    if profile_dir is not None:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        profiler = profile(activities=acts)
+    drain = 0.0
+    with profiler if profiler is not None else contextlib.nullcontext():
+        _sync(dev)
+        if not pipeline:
+            # ----------------------------------------------- sequential loop
+            ci = 0
+            while rounds < max_rounds:
+                t0 = time.perf_counter()
+                with tracer.span("chunk", ci=ci, slow_warn=False):
+                    inflight = dispatch(ci, rounds, state, last_pend_live,
+                                        False, speculative=False)
+                    m, waited = resolve(inflight, "sequential")
+                chunk_elapsed = time.perf_counter() - t0
+                fetch_wait_total += waited
+                wall += chunk_elapsed
+                flight.record_phase("execute", chunk_elapsed)
+                state = inflight.state_out
+                cont = process(ci, rounds, m, inflight.we,
+                               inflight.use_repair, chunk_elapsed)
+                ci += 1
+                if not cont:
+                    break
+        else:
+            # ------------------------------------------------ pipelined loop
+            # at most one unread chunk (`pending`) and one speculative
+            # chunk behind it ride the device queue; chunks commit in
+            # order, one behind dispatch
+            pending = None
+            last_commit_t = time.perf_counter()
+            if rounds < max_rounds:
+                pending = dispatch(0, 0, state, last_pend_live, False,
+                                   speculative=False)
+            while pending is not None:
+                nxt = None
+                next_base = pending.base + chunk
+                if next_base < max_rounds:
+                    # the speculative chunk runs on a copy: the step
+                    # consumes its input, and pending's state stays the
+                    # committed state and the re-dispatch source
+                    spec_src = clone_state(pending.state_out)
+                    copy_bytes += state_nbytes(spec_src)
+                    nxt = dispatch(pending.ci + 1, next_base, spec_src,
+                                   last_pend_live, bool(pending.we.any()),
+                                   speculative=True)
+                    spec_dispatched += 1
+                    counters.inc(
+                        PIPELINE_SPECULATIVE_TOTAL,
+                        help_="chunks dispatched before the previous "
+                              "chunk's metrics were read",
+                    )
+                m, waited = resolve(pending, "pipelined")
+                fetch_wait_total += waited
+                now = time.perf_counter()
+                chunk_elapsed = now - last_commit_t
+                last_commit_t = now
+                wall += chunk_elapsed
+                flight.record_phase("execute", chunk_elapsed)
+                state = pending.state_out
+                cont = process(
+                    pending.ci, pending.base, m, pending.we,
+                    pending.use_repair, chunk_elapsed,
+                    annot_extra={"pipeline": True,
+                                 "fetch_wait_s": round(waited, 6),
+                                 "speculative": pending.speculative},
+                )
+                if not cont:
+                    if nxt is not None:
+                        # the one wasted dispatch that bought the overlap
+                        reason = "poisoned" if poisoned else "converged"
+                        spec_wasted += 1
+                        counters.inc(
+                            PIPELINE_SPECULATIVE_WASTED,
+                            labels=f'{{reason="{reason}"}}',
+                            help_="speculative chunk results discarded, "
+                                  "by reason",
+                        )
+                        flight.annotate(rounds, "pipeline_discard",
+                                        chunk=nxt.ci, reason=reason)
+                    pending = None
+                    continue
+                if nxt is None:  # round budget spent
+                    pending = None
+                    continue
+                # the speculative program choice read pend_live one chunk
+                # stale: check it against the sequential rule, and run
+                # the chunk again on the right program if it differs
+                if select_repair(last_pend_live, nxt.we) != nxt.use_repair:
+                    spec_wasted += 1
+                    counters.inc(
+                        PIPELINE_SPECULATIVE_WASTED,
+                        labels='{reason="program_switch"}',
+                        help_="speculative chunk results discarded, by "
+                              "reason",
+                    )
+                    flight.annotate(rounds, "pipeline_discard",
+                                    chunk=nxt.ci, reason="program_switch")
+                    # nothing reads the committed state after this: the
+                    # re-dispatched chunk commits next
+                    nxt = dispatch(nxt.ci, nxt.base, state, last_pend_live,
+                                   False, speculative=False)
+                pending = nxt
+        # the run is done when its state is, not when its last metrics
+        # landed
+        t0 = time.perf_counter()
+        _sync(dev)
+        drain = time.perf_counter() - t0
+        wall += drain
+        flight.record_phase("drain", drain)
+    if profiler is not None:
+        os.makedirs(profile_dir, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+
+    # how the dispatched rounds' sweeps were decided (discarded
+    # speculative chunks included); each sweep run launches the merge
+    # kernel once where the kernel takes the sweep
+    g = {k: step_mod.SWEEP_GATES[k] - gates0[k] for k in gates0}
+    sweeps = {"host_decided": g["host_on"] + g["host_off"],
+              "masked_sweeps": g["masked"],
+              "host_reads": g["read_on"] + g["read_off"],
+              "sweeps_run": g["host_on"] + g["masked"] + g["read_on"]}
+    if pipeline:
+        exec_wall = max(wall - drain, 0.0)
+        overlap = max(exec_wall - fetch_wait_total, 0.0)
+        counters.inc(
+            PIPELINE_OVERLAP_SECONDS, n=round(overlap, 6),
+            help_="host wall spent concurrent with device chunk execution "
+                  "(execute wall minus fetch wait)",
+        )
+        pipeline_stats = {
+            "enabled": True,
+            "speculative_dispatched": spec_dispatched,
+            "speculative_wasted": spec_wasted,
+            "fetch_wait_s": round(fetch_wait_total, 6),
+            "execute_wall_s": round(exec_wall, 6),
+            "overlap_ratio": (round(overlap / exec_wall, 4)
+                              if exec_wall > 0 else None),
+            "speculative_copy_bytes": copy_bytes,
+        }
+        flight.annotate(
+            rounds, "pipeline",
+            **{k: v for k, v in pipeline_stats.items() if k != "enabled"},
+        )
+    else:
+        pipeline_stats = {"enabled": False,
+                          "fetch_wait_s": round(fetch_wait_total, 6)}
+    pipeline_stats.update(sweeps)
     metrics = {
         k: np.concatenate([c[k] for c in metrics_chunks])
         for k in metrics_chunks[0]
@@ -296,4 +667,6 @@ def run_sim(
         setup_seconds=setup_seconds,
         poisoned=poisoned,
         stage_seconds=stage_seconds,
+        flight=flight,
+        pipeline=pipeline_stats,
     )

@@ -135,3 +135,32 @@ def init_state(cfg: SimConfig, seed: int = 0, device=None) -> SimState:
         probe=make_probe_placeholder(cfg.narrow_state, dev),
         fault_burst=torch.zeros((1,), dtype=torch.bool, device=dev),
     )
+
+
+def _map_tensors(obj, fn):
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    return dataclasses.replace(obj, **{
+        f.name: _map_tensors(getattr(obj, f.name), fn)
+        for f in dataclasses.fields(obj)
+    })
+
+
+def clone_state(state: SimState) -> SimState:
+    """A device-side deep copy: every tensor cloned where it lies. The
+    pipelined driver speculates from one, because a step consumes its
+    input state."""
+    return _map_tensors(state, torch.Tensor.clone)
+
+
+def state_nbytes(state: SimState) -> int:
+    """Bytes of the state's tensors."""
+    total = 0
+
+    def add(t):
+        nonlocal total
+        total += t.numel() * t.element_size()
+        return t
+
+    _map_tensors(state, add)
+    return total

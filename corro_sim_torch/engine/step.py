@@ -15,12 +15,17 @@ merges a version once every chunk arrived. Round structure:
 Gossip and sync consult the membership view of the state at the start
 of the round; a SWIM tick's result shows from the next round on.
 
-Every stage is a batched tensor op over all nodes. One value crosses to
-the host each round: whether the sync sweep runs. Its adaptive term
-(``quiesced & behind_pre``) is device data, and the sweep is a branch
-of data-dependent size, so the step reads that one bool. The SWIM
-cadence and its announce gate depend on the round number only, which
-the caller passes on the host.
+Every stage is a batched tensor op over all nodes. Whether the sync
+sweep runs is decided on the host wherever host data fixes it: the
+interval rounds, ``sync_adaptive`` off, a round off the floor cadence,
+and a round in which writers are known to run. Where only
+``behind_pre`` (device data) decides — nobody writes, as the caller
+knows — the sweep runs masked: its requests carry the device predicate,
+so a round that must not sweep grants nothing and every output stays as
+it was. Only a round of the random sampler's write phase, whose writers
+are device data too, reads the predicate on the host. The SWIM cadence
+and its announce gate depend on the round number only, which the caller
+passes on the host.
 """
 
 from __future__ import annotations
@@ -73,6 +78,14 @@ STEP_KEY_STREAMS = (
 _SYNC_METRICS = ("sync_pairs", "sync_requests", "sync_rejections",
                  "sync_versions", "sync_empties", "sync_cells")
 
+# how each round's sweep was decided: on or off by host data
+# ("host_on", "host_off"), run under the device predicate ("masked"), or
+# the predicate read on the host ("read_on", "read_off"). run_sim reports
+# the counts in RunResult.pipeline; a sweep that runs launches the merge
+# kernel once, so "host_on" + "masked" + "read_on" is its launch count.
+SWEEP_GATES = dict.fromkeys(
+    ("host_on", "host_off", "masked", "read_on", "read_off"), 0)
+
 
 def _reachable_fn(alive: torch.Tensor, part: torch.Tensor):
     """Ground-truth link predicate: both up and in the same partition."""
@@ -90,7 +103,9 @@ def _pairwise_mask(alive: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
 
 
 def _i32(x: int, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.int32, device=device)
+    # a fill, not torch.tensor: a host value copied to the card waits
+    # for the card to drain its queue
+    return torch.full((), x, dtype=torch.int32, device=device)
 
 
 def _tile_chunks(cpv: int, *arrays):
@@ -132,7 +147,7 @@ def _sample_writes(cfg: SimConfig, state: SimState, write_keys, alive,
     dev = alive.device
     f32 = dict(dtype=torch.float32, device=dev)
     writers = (
-        (prng.uniform(k_write, (n,), dev) < torch.tensor(cfg.write_rate, **f32))
+        (prng.uniform(k_write, (n,), dev) < torch.full((), cfg.write_rate, **f32))
         & alive
         & bool(write_enable)
     )
@@ -141,7 +156,7 @@ def _sample_writes(cfg: SimConfig, state: SimState, write_keys, alive,
         0, cfg.num_rows - 1
     )
     w_del = (
-        prng.uniform(k_del, (n,), dev) < torch.tensor(cfg.delete_rate, **f32)
+        prng.uniform(k_del, (n,), dev) < torch.full((), cfg.delete_rate, **f32)
     ) & writers
     w_col, w_ncells = _write_cells(cfg, k_col, k_ncell, n, dev)
     # a DELETE is one cl-only change
@@ -160,6 +175,7 @@ def sim_step(
     round_idx: int,  # ``state.round`` as the host counts it
     repair: bool = False,
     writes: tuple | None = None,
+    quiesced: bool | None = None,
 ):
     """Advance the cluster one round; returns ``(state, metrics)``.
 
@@ -175,6 +191,10 @@ def sim_step(
     agent's accepted transactions — replace the sampler: none of its
     draws run, the key split stays the same, and ``write_enable`` is
     ignored.
+
+    ``quiesced``: with ``writes``, whether nobody writes this round, when
+    the caller knows it on the host (the sampler's rounds answer it from
+    ``write_enable``); None reads it from the device when it matters.
 
     ``repair``: the post-quiesce specialization (:func:`_repair_step`),
     bit-for-bit this step while no writes run and every gossip ring is
@@ -200,6 +220,8 @@ def sim_step(
         writers, w_row_s, w_col, w_val, w_del, w_ncells = _sample_writes(
             cfg, state, (k_write, k_row, k_col, k_val, k_del, k_ncell),
             alive, write_enable)
+        # the sampler draws no writer outside the write phase
+        quiesced = None if write_enable and cfg.write_rate > 0 else True
 
     table, ch_cv, ch_cl, ch_vr = local_write(
         state.table, rows_idx, w_row_s, w_col, w_val, w_del, w_ncells, writers
@@ -314,10 +336,7 @@ def sim_step(
     )
 
     # ----------------------------------------------------------------- sync
-    is_sync = _sync_predicate(
-        cfg, state.round, behind_pre,
-        quiesced=writers.sum(dtype=torch.int32) == 0,
-    )
+    is_sync = _sync_gate(cfg, round_idx, quiesced, behind_pre, writers)
     book, table, hlc_s, last_cleared, sync_metrics = _sync_block(
         cfg, is_sync, book, log, table, state.hlc, last_cleared, cleared_hlc,
         k_sync, alive, view, part, round_idx=state.sync_rounds,
@@ -357,7 +376,7 @@ def sim_step(
         gossip=gossip,
         swim=swim,
         round=state.round + 1,
-        sync_rounds=state.sync_rounds + int(is_sync),
+        sync_rounds=_count_sweep(state.sync_rounds, is_sync),
         hlc=hlc,
         last_cleared=last_cleared,
         cleared_hlc=cleared_hlc,
@@ -380,25 +399,44 @@ def _swim_block(cfg, swim_state, k_swim, alive, reach, round_idx: int):
     return swim_state, metrics_fn(swim_state, alive, zero)
 
 
-def _sync_predicate(cfg, round_, behind_pre, quiesced) -> bool:
+def _sync_gate(cfg, round_: int, quiesced: bool | None, behind_pre,
+               writers):
     """Whether this round runs a sweep: every ``sync_interval``-th round,
     plus — under ``sync_adaptive`` — floor-cadence rounds in which
-    nobody wrote but somebody is still behind. The one per-round host
-    read of the step."""
+    nobody wrote but somebody is still behind.
+
+    Returns a bool where host data fixes the answer, else the device
+    predicate (a () bool tensor) that the sweep runs masked under: where
+    only ``behind_pre`` decides (``quiesced`` known True). Where the
+    random sampler's writers decide too (``quiesced`` None), the
+    predicate is read on the host."""
     si = cfg.sync_interval
-    is_sync = (round_ % si) == (si - 1)
-    if cfg.sync_adaptive:
-        floor_hit = (round_ % cfg.sync_floor_rounds) == (
-            cfg.sync_floor_rounds - 1
-        )
-        is_sync = is_sync | (quiesced & behind_pre & floor_hit)
-    return bool(is_sync)
+    if round_ % si == si - 1:
+        gate, kind = True, "host_on"
+    elif (not cfg.sync_adaptive or quiesced is False
+          or round_ % cfg.sync_floor_rounds != cfg.sync_floor_rounds - 1):
+        gate, kind = False, "host_off"
+    elif quiesced:
+        gate, kind = behind_pre, "masked"
+    else:
+        gate = bool((writers.sum(dtype=torch.int32) == 0) & behind_pre)
+        kind = "read_on" if gate else "read_off"
+    SWEEP_GATES[kind] += 1
+    return gate
+
+
+def _count_sweep(sync_rounds, is_sync):
+    """``sync_rounds`` after this round's gate."""
+    if isinstance(is_sync, torch.Tensor):
+        return sync_rounds + is_sync.to(torch.int32)
+    return sync_rounds + int(is_sync)
 
 
 def _sync_block(cfg, is_sync, book, log, table, hlc, last_cleared,
                 cleared_hlc, k_sync, alive, view, part, round_idx):
-    """One anti-entropy sweep when ``is_sync``; zero metrics otherwise."""
-    if not is_sync:
+    """One anti-entropy sweep when ``is_sync`` (masked under it when it
+    is a device predicate); zero metrics otherwise."""
+    if is_sync is False:
         dev = hlc.device
         return book, table, hlc, last_cleared, {
             k: _i32(0, dev) for k in _SYNC_METRICS
@@ -406,6 +444,7 @@ def _sync_block(cfg, is_sync, book, log, table, hlc, last_cleared,
     return sync_round(
         cfg, book, log, table, hlc, last_cleared, cleared_hlc, k_sync,
         alive, view, _pairwise_mask(alive, part), round_idx=round_idx,
+        active=None if is_sync is True else is_sync,
     )
 
 
@@ -460,7 +499,7 @@ def _repair_step(cfg, state: SimState, key, alive, part, round_idx: int):
     )
 
     # quiesced is identically True here (no writers by precondition)
-    is_sync = _sync_predicate(cfg, state.round, behind_pre, quiesced=True)
+    is_sync = _sync_gate(cfg, round_idx, True, behind_pre, None)
     book, table, hlc_s, last_cleared, sync_metrics = _sync_block(
         cfg, is_sync, book, log, state.table, state.hlc, state.last_cleared,
         state.cleared_hlc, k_sync, alive, view, part,
@@ -496,7 +535,7 @@ def _repair_step(cfg, state: SimState, key, alive, part, round_idx: int):
         book=book,
         swim=swim,
         round=state.round + 1,
-        sync_rounds=state.sync_rounds + int(is_sync),
+        sync_rounds=_count_sweep(state.sync_rounds, is_sync),
         hlc=hlc,
         last_cleared=last_cleared,
     )

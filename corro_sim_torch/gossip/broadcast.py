@@ -165,7 +165,7 @@ def serviced_slots(n: int, p: int, e: int, round_idx: int,
     int32 (wrapping past 2**31, which ``node * 0x9E37`` does beyond
     53 020 nodes) and then takes the remainder with the divisor's sign;
     so does this, in int64 carriers."""
-    rnd = torch.tensor(round_idx, dtype=torch.int64, device=device)
+    rnd = torch.full((), round_idx, dtype=torch.int64, device=device)
     base = _wrap_i32(_wrap_i32(rnd) * e) % p
     node = torch.arange(n, dtype=torch.int64, device=device)
     node_phase = _wrap_i32(node * 0x9E37) % p

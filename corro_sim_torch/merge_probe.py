@@ -75,6 +75,27 @@ def random_lanes(rng, n, r, c, m):
     return dst, row, col, cv, vr, site, cl, valid
 
 
+def device_sync_box(n, r, c, cap, seed, device) -> torch.Tensor:
+    """A sync-style mailbox of :func:`random_lanes`' distribution drawn
+    on the device from ``seed`` (drawing 134 M lanes on the host takes
+    minutes): node-major, ``cap`` lanes per node."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    m = n * cap
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, (m,), generator=g, device=device,
+                             dtype=torch.int32)
+
+    cell = ints(0, r) * c + ints(0, c)
+    cv, vr, site, cl = ints(1, 6), ints(-3, 50), ints(0, n), ints(1, 4)
+    valid = torch.rand(m, generator=g, device=device) < 0.8
+    is_del = torch.rand(m, generator=g, device=device) < 0.2
+    vr = torch.where(is_del, NEG, vr)
+    cl = torch.where(is_del, cl + cl % 2, cl)
+    return torch.stack([cell, cv, vr, site, cl, valid.to(torch.int32)])
+
+
 def populated_table(rng, n, r, c, device):
     """A table after one merge of ``n * 64`` random lanes."""
     return apply_cell_changes(

@@ -1,7 +1,7 @@
 """Where a round of the port's main path spends its time.
 
-    python -m corro_sim_torch.profile_slice [--swim | --config3 | --config6]
-                                            [--out DIR]
+    python -m corro_sim_torch.profile_slice [--swim | --config3 | --config6
+                                             | --host-read PAIRS] [--out DIR]
 
 Defines the slice's cells — the north-star cluster with SWIM off and,
 with ``--swim``, exactly as the JAX package's config 0 (full-view SWIM,
@@ -36,6 +36,12 @@ Prints one JSON object and writes it, with the full kernel table, to
 ``DIR/profile_slice.json`` (``profile_slice_swim.json`` with ``--swim``,
 ``profile_slice_config3.json`` with ``--config3``,
 ``profile_slice_config6.json`` with ``--config6``).
+
+``--host-read PAIRS`` measures instead how a round whose sweep only
+``behind_pre`` decides is best run: the sweep masked under the device
+predicate (the step as it is) or the predicate read on the host, end to
+end on config 0 and config 6 at 10 000 nodes, ``PAIRS`` pairs each, to
+``DIR/host_read.json``.
 """
 
 from __future__ import annotations
@@ -182,6 +188,210 @@ CONFIG6_ROUNDS = 155
 CONFIG6_PROFILE_ARGS = dict(max_rounds=128, chunk=8, seed=0,
                             stop_on_convergence=False)
 
+# The JAX package's config 4, the headline (corro_sim/benchmarks.py:
+# 106-195, run_headline_bench): 10 000 nodes, 256 x 4 cells, writes at
+# rate 0.5 in every round, wide full-view SWIM ticking every round, the
+# upper half partitioned in rounds 16-31, lean sync every 8 rounds.
+def config4_config(n: int = 10000, merge_kernel: str = "auto") -> SimConfig:
+    """``run_headline_bench``'s SimConfig at ``n`` nodes, exactly."""
+    return SimConfig(
+        num_nodes=n, num_rows=256, num_cols=4, log_capacity=512,
+        write_rate=0.5, zipf_alpha=0.8, swim_enabled=True,
+        swim_suspect_rounds=6, sync_interval=8, sync_actor_topk=32,
+        sync_cap_per_actor=8, sync_req_actors=32, sync_need_sample=64,
+        merge_kernel=merge_kernel,
+    )
+
+
+def partition_upper_half_16_32(r: int, num: int) -> np.ndarray:
+    """Config 4's partition: the upper half cut off for rounds 16-31."""
+    p = np.zeros(num, np.int32)
+    if 16 <= r < 32:
+        p[num // 2:] = 1
+    return p
+
+
+def config4_schedule() -> Schedule:
+    """Config 4's schedule: writes in every round, the mid-run cut."""
+    return Schedule(write_rounds=10**9, part_fn=partition_upper_half_16_32)
+
+
+# run_sim arguments of config 4: the JAX package's warm-up chunk and its
+# 4 measured chunks of 8 rounds walk the same keys and schedule rows
+CONFIG4_RUN_ARGS = dict(max_rounds=40, chunk=8, seed=0,
+                        stop_on_convergence=False)
+CONFIG4_MEASURED_CHUNKS = (1, 2, 3, 4)
+
+
+def config4_rate(chunk_walls: dict, metrics: dict, chunk: int = 8) -> float:
+    """The headline, ``crdt_changes_applied_per_sec_<n>_node_sim``: the
+    median over the measured chunks of ``(writes + fresh +
+    sync_versions) / chunk wall``; ``chunk_walls`` maps a chunk index to
+    its wall in seconds (``run_sim``'s ``on_chunk``)."""
+    applied = metrics["writes"] + metrics["fresh"] + metrics["sync_versions"]
+    rates = [
+        float(applied[ci * chunk:(ci + 1) * chunk].sum()) / chunk_walls[ci]
+        for ci in CONFIG4_MEASURED_CHUNKS
+    ]
+    return float(np.median(rates))
+
+
+def state_bytes(cfg: SimConfig) -> int:
+    """Bytes of ``init_state(cfg)``'s tensors, counted on the meta device
+    (nothing is allocated)."""
+    from corro_sim_torch.engine.state import state_nbytes
+
+    return state_nbytes(init_state(cfg, seed=0, device="meta"))
+
+
+# The JAX package's config 5, catch-up after an outage (corro_sim/
+# benchmarks.py:601-748): 30 % of the nodes down through 24 write rounds
+# at rate 0.2, then back; adaptive sync every round with an 8192-actor hot
+# window, 512 actors x 16 versions per peer (8192 mailbox lanes per node).
+CONFIG5_WRITE_ROUNDS = 24
+CONFIG5_OUTAGE = 0.3
+CONFIG5_TARGET_NODES = 50000
+CONFIG5_COMPUTE_CAP = 16384
+
+
+def config5_config(n: int = CONFIG5_COMPUTE_CAP,
+                   merge_kernel: str = "auto") -> SimConfig:
+    """``config5_cfg(n)``, exactly."""
+    return SimConfig(
+        num_nodes=n, num_rows=128, num_cols=2, log_capacity=256,
+        write_rate=0.2, swim_enabled=False, sync_interval=4,
+        sync_adaptive=True, sync_floor_rounds=1, sync_peers=4,
+        sync_actor_topk=512, sync_cap_per_actor=16, sync_req_actors=512,
+        sync_hot_actors=8192, merge_kernel=merge_kernel,
+    )
+
+
+def config5_schedule(n: int) -> Schedule:
+    """The lowest 30 % of the nodes are down for the write rounds."""
+    down = np.arange(n) < int(n * CONFIG5_OUTAGE)
+
+    def alive_fn(r: int, num: int) -> np.ndarray:
+        return ~down if r < CONFIG5_WRITE_ROUNDS else np.ones(num, bool)
+
+    return Schedule(write_rounds=CONFIG5_WRITE_ROUNDS, alive_fn=alive_fn)
+
+
+# run_config_5's run_sim arguments
+CONFIG5_RUN_ARGS = dict(max_rounds=4096, chunk=8, seed=0,
+                        min_rounds=CONFIG5_WRITE_ROUNDS + 1)
+
+
+def size_config5(device_bytes: int) -> tuple:
+    """``(nodes, reason)``: the JAX package's one-device sizing of config
+    5 (``benchmarks.py:659-678``): the 50 000-node target capped at 16 384
+    (one device runs the whole cluster's compute), then halved while the
+    state plus ~3 (N, A) int32 sweep temporaries (12 N^2 bytes) exceed
+    85 % of ``device_bytes``. ``reason`` names the limit that bound."""
+    nodes, reason = CONFIG5_TARGET_NODES, None
+    if nodes > CONFIG5_COMPUTE_CAP:
+        nodes = CONFIG5_COMPUTE_CAP
+        reason = "compute-time cap (one device runs the whole cluster)"
+    budget = int(0.85 * device_bytes)
+    while nodes > 1024:
+        if state_bytes(config5_config(nodes)) + 12 * nodes * nodes <= budget:
+            break
+        nodes //= 2
+        reason = "device memory budget"
+    return nodes, reason
+
+
+# The JAX package's config 7 in its one-device form (corro_sim/
+# benchmarks.py:930-1009): one device's share of the 100 000-node,
+# 8-device target; windowed SWIM (a view of 128, a tick every 4 rounds),
+# 8 write rounds, config 5's sync. shard_log=True places the change log
+# across devices; on one device it changes nothing.
+CONFIG7_TARGET_NODES = 100000
+CONFIG7_WRITE_ROUNDS = 8
+
+
+def config7_config(n: int = CONFIG7_TARGET_NODES // 8,
+                   merge_kernel: str = "auto") -> SimConfig:
+    """``config7_cfg(n)``, exactly."""
+    return SimConfig(
+        num_nodes=n, num_rows=128, num_cols=2, log_capacity=256,
+        write_rate=0.2, swim_enabled=True, swim_view_size=128,
+        swim_interval=4, sync_interval=4, sync_adaptive=True,
+        sync_floor_rounds=1, sync_peers=4, sync_actor_topk=512,
+        sync_cap_per_actor=16, sync_req_actors=512, sync_hot_actors=8192,
+        shard_log=True, merge_kernel=merge_kernel,
+    )
+
+
+def config7_schedule() -> Schedule:
+    return Schedule(write_rounds=CONFIG7_WRITE_ROUNDS)
+
+
+# run_config_7's run_sim arguments
+CONFIG7_RUN_ARGS = dict(max_rounds=2048, chunk=8, seed=0,
+                        min_rounds=CONFIG7_WRITE_ROUNDS + 1)
+
+
+def size_config7(device_bytes: int) -> tuple:
+    """``(nodes, reason)``: config 7's one-device sizing
+    (``benchmarks.py:986-1009``): one device's eighth of the 100 000-node
+    target, then halved while the state plus ~3 dense (N, 8192) int32
+    sweep temporaries exceed 85 % of ``device_bytes``."""
+    nodes = max(CONFIG7_TARGET_NODES // 8, 1024)
+    reason = "weak-scaling share (1 device(s) run 1/8 of the 8-device target)"
+    budget = int(0.85 * device_bytes)
+    while nodes > 1024:
+        if state_bytes(config7_config(nodes)) + 12 * nodes * 8192 <= budget:
+            break
+        nodes //= 2
+        reason = "device memory budget"
+    return nodes, reason
+
+
+# The whole-run digests of this slice's configurations at sizes the JAX
+# package runs on the CPU: config 4 over its 40 rounds at 1024 nodes;
+# config 5's and config 7's shapes at 2048 and 1536 nodes with a
+# 1024-actor hot window (their 8192 would cover every actor at these
+# sizes, so the window would never rotate; 2048 keeps config 5's 2:1
+# nodes-to-window ratio), to convergence; config 6 at 4000 nodes, to
+# convergence (where its 1024-actor window rotates).
+CONFIG_DIGEST_HOT_ACTORS = 1024
+
+
+def config_digest_case(case: str) -> dict:
+    """The run behind ``DIGESTS[case]`` for the configuration digests:
+    ``cfg``, ``schedule``, ``run_args``, ``workload`` and the metrics the
+    digest leaves out (``exclude``)."""
+    name, n = case.split("_")
+    n = int(n)
+    hot = dict(sync_hot_actors=CONFIG_DIGEST_HOT_ACTORS)
+    if name == "config4":
+        # config 4's lag sums pass 2**24 (ROADMAP.md queue 3, the gap)
+        return dict(cfg=config4_config(n), schedule=config4_schedule(),
+                    run_args=CONFIG4_RUN_ARGS, workload=None,
+                    exclude=("gap",))
+    if name == "config5":
+        return dict(cfg=dataclasses.replace(config5_config(n), **hot),
+                    schedule=config5_schedule(n), run_args=CONFIG5_RUN_ARGS,
+                    workload=None, exclude=())
+    if name == "config7":
+        return dict(cfg=dataclasses.replace(config7_config(n), **hot),
+                    schedule=config7_schedule(), run_args=CONFIG7_RUN_ARGS,
+                    workload=None, exclude=())
+    if name == "config6":
+        return dict(cfg=config6_config(n), schedule=Schedule(),
+                    run_args=CONFIG6_RUN_ARGS, workload=config6_workload(n),
+                    exclude=CONFIG6_DIGEST_EXCLUDE)
+    raise ValueError(f"no configuration digest case {case!r}")
+
+
+CONFIG_DIGEST_CASES = ("config4_1024", "config5_2048", "config7_1536",
+                       "config6_4000")
+# the rounds at which those runs converge, as the JAX package's do
+# (config 4 runs its 40 rounds without a convergence stop)
+CONFIG_DIGEST_ROUNDS = {"config4_1024": None, "config5_2048": 37,
+                        "config7_1536": 19, "config6_4000": 474}
+
+
 # The replay fixtures: (path in the repository, config overrides on the
 # trace's suggest_config()); replayed with max_rounds=256. The first is
 # the JAX package's tests/test_replay_parity.py case.
@@ -220,13 +430,14 @@ DIGEST_RUN_ARGS = dict(max_rounds=24, chunk=8, seed=0,
 # case) from init_state(cfg, seed=0) — the SWIM cases under
 # slice_schedule() and DIGEST_RUN_ARGS, config 3 under config3_schedule()
 # and CONFIG3_RUN_ARGS, config 6 with workload=config6_workload(1000) and
-# CONFIG6_RUN_ARGS, to convergence — and replay of each REPLAY_CASES
+# CONFIG6_RUN_ARGS, to convergence, and each CONFIG_DIGEST_CASES run as
+# config_digest_case(case) sets it up — and replay of each REPLAY_CASES
 # fixture; the state flattened by jax.tree_util.keystr (leading dot
 # dropped) and the metrics as run_sim or replay returned them. The port
-# matches them on every device. The config-6 digest leaves out the "gap"
-# series (CONFIG6_DIGEST_EXCLUDE): at 1000 nodes its lag sums pass 2**24
-# in 13 rounds, where the JAX package's float32 sum rounds and the
-# port's int64 sum is exact (ROADMAP.md queue 3).
+# matches them on every device. The config-6 digests leave out the "gap"
+# series (CONFIG6_DIGEST_EXCLUDE), and so does config 4's: their lag sums
+# pass 2**24 (at 1000 nodes in 13 rounds), where the JAX package's float32
+# sum rounds and the port's int64 sum is exact (ROADMAP.md queue 3).
 DIGESTS = {
     "config0_1024":
         "e5e2f46901a6fe6edce729ad662605a2b76c6d67409b818e09cf1ea349680140",
@@ -240,6 +451,14 @@ DIGESTS = {
         "beb02da908031648cbfd69e7084c7148922f3051c27bc3185cf607ea235db26c",
     "flyio_small":
         "4e2fab708f86fe0a71fd2ef7ac625dd554bb1a06de22111f710a63e527673f6d",
+    "config4_1024":
+        "43b0f48aaff4ab96f03796edf113c2fbfa6c4ee93d360aba6f89e78a4cac432a",
+    "config5_2048":
+        "516cee598a706178380ce84a11df73e48e1b03b4958d6806efa8a176c5f18505",
+    "config7_1536":
+        "22ade412d6e3586d2b041ec3848daf1fc4dac719ca16098b174af2e9cd3fa3a4",
+    "config6_4000":
+        "6dab0d8ae7eb9497c3d5ced2b804a00c2e69edb04b5320aefa26cdb18254ed8e",
 }
 CONFIG6_DIGEST_EXCLUDE = ("gap",)
 
@@ -387,6 +606,67 @@ def _merge_bounds(cfg, device, workload=None) -> list:
     return works
 
 
+@contextlib.contextmanager
+def _read_not_mask():
+    """The alternative to the masked sweep, for the measurement: where
+    the sweep gate returns the device predicate, read it on the host."""
+    gate = step_mod._sync_gate
+
+    @functools.wraps(gate)
+    def read(*a, **kw):
+        g = gate(*a, **kw)
+        return bool(g) if isinstance(g, torch.Tensor) else g
+
+    step_mod._sync_gate = read
+    try:
+        yield
+    finally:
+        step_mod._sync_gate = gate
+
+
+def host_read(pairs: int) -> dict:
+    """The masked sweep against the host read of its predicate, end to
+    end: config 0 exactly at 10 000 nodes to convergence and config 6 at
+    10 000 nodes over its first 128 rounds, ``pairs`` pairs each, in
+    turns masked, read, read, masked; wall per round of each run."""
+    device = torch.device("cuda")
+    cells = {
+        "config0": (slice_config(swim=True), None, slice_schedule, RUN_ARGS),
+        "config6": (config6_config(), config6_workload(), Schedule,
+                    CONFIG6_PROFILE_ARGS),
+    }
+    out = {}
+    for name, (cfg, wl, sched, args) in cells.items():
+        def run(variant):
+            ctx = _read_not_mask() if variant == "read" else (
+                contextlib.nullcontext())
+            with ctx:
+                res = run_sim(cfg, init_state(cfg, seed=0, device=device),
+                              sched(), device=device, workload=wl, **args)
+            return res.wall_per_round_ms, res.pipeline, res.rounds
+
+        run("masked")  # warm-up: allocator growth, kernel build
+        walls = {"masked": [], "read": []}
+        gates = {}
+        for i in range(pairs):
+            order = ("masked", "read") if i % 2 == 0 else ("read", "masked")
+            for variant in order:
+                ms, pipe, rounds = run(variant)
+                walls[variant].append(ms)
+                gates[variant] = {k: pipe[k] for k in (
+                    "host_decided", "masked_sweeps", "host_reads",
+                    "sweeps_run")}
+        diff = [m - r for m, r in zip(walls["masked"], walls["read"])]
+        out[name] = {
+            "nodes": cfg.num_nodes, "rounds": rounds,
+            "wall_per_round_ms": walls, "gates": gates,
+            "median_ms": {k: float(np.median(v)) for k, v in walls.items()},
+            "masked_minus_read_ms": diff,
+            "masked_faster_pairs": sum(d < 0 for d in diff),
+        }
+    return out
+
+
 def _busy_ms(intervals) -> float:
     """Length of the union of (start, end) microsecond intervals, in ms."""
     busy, end = 0.0, -1.0
@@ -412,7 +692,19 @@ def main(argv=None) -> dict:
     cell.add_argument("--config6", action="store_true",
                       help="profile config 6 at 10 000 nodes (its first "
                            "128 rounds)")
+    cell.add_argument("--host-read", type=int, metavar="PAIRS",
+                      help="the masked sweep against the host read, "
+                           "PAIRS pairs on configs 0 and 6 at 10 000 nodes")
     args = ap.parse_args(argv)
+    if args.host_read:
+        report = dict(host_read(args.host_read),
+                      card=torch.cuda.get_device_name(0),
+                      nvidia_smi=mp.nvidia_smi())
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "host_read.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        print(json.dumps(report))
+        return report
     device = torch.device("cuda")
     wl = None
     if args.config6:

@@ -48,7 +48,10 @@ def _prep(dest, idx, vals, keep):
     if keep is not None:
         ok = ok & keep
     flat = dest.reshape((-1,) + tuple(dest.shape[lead:]))
-    vals = torch.as_tensor(vals, dtype=dest.dtype, device=dest.device)
+    if isinstance(vals, torch.Tensor):
+        vals = vals.to(dtype=dest.dtype, device=dest.device)
+    else:  # a fill: copying a host scalar to the card would wait for it
+        vals = torch.full((), vals, dtype=dest.dtype, device=dest.device)
     vals = vals.expand(lin.shape + tuple(dest.shape[lead:]))
     return flat, torch.where(ok, lin, 0), ok, vals
 

@@ -35,7 +35,9 @@ def test_port_imports_without_jax():
         " 'corro_sim_torch.workload.generators',"
         " 'corro_sim_torch.workload.inject', 'corro_sim_torch.io.columns',"
         " 'corro_sim_torch.io.values', 'corro_sim_torch.io.traces',"
-        " 'corro_sim_torch.engine.replay') if m not in sys.modules]\n"
+        " 'corro_sim_torch.engine.replay', 'corro_sim_torch.obs.flight',"
+        " 'corro_sim_torch.utils.metrics', 'corro_sim_torch.utils.tracing',"
+        " 'corro_sim_torch.utils.runtime') if m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'corro_sim' or m.startswith('corro_sim.')]\n"

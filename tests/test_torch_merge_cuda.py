@@ -131,3 +131,85 @@ def test_dram_probe_keeps_the_planes(dev):
     for p, b in zip(planes, before):
         assert bool((p[written] == 0).all())
         assert torch.equal(p[~written], b[~written])
+
+
+# config 5's and config 7's sync mailbox: K' * cap * S = 512 * 16 * 1 =
+# 8192 lanes per node over 128 rows x 2 columns, more than a warp's share
+# of shared memory holds: the kernel merges it tile by tile
+BIG_CAP, BIG_ROWS, BIG_COLS = 8192, 128, 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 1024])
+def test_cuda_kernel_tiles_a_cap_8192_mailbox(dev, n):
+    tile = mk.merge_tile(BIG_CAP, BIG_ROWS * BIG_COLS, BIG_COLS, dev)
+    assert 0 < tile < BIG_CAP and tile % 128 == 0
+    rng = np.random.default_rng(n)
+    state = _state(rng, n, BIG_ROWS, BIG_COLS, dev)
+    box = torch.as_tensor(
+        _lanes(rng, n, BIG_ROWS, BIG_COLS, n * BIG_CAP), device=dev)
+    _check(state, box, BIG_CAP, BIG_COLS)
+
+
+def _one_node_box(n, cap, lanes, dev):
+    """A mailbox whose node 0 holds ``lanes`` — ``{position: (cell, cv,
+    vr, site, cl)}`` — and nothing else valid."""
+    box = torch.zeros((mk.LANE_FIELDS, n * cap), dtype=torch.int32,
+                      device=dev)
+    for pos, fields in lanes.items():
+        box[:5, pos] = torch.tensor(fields, dtype=torch.int32)
+        box[mk.LANE_VALID, pos] = 1
+    return box
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_tile_boundary_inside_a_row(dev):
+    """One row's lanes straddle the first tile boundary: the winner of
+    each cell comes from either side, and the row's cl grows in the
+    second tile."""
+    n = 4
+    tile = mk.merge_tile(BIG_CAP, BIG_ROWS * BIG_COLS, BIG_COLS, dev)
+    rng = np.random.default_rng(3)
+    state = _state(rng, n, BIG_ROWS, BIG_COLS, dev)
+    row = 5
+    lanes = {
+        tile - 2: (row * 2, 7, 10, 1, 1),  # cell 0 at cl 1, first tile
+        tile - 1: (row * 2 + 1, 9, 3, 2, 1),
+        tile: (row * 2, 7, 11, 0, 1),  # ties cv, wins on vr, second tile
+        tile + 1: (row * 2 + 1, 9, 3, 3, 1),  # ties cv and vr, wins site
+        tile + 2: (row * 2, 2, 20, 1, 3),  # cl 3 wins over both
+    }
+    _check(state, _one_node_box(n, BIG_CAP, lanes, dev), BIG_CAP, BIG_COLS)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_later_tile_delete_wipes_earlier_value(dev):
+    """A delete at a higher cl in a later tile than a value at a lower cl
+    wipes the row the earlier tile wrote; a later value at the lower cl
+    stays out."""
+    n = 4
+    tile = mk.merge_tile(BIG_CAP, BIG_ROWS * BIG_COLS, BIG_COLS, dev)
+    state = crdt.make_table_state(n, BIG_ROWS, BIG_COLS, dev)
+    row = 9
+    lanes = {
+        3: (row * 2, 5, 40, 2, 1),  # a value at cl 1, tile 0
+        tile + 17: (row * 2 + 1, 1, NEG, 1, 2),  # delete at cl 2, tile 1
+        3 * tile + 1: (row * 2 + 1, 6, 50, 3, 1),  # value at cl 1, tile 3
+    }
+    _check(state, _one_node_box(n, BIG_CAP, lanes, dev), BIG_CAP, BIG_COLS)
+    assert int(state.cl[0, row]) == 2
+    assert int(state.vr[0, row, 0]) == NEG and int(state.vr[0, row, 1]) == NEG
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_all_invalid_cap_8192_mailbox(dev):
+    n = 256
+    rng = np.random.default_rng(4)
+    state = _state(rng, n, BIG_ROWS, BIG_COLS, dev)
+    before = [t.clone() for t in (state.cv, state.vr, state.site, state.cl)]
+    box = torch.as_tensor(
+        _lanes(rng, n, BIG_ROWS, BIG_COLS, n * BIG_CAP), device=dev)
+    box[mk.LANE_VALID] = 0
+    _check(state, box, BIG_CAP, BIG_COLS)
+    for t, b in zip((state.cv, state.vr, state.site, state.cl), before):
+        assert torch.equal(t, b)
