@@ -463,9 +463,8 @@ def main() -> int:
         return rec, res
 
     def one_launch_per_sweep(label, rec):
-        """Each sweep run launches the kernel once: the committed sweeps,
-        and the sweeps of rounds past the converged round in the last
-        chunk and of a discarded speculative chunk."""
+        """Each sweep run launches the kernel once: the committed sweeps
+        and those of the rounds a discarded speculative chunk queued."""
         sweeps, run = rec["sync_sweeps"], rec["sweeps_run"]
         got = rec["launches"]["grouped_merge"]
         if got != run or sweeps == 0 or run < sweeps:
@@ -745,10 +744,13 @@ def main() -> int:
         raise AssertionError("replay of replay_parity.ndjson does not reach "
                              "the expected tables and cleared versions")
 
-    # ------- config 4, the headline: 10 000 nodes, 40 rounds, no stop
+    # ------- config 4, the headline: 10 000 nodes, 40 rounds, no stop;
+    # chunk by chunk, each chunk's wall its own (as the JAX package's
+    # headline reads each chunk's metrics before the next)
     cfg = config4_config(10000)
     walls = {}
     c4_rec, res = drive(cfg, config4_schedule(), CONFIG4_RUN_ARGS,
+                        pipeline=False,
                         on_chunk=lambda d: walls.__setitem__(
                             d["chunk"], d["chunk_wall_s"]))
     rate = config4_rate(walls, res.metrics)

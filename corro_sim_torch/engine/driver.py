@@ -21,7 +21,10 @@ the repair-program choice changed) is discarded and, on a program
 mispredict, run again on the right program. A step consumes its input
 state, so a speculative chunk runs on a device copy of the committed
 state (the JAX package's donation double-buffer): one state's bytes of
-memory and one copy per chunk.
+memory and one copy per chunk. Queueing a chunk is host work here (the
+step is eager), so between the speculative chunk's rounds the host
+checks whether chunk N's metrics have landed; once they show that the
+speculative chunk will be discarded, the rest of it is not queued.
 """
 
 from __future__ import annotations
@@ -173,9 +176,9 @@ class RunResult:
     # uploads, host to device
     flight: FlightRecorder | None = None  # per-round telemetry timeline
     pipeline: dict | None = None  # the chunk pipeline's counts and
-    # walls (the JAX package's keys), and how the dispatched rounds'
-    # sweeps were decided: host_decided, masked_sweeps (run under the
-    # device predicate), host_reads, sweeps_run
+    # walls (the JAX package's keys), and how the queued rounds' sweeps
+    # were decided: host_decided, host_reads (of the device predicate),
+    # sweeps_run
 
     @property
     def wall_per_round_ms(self) -> float:
@@ -233,13 +236,14 @@ class _InFlight:
     ci: int
     base: int  # first round the chunk covers (0-based)
     state_out: SimState  # the chunk's final state (chunk N+1's input)
-    fetch: AsyncFetch  # its metric stacks on their way to the host
+    fetch: AsyncFetch | None  # its metric stacks on their way to the host
     ikeys: list
     use_repair: bool
     speculative: bool  # dispatched before the previous chunk's metrics
     alive: np.ndarray
     part: np.ndarray
     we: np.ndarray
+    cut: bool = False  # speculative and stopped early: to be discarded
 
 
 def run_sim(
@@ -374,12 +378,14 @@ def run_sim(
         return bool(pend_live == 0 and not we.any())
 
     def dispatch(ci, base, state_in, known_pend_live, blocked_by_writes,
-                 speculative) -> _InFlight:
+                 speculative, behind=None) -> _InFlight:
         """Queue one chunk of rounds on the device and start the copy of
         its metrics; the program follows the sequential rule against
         ``known_pend_live`` (one chunk stale when speculative), and
         ``blocked_by_writes`` vetoes the repair step while an unread
-        chunk still carries write rounds."""
+        chunk still carries write rounds. ``behind``: the unread chunk
+        this one speculates past; once its metrics show that this chunk
+        will be discarded, the rest of it is not queued."""
         alive, part, we = schedule.slice(base, chunk, n)
         keys = chunk_keys(root, ci, chunk)
         use_repair = (select_repair(known_pend_live, we)
@@ -394,6 +400,14 @@ def run_sim(
         with tracer.span("chunk dispatch", ci=ci, slow_warn=False,
                          runner="repair" if use_repair else "full"):
             for r in range(chunk):
+                if behind is not None and behind.fetch.ready():
+                    if doomed(behind, we, use_repair):
+                        return _InFlight(
+                            ci=ci, base=base, state_out=st, fetch=None,
+                            ikeys=[], use_repair=use_repair,
+                            speculative=speculative, alive=alive,
+                            part=part, we=we, cut=True)
+                    behind = None  # this chunk commits: stop checking
                 st, m = sim_step(
                     cfg, st, keys[r], alive_t[r], part_t[r], bool(we[r]),
                     round0 + base + r, repair=use_repair,
@@ -408,6 +422,19 @@ def run_sim(
                          ikeys=ikeys, use_repair=use_repair,
                          speculative=speculative, alive=alive, part=part,
                          we=we)
+
+    def doomed(pending: _InFlight, we, use_repair) -> bool:
+        """Whether ``pending``'s metrics (landed) show that the chunk
+        speculating past it will be discarded: the run ends at
+        ``pending`` (poisoned or converged), or the repair-program
+        choice differs from the sequential rule's."""
+        m = unpack_metrics(*pending.fetch.resolve(), pending.ikeys)
+        if m["log_wrapped"].any():
+            return True
+        if stop_on_convergence and converged_at(
+                m["gap"], pending.base, chunk, min_rounds) is not None:
+            return True
+        return select_repair(int(m["pend_live"][-1]), we) != use_repair
 
     def process(ci, base, m, we, use_repair, chunk_elapsed,
                 annot_extra=None) -> bool:
@@ -550,7 +577,7 @@ def run_sim(
                     copy_bytes += state_nbytes(spec_src)
                     nxt = dispatch(pending.ci + 1, next_base, spec_src,
                                    last_pend_live, bool(pending.we.any()),
-                                   speculative=True)
+                                   speculative=True, behind=pending)
                     spec_dispatched += 1
                     counters.inc(
                         PIPELINE_SPECULATIVE_TOTAL,
@@ -607,6 +634,9 @@ def run_sim(
                     # re-dispatched chunk commits next
                     nxt = dispatch(nxt.ci, nxt.base, state, last_pend_live,
                                    False, speculative=False)
+                if nxt.cut:
+                    raise RuntimeError("a cut speculative chunk reached "
+                                       "its commit")
                 pending = nxt
         # the run is done when its state is, not when its last metrics
         # landed
@@ -619,14 +649,13 @@ def run_sim(
         os.makedirs(profile_dir, exist_ok=True)
         profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
-    # how the dispatched rounds' sweeps were decided (discarded
-    # speculative chunks included); each sweep run launches the merge
-    # kernel once where the kernel takes the sweep
+    # how the queued rounds' sweeps were decided (discarded speculative
+    # chunks included); each sweep run launches the merge kernel once
+    # where the kernel takes the sweep
     g = {k: step_mod.SWEEP_GATES[k] - gates0[k] for k in gates0}
     sweeps = {"host_decided": g["host_on"] + g["host_off"],
-              "masked_sweeps": g["masked"],
               "host_reads": g["read_on"] + g["read_off"],
-              "sweeps_run": g["host_on"] + g["masked"] + g["read_on"]}
+              "sweeps_run": g["host_on"] + g["read_on"]}
     if pipeline:
         exec_wall = max(wall - drain, 0.0)
         overlap = max(exec_wall - fetch_wait_total, 0.0)

@@ -18,14 +18,14 @@ of the round; a SWIM tick's result shows from the next round on.
 Every stage is a batched tensor op over all nodes. Whether the sync
 sweep runs is decided on the host wherever host data fixes it: the
 interval rounds, ``sync_adaptive`` off, a round off the floor cadence,
-and a round in which writers are known to run. Where only
-``behind_pre`` (device data) decides — nobody writes, as the caller
-knows — the sweep runs masked: its requests carry the device predicate,
-so a round that must not sweep grants nothing and every output stays as
-it was. Only a round of the random sampler's write phase, whose writers
-are device data too, reads the predicate on the host. The SWIM cadence
-and its announce gate depend on the round number only, which the caller
-passes on the host.
+and a round in which writers are known to run. Elsewhere the adaptive
+term (``behind_pre``, and under the random sampler whether anybody
+wrote) is device data, and the sweep is a branch of data-dependent
+size: the step copies that one bool to the host as soon as it is
+computed, before the round's gossip and delivery are queued, and reads
+it when the sweep is due, so the host rarely waits for it. The SWIM
+cadence and its announce gate depend on the round number only, which
+the caller passes on the host.
 """
 
 from __future__ import annotations
@@ -58,6 +58,7 @@ from corro_sim_torch.membership.swim_window import (
     window_metrics,
 )
 from corro_sim_torch.sync.sync import sync_round
+from corro_sim_torch.utils.runtime import start_async_fetch
 from corro_sim_torch.utils.sort import scatter_max
 
 # The step's PRNG stream map: the round key splits once into these
@@ -79,12 +80,12 @@ _SYNC_METRICS = ("sync_pairs", "sync_requests", "sync_rejections",
                  "sync_versions", "sync_empties", "sync_cells")
 
 # how each round's sweep was decided: on or off by host data
-# ("host_on", "host_off"), run under the device predicate ("masked"), or
-# the predicate read on the host ("read_on", "read_off"). run_sim reports
-# the counts in RunResult.pipeline; a sweep that runs launches the merge
-# kernel once, so "host_on" + "masked" + "read_on" is its launch count.
+# ("host_on", "host_off"), or by the device predicate read on the host
+# ("read_on", "read_off"). run_sim reports the counts in
+# RunResult.pipeline; a sweep that runs launches the merge kernel once
+# where the kernel takes the sweep.
 SWEEP_GATES = dict.fromkeys(
-    ("host_on", "host_off", "masked", "read_on", "read_off"), 0)
+    ("host_on", "host_off", "read_on", "read_off"), 0)
 
 
 def _reachable_fn(alive: torch.Tensor, part: torch.Tensor):
@@ -241,6 +242,7 @@ def sim_step(
         dtype=torch.int32)
     behind_pre = ((lag_pre > 0) & alive[:, None]).any()
     del lag_pre
+    gate = _sync_gate(cfg, round_idx, quiesced, behind_pre, writers)
 
     # global ownership fold: which versions lost cells to this round
     w_cell_live = writers[:, None] & (
@@ -336,7 +338,7 @@ def sim_step(
     )
 
     # ----------------------------------------------------------------- sync
-    is_sync = _sync_gate(cfg, round_idx, quiesced, behind_pre, writers)
+    is_sync = _sync_due(gate)
     book, table, hlc_s, last_cleared, sync_metrics = _sync_block(
         cfg, is_sync, book, log, table, state.hlc, last_cleared, cleared_hlc,
         k_sync, alive, view, part, round_idx=state.sync_rounds,
@@ -376,7 +378,7 @@ def sim_step(
         gossip=gossip,
         swim=swim,
         round=state.round + 1,
-        sync_rounds=_count_sweep(state.sync_rounds, is_sync),
+        sync_rounds=state.sync_rounds + int(is_sync),
         hlc=hlc,
         last_cleared=last_cleared,
         cleared_hlc=cleared_hlc,
@@ -405,38 +407,38 @@ def _sync_gate(cfg, round_: int, quiesced: bool | None, behind_pre,
     plus — under ``sync_adaptive`` — floor-cadence rounds in which
     nobody wrote but somebody is still behind.
 
-    Returns a bool where host data fixes the answer, else the device
-    predicate (a () bool tensor) that the sweep runs masked under: where
-    only ``behind_pre`` decides (``quiesced`` known True). Where the
-    random sampler's writers decide too (``quiesced`` None), the
-    predicate is read on the host."""
+    Returns a bool where host data fixes the answer. Else the answer is
+    device data — ``behind_pre``, and whether anybody wrote where the
+    caller does not know it (``quiesced`` None) — and this starts its
+    copy to the host and returns it, for :func:`_sync_due`."""
     si = cfg.sync_interval
     if round_ % si == si - 1:
-        gate, kind = True, "host_on"
-    elif (not cfg.sync_adaptive or quiesced is False
-          or round_ % cfg.sync_floor_rounds != cfg.sync_floor_rounds - 1):
-        gate, kind = False, "host_off"
-    elif quiesced:
-        gate, kind = behind_pre, "masked"
-    else:
-        gate = bool((writers.sum(dtype=torch.int32) == 0) & behind_pre)
-        kind = "read_on" if gate else "read_off"
-    SWEEP_GATES[kind] += 1
-    return gate
+        SWEEP_GATES["host_on"] += 1
+        return True
+    if (not cfg.sync_adaptive or quiesced is False
+            or round_ % cfg.sync_floor_rounds != cfg.sync_floor_rounds - 1):
+        SWEEP_GATES["host_off"] += 1
+        return False
+    pred = behind_pre
+    if quiesced is None:
+        pred = (writers.sum(dtype=torch.int32) == 0) & behind_pre
+    return start_async_fetch(pred)
 
 
-def _count_sweep(sync_rounds, is_sync):
-    """``sync_rounds`` after this round's gate."""
-    if isinstance(is_sync, torch.Tensor):
-        return sync_rounds + is_sync.to(torch.int32)
-    return sync_rounds + int(is_sync)
+def _sync_due(gate) -> bool:
+    """The sweep gate's answer, reading the device predicate's copy
+    where :func:`_sync_gate` started one."""
+    if isinstance(gate, bool):
+        return gate
+    due = bool(gate.resolve()[0])
+    SWEEP_GATES["read_on" if due else "read_off"] += 1
+    return due
 
 
-def _sync_block(cfg, is_sync, book, log, table, hlc, last_cleared,
+def _sync_block(cfg, is_sync: bool, book, log, table, hlc, last_cleared,
                 cleared_hlc, k_sync, alive, view, part, round_idx):
-    """One anti-entropy sweep when ``is_sync`` (masked under it when it
-    is a device predicate); zero metrics otherwise."""
-    if is_sync is False:
+    """One anti-entropy sweep when ``is_sync``; zero metrics otherwise."""
+    if not is_sync:
         dev = hlc.device
         return book, table, hlc, last_cleared, {
             k: _i32(0, dev) for k in _SYNC_METRICS
@@ -444,7 +446,6 @@ def _sync_block(cfg, is_sync, book, log, table, hlc, last_cleared,
     return sync_round(
         cfg, book, log, table, hlc, last_cleared, cleared_hlc, k_sync,
         alive, view, _pairwise_mask(alive, part), round_idx=round_idx,
-        active=None if is_sync is True else is_sync,
     )
 
 
@@ -491,6 +492,8 @@ def _repair_step(cfg, state: SimState, key, alive, part, round_idx: int):
         dtype=torch.int32)
     behind_pre = ((lag_pre > 0) & alive[:, None]).any()
     del lag_pre
+    # quiesced is identically True here (no writers by precondition)
+    gate = _sync_gate(cfg, round_idx, True, behind_pre, None)
     hlc_recv = torch.zeros((n,), dtype=torch.int32, device=dev)
 
     # SWIM keeps its tick cadence through the tail
@@ -498,8 +501,7 @@ def _repair_step(cfg, state: SimState, key, alive, part, round_idx: int):
         cfg, state.swim, k_swim, alive, _reachable_fn(alive, part), round_idx
     )
 
-    # quiesced is identically True here (no writers by precondition)
-    is_sync = _sync_gate(cfg, round_idx, True, behind_pre, None)
+    is_sync = _sync_due(gate)
     book, table, hlc_s, last_cleared, sync_metrics = _sync_block(
         cfg, is_sync, book, log, state.table, state.hlc, state.last_cleared,
         state.cleared_hlc, k_sync, alive, view, part,
@@ -535,7 +537,7 @@ def _repair_step(cfg, state: SimState, key, alive, part, round_idx: int):
         book=book,
         swim=swim,
         round=state.round + 1,
-        sync_rounds=_count_sweep(state.sync_rounds, is_sync),
+        sync_rounds=state.sync_rounds + int(is_sync),
         hlc=hlc,
         last_cleared=last_cleared,
     )

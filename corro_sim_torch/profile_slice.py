@@ -37,11 +37,11 @@ Prints one JSON object and writes it, with the full kernel table, to
 ``profile_slice_config3.json`` with ``--config3``,
 ``profile_slice_config6.json`` with ``--config6``).
 
-``--host-read PAIRS`` measures instead how a round whose sweep only
-``behind_pre`` decides is best run: the sweep masked under the device
-predicate (the step as it is) or the predicate read on the host, end to
-end on config 0 and config 6 at 10 000 nodes, ``PAIRS`` pairs each, to
-``DIR/host_read.json``.
+``--host-read PAIRS`` measures instead the step's read of the sweep
+gate's device predicate: copied to the host where it is computed and
+read where the sweep is due (the step as it is), against a blocking
+read where the sweep is due, end to end on config 0 and config 6 at
+10 000 nodes, ``PAIRS`` pairs each, to ``DIR/host_read.json``.
 """
 
 from __future__ import annotations
@@ -606,29 +606,37 @@ def _merge_bounds(cfg, device, workload=None) -> list:
     return works
 
 
+class _LateRead:
+    """The sweep gate's device predicate, copied to the host only when
+    the sweep is due."""
+
+    def __init__(self, pred):
+        self.pred = pred
+
+    def resolve(self):
+        return [self.pred.cpu().numpy()]
+
+
 @contextlib.contextmanager
-def _read_not_mask():
-    """The alternative to the masked sweep, for the measurement: where
-    the sweep gate returns the device predicate, read it on the host."""
-    gate = step_mod._sync_gate
-
-    @functools.wraps(gate)
-    def read(*a, **kw):
-        g = gate(*a, **kw)
-        return bool(g) if isinstance(g, torch.Tensor) else g
-
-    step_mod._sync_gate = read
+def _late_read():
+    """The alternative to the early read, for the measurement: the step
+    reads the gate's device predicate where the sweep is due (a blocking
+    copy), as the step did before the early read."""
+    start = step_mod.start_async_fetch
+    step_mod.start_async_fetch = _LateRead
     try:
         yield
     finally:
-        step_mod._sync_gate = gate
+        step_mod.start_async_fetch = start
 
 
 def host_read(pairs: int) -> dict:
-    """The masked sweep against the host read of its predicate, end to
-    end: config 0 exactly at 10 000 nodes to convergence and config 6 at
+    """The early read of the sweep gate's device predicate (started where
+    the predicate is computed, read where the sweep is due) against the
+    late read (a blocking copy where the sweep is due), end to end:
+    config 0 exactly at 10 000 nodes to convergence and config 6 at
     10 000 nodes over its first 128 rounds, ``pairs`` pairs each, in
-    turns masked, read, read, masked; wall per round of each run."""
+    turns early, late, late, early; wall per round of each run."""
     device = torch.device("cuda")
     cells = {
         "config0": (slice_config(swim=True), None, slice_schedule, RUN_ARGS),
@@ -638,31 +646,30 @@ def host_read(pairs: int) -> dict:
     out = {}
     for name, (cfg, wl, sched, args) in cells.items():
         def run(variant):
-            ctx = _read_not_mask() if variant == "read" else (
+            ctx = _late_read() if variant == "late" else (
                 contextlib.nullcontext())
             with ctx:
                 res = run_sim(cfg, init_state(cfg, seed=0, device=device),
                               sched(), device=device, workload=wl, **args)
             return res.wall_per_round_ms, res.pipeline, res.rounds
 
-        run("masked")  # warm-up: allocator growth, kernel build
-        walls = {"masked": [], "read": []}
+        run("early")  # warm-up: allocator growth, kernel build
+        walls = {"early": [], "late": []}
         gates = {}
         for i in range(pairs):
-            order = ("masked", "read") if i % 2 == 0 else ("read", "masked")
+            order = ("early", "late") if i % 2 == 0 else ("late", "early")
             for variant in order:
                 ms, pipe, rounds = run(variant)
                 walls[variant].append(ms)
                 gates[variant] = {k: pipe[k] for k in (
-                    "host_decided", "masked_sweeps", "host_reads",
-                    "sweeps_run")}
-        diff = [m - r for m, r in zip(walls["masked"], walls["read"])]
+                    "host_decided", "host_reads", "sweeps_run")}
+        diff = [e - t for e, t in zip(walls["early"], walls["late"])]
         out[name] = {
             "nodes": cfg.num_nodes, "rounds": rounds,
             "wall_per_round_ms": walls, "gates": gates,
             "median_ms": {k: float(np.median(v)) for k, v in walls.items()},
-            "masked_minus_read_ms": diff,
-            "masked_faster_pairs": sum(d < 0 for d in diff),
+            "early_minus_late_ms": diff,
+            "early_faster_pairs": sum(d < 0 for d in diff),
         }
     return out
 
@@ -693,8 +700,9 @@ def main(argv=None) -> dict:
                       help="profile config 6 at 10 000 nodes (its first "
                            "128 rounds)")
     cell.add_argument("--host-read", type=int, metavar="PAIRS",
-                      help="the masked sweep against the host read, "
-                           "PAIRS pairs on configs 0 and 6 at 10 000 nodes")
+                      help="the early read of the sweep gate against the "
+                           "late read, PAIRS pairs on configs 0 and 6 at "
+                           "10 000 nodes")
     args = ap.parse_args(argv)
     if args.host_read:
         report = dict(host_read(args.host_read),

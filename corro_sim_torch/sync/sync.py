@@ -136,17 +136,12 @@ def _rank_within_slot(slot: torch.Tensor) -> torch.Tensor:
 
 def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
                hlc, last_cleared, cleared_hlc, key, alive, view_alive,
-               reachable, round_idx=0, active=None):
+               reachable, round_idx=0):
     """One anti-entropy sweep (multi-peer).
 
     Returns ``(book, table, hlc, last_cleared, metrics)``. On the mailbox
     path (``kernel_supported``) ``table`` is merged in place and the
-    returned table holds its storage.
-
-    ``active``: a () bool tensor, or None for True. The sweep runs
-    masked under it: every request carries it, so where it is False no
-    request is made or granted, no lane is valid, and every output equals
-    its input (the heads' re-absorb is idempotent) with zero metrics."""
+    returned table holds its storage."""
     if cfg.sync_hot_actors <= 0 or cfg.sync_deal_probes:
         raise NotImplementedError(
             "only the dense hot-actor sync schedule is ported"
@@ -157,9 +152,6 @@ def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
     peer, granted, requested = choose_sync_peers(
         cfg, book, k_peer, alive, view_alive, reachable
     )
-    if active is not None:
-        requested = requested & active
-        granted = granted & active
     p_cnt = peer.shape[1]
     rejected = requested & ~granted
     peer_l = peer.long()

@@ -2,8 +2,9 @@
 
 The part of ``corro_sim/utils/metrics.py`` that ``run_sim`` writes to:
 :data:`counters`, :data:`histograms` (the reference exporter's
-``SECONDS_BUCKETS``) and the names of the chunk-pipeline series. Each
-registry renders in the Prometheus text exposition format.
+``SECONDS_BUCKETS``) and the names of the chunk-pipeline series; each
+registry keeps its series by ``(name, labels)``, labels in the
+Prometheus text format (``'{reason="converged"}'``).
 """
 
 from __future__ import annotations
@@ -78,28 +79,6 @@ class HistogramRegistry:
         with self._lock:
             return self._h.get((name, labels))
 
-    def render(self) -> list[str]:
-        with self._lock:
-            out = []
-            seen = set()
-            for (name, labels), h in sorted(self._h.items()):
-                if name not in seen:
-                    seen.add(name)
-                    out.append(f"# HELP {name} {self._help.get(name, name)}")
-                    out.append(f"# TYPE {name} histogram")
-                base = labels[1:-1] if labels else ""
-                cum = 0
-                for b, c in zip(h.buckets, h.counts):
-                    cum += c
-                    lbl = f'{base},le="{b}"' if base else f'le="{b}"'
-                    out.append(f"{name}_bucket{{{lbl}}} {cum}")
-                lbl = f'{base},le="+Inf"' if base else 'le="+Inf"'
-                out.append(f"{name}_bucket{{{lbl}}} {h.count}")
-                sfx = f"{{{base}}}" if base else ""
-                out.append(f"{name}_sum{sfx} {round(h.sum, 6)}")
-                out.append(f"{name}_count{sfx} {h.count}")
-            return out
-
 
 class CounterRegistry:
     """Named counters, ``(name, labels) -> value``."""
@@ -119,18 +98,6 @@ class CounterRegistry:
     def get(self, name: str, labels: str = "") -> float:
         with self._lock:
             return self._c.get((name, labels), 0)
-
-    def render(self) -> list[str]:
-        with self._lock:
-            out = []
-            seen = set()
-            for (name, labels), v in sorted(self._c.items()):
-                if name not in seen:
-                    seen.add(name)
-                    out.append(f"# HELP {name} {self._help.get(name, name)}")
-                    out.append(f"# TYPE {name} counter")
-                out.append(f"{name}{labels} {v}")
-            return out
 
 
 histograms = HistogramRegistry()

@@ -51,6 +51,10 @@ class AsyncFetch:
         else:
             self._host = [t.detach().clone() for t in tensors]
 
+    def ready(self) -> bool:
+        """Whether the copies have landed (never waits)."""
+        return self._event is None or self._event.query()
+
     def resolve(self) -> list[np.ndarray]:
         if self._event is not None:
             self._event.synchronize()

@@ -46,17 +46,6 @@ class Span:
         self.duration = duration
         self.attrs = attrs
 
-    def as_json(self) -> dict:
-        return {
-            "name": self.name,
-            "trace_id": self.trace_id,
-            "span_id": self.span_id,
-            "parent_id": self.parent_id,
-            "start": self.start,
-            "duration_ms": round(self.duration * 1000, 3),
-            "attrs": self.attrs,
-        }
-
 
 class Tracer:
     """Bounded recorder of finished spans; thread-safe."""
@@ -100,10 +89,6 @@ class Tracer:
         if name is not None:
             spans = [s for s in spans if s.name == name]
         return spans[-n:]
-
-    def clear(self) -> None:
-        with self._lock:
-            self._spans.clear()
 
 
 # the process-default tracer

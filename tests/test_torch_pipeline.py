@@ -14,6 +14,7 @@ exact).
 """
 
 import dataclasses
+import time
 
 import jax
 import numpy as np
@@ -27,6 +28,14 @@ from corro_sim_torch.config import sim_config_from_dict
 from corro_sim_torch.convert import state_to_numpy
 from corro_sim_torch.engine.driver import Schedule, run_sim
 from corro_sim_torch.engine.state import init_state
+from corro_sim_torch.utils.metrics import (
+    PIPELINE_FETCH_WAIT,
+    PIPELINE_SPECULATIVE_TOTAL,
+    PIPELINE_SPECULATIVE_WASTED,
+    counters,
+    histograms,
+)
+from corro_sim_torch.utils.tracing import tracer
 
 CFG = SimConfig(
     num_nodes=16, num_rows=16, num_cols=2, log_capacity=64,
@@ -147,6 +156,33 @@ def test_speculation_discard_at_convergence():
     assert rp.flight.diagnostics()["pipeline"]["speculative_wasted"] >= 1
     # each speculative chunk ran on a copy of a whole state
     assert rp.pipeline["speculative_copy_bytes"] > 0
+
+
+def test_pipeline_counters_and_spans():
+    """The pipelined loop's process-wide series: one speculative dispatch
+    counted per speculation, one discard by reason, the fetch waits by
+    mode, and one "chunk dispatch" span per queued chunk."""
+    pcfg = sim_config_from_dict(dataclasses.asdict(CFG))
+    spec = (PIPELINE_SPECULATIVE_TOTAL, "")
+    wasted = (PIPELINE_SPECULATIVE_WASTED, '{reason="converged"}')
+    before = {k: counters.get(*k) for k in (spec, wasted)}
+    waits = histograms.get(PIPELINE_FETCH_WAIT, '{mode="pipelined"}')
+    waits0 = waits.count if waits is not None else 0
+    t0 = time.time()
+    res = run_sim(pcfg, init_state(pcfg, seed=0, device="cpu"),
+                  Schedule(write_rounds=4), max_rounds=256, chunk=4, seed=0,
+                  device="cpu", pipeline=True)
+    assert (counters.get(*spec) - before[spec]
+            == res.pipeline["speculative_dispatched"])
+    assert counters.get(*wasted) - before[wasted] == 1
+    committed = res.rounds // 4
+    assert (histograms.get(PIPELINE_FETCH_WAIT, '{mode="pipelined"}').count
+            - waits0 == committed)
+    queued = [s for s in tracer.recent(4096, name="chunk dispatch")
+              if s.start >= t0]
+    # every committed chunk, and the speculative ones, were queued
+    assert committed <= len(queued) <= committed + res.pipeline[
+        "speculative_wasted"]
 
 
 def test_pipeline_follows_cfg_pipeline():
