@@ -29,9 +29,15 @@ tables, rounds and digests. Then this slice: the kernel at config 5's
 digest run; configs 5 and 7 at the node count the card's memory and the
 JAX package's one-device rules give, to convergence, and their digest
 runs; config 6 at 4000 nodes held to the JAX package's round and
-digest; and the pipelined driver against the sequential one. Every
-phase prints one JSON line with its seconds; any failure raises and
-exits non-zero. The last line is ``{"ok": true, "device": {...}}``.
+digest; and the pipelined driver against the sequential one. Then
+faults: config 8's chaos lanes run as their serial twins (its lane base
+at 256 nodes under each soak scenario, through the JAX package's serial
+soak loop with the invariant checker armed), held to the digests,
+rounds, invariant reports and resilience blocks of the JAX package's
+runs; and config 0's 10 000-node cluster soaked under config 8's four
+scenarios, each to re-convergence with a final gap of 0. Every phase
+prints one JSON line with its seconds; any failure raises and exits
+non-zero. The last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.
 """
@@ -79,6 +85,140 @@ def emit(obj) -> None:
         obj = dict(obj, phase_s=now - _T0[1], total_s=now - _T0[0])
     _T0[1] = now
     print(json.dumps(obj), flush=True)
+
+
+def tables_agree(table) -> bool:
+    """Whether every node holds the same table (cv, vr, site, cl)."""
+    return all(bool((getattr(table, f) == getattr(table, f)[:1]).all())
+               for f in ("cv", "vr", "site", "cl"))
+
+
+def soak_record(run, launches: int) -> dict:
+    """One soak run's JSON record: rounds, convergence, the fault
+    counters, the checkers' verdicts and host seconds, the walls, the
+    peak memory and the merge launches."""
+    import torch
+
+    res = run.result
+    m = res.metrics
+    return {
+        "scenario": run.scenario.spec, "nodes": run.cfg.num_nodes,
+        "rounds_run": res.rounds, "converged_round": res.converged_round,
+        "heal_round": run.scenario.heal_round,
+        "final_gap": float(m["gap"][-1]),
+        "tables_agree": tables_agree(res.state.table),
+        "log_wrapped_max": int(m["log_wrapped"].max()),
+        "fault_totals": {k: int(v.sum()) for k, v in sorted(m.items())
+                         if k.startswith(("fault_", "node_fault_"))},
+        "invariants": (None if run.invariants is None
+                       else run.invariants.report()),
+        "resilience": None if res.resilience is None else {
+            k: v for k, v in res.resilience.items()
+            if isinstance(v, (int, str)) or v is None},
+        "check_seconds": res.check_seconds,
+        "sim_s": res.wall_seconds, "setup_s": res.setup_seconds,
+        "wall_per_round_ms": res.wall_per_round_ms,
+        "sync_sweeps": int(res.state.sync_rounds),
+        "sweeps_run": res.pipeline["sweeps_run"], "launches": launches,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    }
+
+
+def fault_digest_phase(emit) -> int:
+    """Phase ``fault_digests``: config 8's lane base at 256 nodes under
+    each ``FAULT_DIGEST_CASES`` scenario and seed, through ``run_soak``
+    with config 8's run arguments (blackhole_one_way for a fixed 96
+    rounds), held to the JAX package's digest, rounds, converged round,
+    invariant violations and resilience integers (``FAULT_PINS``).
+    Returns the merge launches (the count reset just before each run and
+    read just after)."""
+    import torch
+
+    from corro_sim_torch.core import merge_kernel as mk
+    from corro_sim_torch.profile_slice import (
+        FAULT_DIGEST_CASES,
+        fault_digest_record,
+        fault_digest_run,
+    )
+
+    launches = {"fault_digests": 0}
+    cases = {}
+    for case in FAULT_DIGEST_CASES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mk.reset_launch_counts()
+        run = fault_digest_run(case, device="cuda")
+        torch.cuda.synchronize()
+        n_launch = mk.LAUNCHES["grouped_merge"]
+        launches["fault_digests"] += n_launch
+        rec = soak_record(run, n_launch)
+        rec.update(fault_digest_record(case, run))
+        cases[case] = rec
+        del run
+        if not rec["match"]:
+            emit({"phase": "fault_digests", "cases": cases})
+            raise AssertionError(f"fault digest {case} on the card differs "
+                                 "from the JAX package's run")
+        if n_launch != rec["sweeps_run"] or n_launch < rec["sync_sweeps"]:
+            raise AssertionError(f"{case}: expected one kernel launch per "
+                                 f"sweep run ({rec['sweeps_run']}), counted "
+                                 f"{n_launch}")
+    emit({"phase": "fault_digests", "nodes": 256,
+          "launches": launches["fault_digests"], "cases": cases})
+    return launches["fault_digests"]
+
+
+def soak_phase(emit) -> int:
+    """Phase ``soak_10k``: config 0's cluster at 10 000 nodes under
+    config 8's four scenarios with the soak CLI's arguments, the
+    scorecard and the invariant checker armed on each, each run
+    sequential so that its wall is the simulation's alone (the checkers'
+    host seconds apart). Each must re-converge with a final gap of 0 and
+    identical tables, and lose no row. Returns the merge launches."""
+    import torch
+
+    from corro_sim_torch.core import merge_kernel as mk
+    from corro_sim_torch.profile_slice import (
+        CONFIG8_SCENARIOS,
+        SOAK_ARGS,
+        run_soak,
+        soak_config,
+    )
+
+    launches = {"soak_10k": 0}
+    soaks = {}
+    for spec in CONFIG8_SCENARIOS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mk.reset_launch_counts()
+        run = run_soak(soak_config(10000), spec, device="cuda",
+                       scorecard=True, pipeline=False, **SOAK_ARGS)
+        torch.cuda.synchronize()
+        n_launch = mk.LAUNCHES["grouped_merge"]
+        launches["soak_10k"] += n_launch
+        soaks[spec] = rec = soak_record(run, n_launch)
+        del run
+        emit(dict(phase="soak_10k_run", **rec))
+        if (rec["converged_round"] is None or rec["final_gap"] != 0.0
+                or not rec["tables_agree"] or rec["log_wrapped_max"]):
+            raise AssertionError(f"{spec} at 10 000 nodes did not "
+                                 "re-converge to identical tables")
+        if rec["resilience"]["rows_lost"] != 0:
+            raise AssertionError(f"{spec} at 10 000 nodes lost rows")
+        if n_launch != rec["sweeps_run"] or n_launch < rec["sync_sweeps"]:
+            raise AssertionError(f"{spec} at 10k: expected one kernel "
+                                 "launch per sweep run")
+    torch.cuda.empty_cache()
+    emit({"phase": "soak_10k", "nodes": 10000,
+          "launches": launches["soak_10k"],
+          "converged_rounds": {k: v["converged_round"]
+                               for k, v in soaks.items()},
+          "wall_per_round_ms": {k: v["wall_per_round_ms"]
+                                for k, v in soaks.items()},
+          "check_seconds": {k: v["check_seconds"] for k, v in soaks.items()},
+          "invariants_ok": {k: v["invariants"]["ok"]
+                            for k, v in soaks.items()}})
+    return launches["soak_10k"]
 
 
 def main() -> int:
@@ -440,11 +580,7 @@ def main() -> int:
         torch.cuda.synchronize()
         launches = dict(mk.LAUNCHES)
         del state
-        table = res.state.table
-        uniform = all(
-            bool((getattr(table, f) == getattr(table, f)[:1]).all())
-            for f in ("cv", "vr", "site", "cl")
-        )
+        uniform = tables_agree(res.state.table)
         rec = {"nodes": cfg.num_nodes, "cells": cfg.num_rows * cfg.num_cols,
                "rounds_to_convergence": res.converged_round,
                "rounds_run": res.rounds, "repair_chunks": res.repair_chunks,
@@ -881,6 +1017,10 @@ def main() -> int:
     del wl
     torch.cuda.empty_cache()
 
+    # ------- faults: config 8's lanes as serial twins, and the 10k soak
+    fault_launches = {"fault_digests": fault_digest_phase(emit),
+                      "soak_10k": soak_phase(emit)}
+
     by_path = {label: rec["launches"]["grouped_merge"] for label, rec in (
         ("slice", slice_rec), ("swim_slice", swim_rec), ("config3", c3_rec),
         ("config3_10k", c3k_rec), ("config6_1000", c6_rec),
@@ -889,6 +1029,7 @@ def main() -> int:
     by_path["kernel_vs_scatter_config6"] = l6_on
     by_path["replay"] = replay_launches
     by_path.update(cdig_launches)
+    by_path.update(fault_launches)
     emit({"kernels": [{
         "name": "grouped_merge",
         "route": "cuda",

@@ -729,8 +729,6 @@ def validate_torch_slice(cfg: SimConfig) -> SimConfig:
          "sync_hot_actors == 0 (queue 1: legacy sync schedule)"),
         (cfg.sync_deal_probes > 0,
          "sync_deal_probes > 0 (queue 1: deal-probe sync schedule)"),
-        (cfg.faults.enabled, "faults (queue 1: link faults)"),
-        (cfg.node_faults.enabled, "node_faults (queue 1: node faults)"),
         (cfg.sweep.enabled, "sweep (queue 1: fleet sweep)"),
         (cfg.probes > 0, "probes (queue 1: probe tracer)"),
         (cfg.rtt_rings, "rtt_rings (queue 1: RTT rings)"),

@@ -25,6 +25,13 @@ memory and one copy per chunk. Queueing a chunk is host work here (the
 step is eager), so between the speculative chunk's rounds the host
 checks whether chunk N's metrics have landed; once they show that the
 speculative chunk will be discarded, the rest of it is not queued.
+
+An invariant checker and a resilience scorecard (``faults/``) read the
+chunk-boundary state: the bookkeeping heads and SWIM beliefs they read
+per chunk are copied to the host as soon as the chunk is queued, before
+any later chunk (speculative or not) is queued after it, and they are
+fed committed chunks only. At the convergence report they read the
+committed state's tables, which no queued chunk consumes.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import contextlib
 import dataclasses
 import os
 import time
+import types
 from typing import Callable
 
 import numpy as np
@@ -56,7 +64,7 @@ from corro_sim_torch.utils.metrics import (
     counters,
     histograms,
 )
-from corro_sim_torch.utils.runtime import AsyncFetch, start_async_fetch
+from corro_sim_torch.utils.runtime import AsyncFetch, start_async_fetch, upload
 from corro_sim_torch.utils.tracing import tracer
 
 
@@ -179,6 +187,12 @@ class RunResult:
     # walls (the JAX package's keys), and how the queued rounds' sweeps
     # were decided: host_decided, host_reads (of the device predicate),
     # sweeps_run
+    resilience: dict | None = None  # the resilience scorecard's block
+    # (faults/scorecard.py) when a scorecard was armed
+    check_seconds: dict | None = None  # host seconds in the armed
+    # checkers, {"invariants": s, "scorecard": s}, outside wall_seconds'
+    # chunk walls (sequential loop) or overlapping the next chunk's
+    # device work (pipelined loop)
 
     @property
     def wall_per_round_ms(self) -> float:
@@ -214,19 +228,33 @@ def metrics_to_numpy(per_round: list) -> dict:
                           ikeys)
 
 
+def _boundary_fetch(cfg: SimConfig, state: SimState) -> AsyncFetch:
+    """Start copying what the checkers read per chunk to the host: the
+    bookkeeping heads, and with SWIM on the belief statuses (and the
+    windowed view's members)."""
+    leaves = [state.book.head]
+    if cfg.swim_enabled:
+        leaves.append(state.swim.status)
+        if hasattr(state.swim, "member"):
+            leaves.append(state.swim.member)
+    return start_async_fetch(*leaves)
+
+
+def _boundary_view(fetch: AsyncFetch) -> types.SimpleNamespace:
+    """The fetched leaves in the state's shape, for the checkers."""
+    got = fetch.resolve()
+    swim = None
+    if len(got) > 1:
+        swim = types.SimpleNamespace(status=got[1])
+        if len(got) > 2:
+            swim.member = got[2]
+    return types.SimpleNamespace(book=types.SimpleNamespace(head=got[0]),
+                                 swim=swim)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def _upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on the device, without waiting for the card: through
-    pinned memory with ``non_blocking`` (a pageable copy would first
-    drain the card's queue)."""
-    t = torch.from_numpy(np.ascontiguousarray(x))
-    if device.type != "cuda":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
 
 
 @dataclasses.dataclass
@@ -237,6 +265,7 @@ class _InFlight:
     base: int  # first round the chunk covers (0-based)
     state_out: SimState  # the chunk's final state (chunk N+1's input)
     fetch: AsyncFetch | None  # its metric stacks on their way to the host
+    boundary: AsyncFetch | None  # the checkers' leaves of state_out
     ikeys: list
     use_repair: bool
     speculative: bool  # dispatched before the previous chunk's metrics
@@ -261,6 +290,9 @@ def run_sim(
     flight: FlightRecorder | None = None,
     profile_dir: str | None = None,
     pipeline: bool | None = None,
+    invariants=None,
+    scorecard=None,
+    phase_specialize: bool = True,
 ) -> RunResult:
     """Run ``state`` forward in chunks of ``chunk`` rounds until
     convergence (or ``max_rounds``) — the JAX package's ``run_sim``.
@@ -295,7 +327,20 @@ def run_sim(
 
     ``pipeline``: dispatch each chunk before the previous chunk's
     metrics are read (module docstring); None follows ``cfg.pipeline``.
-    Both loops give the same state and metrics."""
+    Both loops give the same state and metrics.
+
+    ``invariants``: a :class:`~corro_sim_torch.faults.InvariantChecker`,
+    fed every committed chunk's boundary state and metrics and the
+    convergence report; each violation is annotated into the flight
+    record and counted in ``corro_fault_invariant_violations_total``.
+
+    ``scorecard``: a
+    :class:`~corro_sim_torch.faults.ResilienceScorecard`, fed on the
+    checker's cadence; its finalized block is ``RunResult.resilience``
+    and a ``resilience`` flight annotation.
+
+    ``phase_specialize``: False keeps the full step through the
+    convergence tail (the repair step is bit-for-bit the same there)."""
     validate_torch_slice(cfg)
     want = resolve_device(device)
     if state.hlc.device.type != want.type:
@@ -363,19 +408,22 @@ def run_sim(
             return idle_writes, [True] * chunk
         t = time.perf_counter()
         rows = workload.slice(base, chunk, cfg.seqs_per_version)
-        staged = tuple(_upload(x, dev) for x in rows)
+        staged = tuple(upload(x, dev) for x in rows)
         stage_seconds += time.perf_counter() - t
         if base >= workload.rounds:
             idle_writes = staged
         return staged, [not (rows[0][r] & alive[r]).any()
                         for r in range(chunk)]
 
+    check_seconds = {"invariants": 0.0, "scorecard": 0.0}
+    armed = invariants is not None or scorecard is not None
+
     def select_repair(pend_live, we) -> bool:
         """Repair once the rings report drained and the chunk schedules
         no writes (validate_torch_slice refuses in-flight slots and RTT
         rings, the features that keep the JAX package off the repair
         step)."""
-        return bool(pend_live == 0 and not we.any())
+        return bool(phase_specialize and pend_live == 0 and not we.any())
 
     def dispatch(ci, base, state_in, known_pend_live, blocked_by_writes,
                  speculative, behind=None) -> _InFlight:
@@ -390,8 +438,8 @@ def run_sim(
         keys = chunk_keys(root, ci, chunk)
         use_repair = (select_repair(known_pend_live, we)
                       and not blocked_by_writes)
-        alive_t = _upload(alive, dev)
-        part_t = _upload(part, dev)
+        alive_t = upload(alive, dev)
+        part_t = upload(part, dev)
         staged, quiesced = None, [None] * chunk
         if workload is not None and not use_repair:
             staged, quiesced = stage_writes(base, alive)
@@ -404,7 +452,7 @@ def run_sim(
                     if doomed(behind, we, use_repair):
                         return _InFlight(
                             ci=ci, base=base, state_out=st, fetch=None,
-                            ikeys=[], use_repair=use_repair,
+                            boundary=None, ikeys=[], use_repair=use_repair,
                             speculative=speculative, alive=alive,
                             part=part, we=we, cut=True)
                     behind = None  # this chunk commits: stop checking
@@ -418,8 +466,11 @@ def run_sim(
                 per_round.append(m)
             i_s, f_s, ikeys = pack_metrics(per_round)
             fetch = start_async_fetch(i_s, f_s)
+            # the checkers' reads, queued before any chunk that follows
+            boundary = _boundary_fetch(cfg, st) if armed else None
         return _InFlight(ci=ci, base=base, state_out=st, fetch=fetch,
-                         ikeys=ikeys, use_repair=use_repair,
+                         boundary=boundary, ikeys=ikeys,
+                         use_repair=use_repair,
                          speculative=speculative, alive=alive, part=part,
                          we=we)
 
@@ -436,13 +487,27 @@ def run_sim(
             return True
         return select_repair(int(m["pend_live"][-1]), we) != use_repair
 
-    def process(ci, base, m, we, use_repair, chunk_elapsed,
+    def violations_found(found, at_round) -> None:
+        for v in found:
+            flight.annotate(
+                v.round + 1 if v.round is not None else at_round,
+                "invariant_violation", invariant=v.invariant,
+                detail=v.detail,
+            )
+            counters.inc(
+                "corro_fault_invariant_violations_total",
+                labels=f'{{invariant="{v.invariant}"}}',
+                help_="soak invariant violations by checker",
+            )
+
+    def process(ci, base, m, inflight: _InFlight, chunk_elapsed,
                 annot_extra=None) -> bool:
-        """Host-side bookkeeping of one executed chunk, shared by both
-        loops. Returns False when the run must stop (converged or
-        poisoned)."""
+        """Host-side bookkeeping of one executed (committed) chunk,
+        shared by both loops. Returns False when the run must stop
+        (converged or poisoned)."""
         nonlocal rounds, prev_writes, last_pend_live, poisoned
         nonlocal converged_round, repair_seen, repair_chunks
+        we, use_repair = inflight.we, inflight.use_repair
         runner = "repair" if use_repair else "full"
         if use_repair and not repair_seen:
             counters.inc(
@@ -483,6 +548,45 @@ def run_sim(
                              labels=f'{{kind="{ev_name}"}}',
                              help_="scheduled workload events executed, "
                                    "by kind")
+        if "fault_lost" in m:
+            for mk, cname in (
+                ("fault_lost", "corro_fault_lost_total"),
+                ("fault_dup", "corro_fault_dup_total"),
+                ("fault_blackholed", "corro_fault_blackholed_total"),
+                ("fault_sync_lost", "corro_fault_sync_lost_total"),
+            ):
+                delta = int(np.asarray(m[mk]).sum()) if mk in m else 0
+                if delta:
+                    counters.inc(cname, n=delta,
+                                 help_="injected fault effects "
+                                       "(corro_sim_torch/faults/)")
+        if "node_fault_wipes" in m:
+            for mk, cname, chelp in (
+                ("node_fault_wipes", "corro_node_fault_wipes_total",
+                 "crash-restart wipes executed (amnesia + stale)"),
+                ("node_fault_straggling",
+                 "corro_node_fault_straggling_total",
+                 "straggler node-rounds parked by the duty cycle"),
+                ("node_fault_recovering",
+                 "corro_node_fault_recovering_total",
+                 "node-rounds spent resyncing a wiped write cursor"),
+            ):
+                delta = int(np.asarray(m[mk]).sum())
+                if delta:
+                    counters.inc(cname, n=delta, help_=chelp)
+        if armed:
+            view = _boundary_view(inflight.boundary)
+            if scorecard is not None:
+                t = time.perf_counter()
+                scorecard.on_chunk(view, m, inflight.alive, inflight.part,
+                                   base)
+                check_seconds["scorecard"] += time.perf_counter() - t
+            if invariants is not None:
+                t = time.perf_counter()
+                found = list(invariants.on_chunk(
+                    view, m, inflight.alive, inflight.part, base))
+                check_seconds["invariants"] += time.perf_counter() - t
+                violations_found(found, base + 1)
         if prev_writes and not bool(we.any()):
             flight.annotate(base + 1, "schedule_transition",
                             kind="write_phase_end")
@@ -512,6 +616,20 @@ def run_sim(
             if conv is not None:
                 converged_round = conv
                 flight.annotate(converged_round, "converged")
+                # the convergence report is checked on the committed
+                # state, which no queued chunk consumes
+                alive_now, part_now = inflight.alive[-1], inflight.part[-1]
+                if scorecard is not None:
+                    t = time.perf_counter()
+                    scorecard.on_converged(inflight.state_out, alive_now,
+                                           part_now)
+                    check_seconds["scorecard"] += time.perf_counter() - t
+                if invariants is not None:
+                    t = time.perf_counter()
+                    found = list(invariants.on_converged(
+                        inflight.state_out, alive_now, part_now))
+                    check_seconds["invariants"] += time.perf_counter() - t
+                    violations_found(found, converged_round)
                 return False
         return True
 
@@ -551,8 +669,7 @@ def run_sim(
                 wall += chunk_elapsed
                 flight.record_phase("execute", chunk_elapsed)
                 state = inflight.state_out
-                cont = process(ci, rounds, m, inflight.we,
-                               inflight.use_repair, chunk_elapsed)
+                cont = process(ci, rounds, m, inflight, chunk_elapsed)
                 ci += 1
                 if not cont:
                     break
@@ -593,8 +710,7 @@ def run_sim(
                 flight.record_phase("execute", chunk_elapsed)
                 state = pending.state_out
                 cont = process(
-                    pending.ci, pending.base, m, pending.we,
-                    pending.use_repair, chunk_elapsed,
+                    pending.ci, pending.base, m, pending, chunk_elapsed,
                     annot_extra={"pipeline": True,
                                  "fetch_wait_s": round(waited, 6),
                                  "speculative": pending.speculative},
@@ -686,6 +802,19 @@ def run_sim(
         k: np.concatenate([c[k] for c in metrics_chunks])
         for k in metrics_chunks[0]
     }
+    resilience = None
+    if scorecard is not None:
+        t = time.perf_counter()
+        resilience = scorecard.finalize(
+            converged_round=None if poisoned else converged_round,
+            rounds=rounds, final_state=state,
+        )
+        check_seconds["scorecard"] += time.perf_counter() - t
+        flight.annotate(
+            rounds, "resilience",
+            **{k: v for k, v in resilience.items()
+               if isinstance(v, (int, float, str, bool)) or v is None},
+        )
     return RunResult(
         state=state,
         metrics=metrics,
@@ -698,4 +827,6 @@ def run_sim(
         stage_seconds=stage_seconds,
         flight=flight,
         pipeline=pipeline_stats,
+        resilience=resilience,
+        check_seconds=check_seconds if armed else None,
     )

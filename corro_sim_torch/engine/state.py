@@ -2,9 +2,11 @@
 
 Port of ``corro_sim/engine/state.py``: a structure of arrays whose leading
 axis is the node dimension. The placeholder planes of features the port
-does not run yet (probe tracer, burst loss, RTT rings, in-flight ring)
-keep the JAX package's placeholder shapes, so the two states compare
-leaf for leaf.
+does not run yet (probe tracer, RTT rings, in-flight ring) keep the JAX
+package's placeholder shapes, and the optional planes of the feature
+registry (``engine/features.py``: the burst-loss plane, the node-fault
+epoch and snapshot) appear exactly where the JAX package's do, so the
+two states compare leaf for leaf.
 """
 
 from __future__ import annotations
@@ -14,12 +16,16 @@ import dataclasses
 import numpy as np
 import torch
 
+# the fault modules register their feature leaves at import time
+import corro_sim_torch.faults.inject  # noqa: F401
+import corro_sim_torch.faults.nodes  # noqa: F401
 from corro_sim_torch.config import SimConfig, validate_torch_slice
 from corro_sim_torch.core.bookkeeping import Bookkeeping, make_bookkeeping
 from corro_sim_torch.core.changelog import ChangeLog, make_changelog
 from corro_sim_torch.core.compaction import CellOwnership, make_ownership
 from corro_sim_torch.core.crdt import TableState, make_table_state
 from corro_sim_torch.device import resolve_device
+from corro_sim_torch.engine.features import build_features, build_field
 from corro_sim_torch.gossip.broadcast import GossipState, make_gossip_state
 from corro_sim_torch.membership.swim import SwimState, make_swim_state
 from corro_sim_torch.membership.swim_window import (
@@ -74,7 +80,11 @@ class SimState:
     rtt: torch.Tensor  # (1, 1) uint8 placeholder (RTT rings off)
     inflight: torch.Tensor  # (1, 6, 1) int32 placeholder (latency off)
     probe: ProbeState  # placeholder (probes off)
-    fault_burst: torch.Tensor  # (1,) bool placeholder (burst loss off)
+    fault_burst: torch.Tensor  # (N,) bool Gilbert burst state per node's
+    # receive path; a (1,) placeholder when burst loss is off
+    features: dict = dataclasses.field(default_factory=dict)
+    # the enabled dict-style feature leaves (engine/features.py), keyed
+    # by name; a disabled feature contributes nothing
 
 
 def _row_cdf(cfg: SimConfig) -> np.ndarray:
@@ -133,13 +143,18 @@ def init_state(cfg: SimConfig, seed: int = 0, device=None) -> SimState:
         rtt=torch.full((1, 1), 255, dtype=torch.uint8, device=dev),
         inflight=torch.zeros((1, 6, 1), **i32),
         probe=make_probe_placeholder(cfg.narrow_state, dev),
-        fault_burst=torch.zeros((1,), dtype=torch.bool, device=dev),
+        fault_burst=build_field("fault_burst", cfg, seed, dev),
+        features=build_features(cfg, seed, dev),
     )
 
 
 def _map_tensors(obj, fn):
+    """``obj`` with ``fn`` applied to every tensor: through dataclasses
+    and through dicts (the feature leaves) alike."""
     if isinstance(obj, torch.Tensor):
         return fn(obj)
+    if isinstance(obj, dict):
+        return {k: _map_tensors(v, fn) for k, v in obj.items()}
     return dataclasses.replace(obj, **{
         f.name: _map_tensors(getattr(obj, f.name), fn)
         for f in dataclasses.fields(obj)

@@ -1,19 +1,29 @@
 """One simulation round: the whole cluster advances in one batched step.
 
 Port of ``corro_sim/engine/step.py`` for the configurations
-:func:`~corro_sim_torch.config.validate_torch_slice` admits (faults,
-probes, RTT rings and the latency ring off). A version is one
-transaction's changeset of up to ``seqs_per_version`` cells, gossiped as
+:func:`~corro_sim_torch.config.validate_torch_slice` admits (probes, RTT
+rings, the latency ring and sweeps off). A version is one transaction's
+changeset of up to ``seqs_per_version`` cells, gossiped as
 ``chunks_per_version`` chunks; a receiver buffers partial versions and
 merges a version once every chunk arrived. Round structure:
 
-  local writes -> eager ring-0 broadcast -> gossip dissemination ->
+  node-fault prologue (scheduled wipes, snapshot captures) -> local
+  writes -> eager ring-0 broadcast -> gossip dissemination -> link
+  faults at delivery ->
   delivery + bookkeeping + CRDT merge -> rebroadcast of fresh changes ->
   SWIM tick (every ``swim_interval`` rounds) -> (every ``sync_interval``
   rounds, or on the adaptive floor cadence) anti-entropy sync -> HLC tick.
 
 Gossip and sync consult the membership view of the state at the start
-of the round; a SWIM tick's result shows from the next round on.
+of the round (after the node-fault prologue); a SWIM tick's result shows
+from the next round on.
+
+Faults (``corro_sim_torch/faults/``): link faults draw from a lane
+``fold_in``-derived from the round key, so every other subkey is the
+same with faults on or off; node faults are static schedules over the
+round and sweep counters, with no draw, so the repair step derives the
+same fault timeline as the full step. With both off the step runs none
+of their code.
 
 Every stage is a batched tensor op over all nodes. Whether the sync
 sweep runs is decided on the host wherever host data fixes it: the
@@ -42,6 +52,18 @@ from corro_sim_torch.core.compaction import update_ownership
 from corro_sim_torch.core.crdt import NEG, local_write
 from corro_sim_torch.core.delivery import delivery_pass
 from corro_sim_torch.engine.state import SimState
+from corro_sim_torch.faults.inject import (
+    blackhole_tensor,
+    burst_update,
+    fault_keys,
+    link_fault_masks,
+)
+from corro_sim_torch.faults.nodes import (
+    apply_node_faults,
+    recovering_mask,
+    skew_plane,
+    straggler_active,
+)
 from corro_sim_torch.gossip.broadcast import (
     broadcast_step,
     enqueue_broadcasts,
@@ -210,6 +232,8 @@ def sim_step(
     (k_write, k_row, k_col, k_val, k_del, k_ncell, k_bcast, k_swim,
      k_sync) = prng.split(key, len(STEP_KEY_STREAMS))
     reach = _reachable_fn(alive, part)
+    state, nf = _node_fault_prologue(cfg, state, round_idx)
+    fl = _fault_lane(cfg, state, key)
     view = membership_view(cfg, state.swim, n)
 
     # ---------------------------------------------------------- local writes
@@ -223,6 +247,16 @@ def sim_step(
             alive, write_enable)
         # the sampler draws no writer outside the write phase
         quiesced = None if write_enable and cfg.write_rate > 0 else True
+    if nf is not None:
+        # post-wipe write gate (faults/nodes.py): a restarted node mints
+        # no version until anti-entropy has served its own actor's
+        # history back; identically all-pass absent wipes
+        writers = writers & ~(recovering_mask(state.book, state.log) & alive)
+        w_del = w_del & writers
+        if cfg.node_faults.wipe_enabled and quiesced is False:
+            # the gate may silence every scheduled writer, which only
+            # the device sees
+            quiesced = None
 
     table, ch_cv, ch_cl, ch_vr = local_write(
         state.table, rows_idx, w_row_s, w_col, w_val, w_del, w_ncells, writers
@@ -280,10 +314,16 @@ def sim_step(
         cpv, state.ring0.reshape(-1), rows_idx.repeat_interleave(r0),
         w_ver.repeat_interleave(r0), writers.repeat_interleave(r0),
     )
+    active = None if nf is None else nf["active"]
+    if active is not None:
+        # a parked straggler skips this round's eager sends; its write
+        # sits in its own ring and goes out on its next active round
+        e_valid = e_valid & active[e_src.long()]
 
     # ------------------------------------------------- gossip dissemination
     gossip, g_dst, g_src, g_actor, g_ver, g_chunk, g_valid = broadcast_step(
-        state.gossip, k_bcast, alive, view, cfg.fanout,
+        state.gossip, k_bcast, alive if active is None else alive & active,
+        view, cfg.fanout,
         emit_slots=cfg.emit_slots, round_idx=round_idx, need_chunk=cpv > 1,
     )
     dst = torch.cat([e_dst, g_dst])
@@ -294,6 +334,31 @@ def sim_step(
     valid = torch.cat([e_valid, g_valid])
     msgs_sent = valid.sum(dtype=torch.int32)
     delivered = valid & reach(src, dst)
+    fault_metrics = {}
+    if fl is not None:
+        # the broadcast transport point: deliverable lanes die to the
+        # blackhole mask or the loss draw, or arrive twice (accounted
+        # only: every merge is idempotent per (dst, actor, ver, chunk))
+        zero = _i32(0, dev)
+        fault_metrics["fault_unreachable"] = (valid & ~delivered).sum(
+            dtype=torch.int32)
+        if fl["bh"] is not None:
+            holed = delivered & fl["bh"][src.long(), dst.long()]
+            delivered = delivered & ~holed
+            fault_metrics["fault_blackholed"] = holed.sum(dtype=torch.int32)
+        else:
+            fault_metrics["fault_blackholed"] = zero
+        keep, dup = link_fault_masks(cfg.faults, fl["k_link"], dst,
+                                     fl["burst"])
+        fault_metrics["fault_lost"] = (delivered & ~keep).sum(
+            dtype=torch.int32)
+        delivered = delivered & keep
+        fault_metrics["fault_dup"] = (delivered & dup).sum(dtype=torch.int32)
+        fault_metrics["fault_delivered"] = delivered.sum(dtype=torch.int32)
+        # the latency ring is not ported: nothing parks or matures
+        for k in ("fault_parked", "fault_emit_lost", "fault_matured"):
+            fault_metrics[k] = zero
+        fault_metrics["fault_burst_nodes"] = _burst_nodes(cfg, fl["burst"])
 
     # --------------------------------------- fused delivery merge (1 pass)
     dv = delivery_pass(
@@ -342,11 +407,14 @@ def sim_step(
     book, table, hlc_s, last_cleared, sync_metrics = _sync_block(
         cfg, is_sync, book, log, table, state.hlc, last_cleared, cleared_hlc,
         k_sync, alive, view, part, round_idx=state.sync_rounds,
+        fault_key=None if fl is None else fl["k_sync"],
+        client_ok=_sync_client_ok(cfg, nf, state),
     )
 
     # -------------------------------------------------------------- metrics
     gap = _gap(alive, log, book)
-    hlc, skew = _hlc_tick(alive, hlc_s, dv.hlc_recv, state.round)
+    hlc, skew = _hlc_tick(alive, hlc_s, dv.hlc_recv, state.round,
+                          None if nf is None else nf["skew"])
     metrics = {
         "writes": writers.sum(dtype=torch.int32),
         "deletes": w_del.sum(dtype=torch.int32),
@@ -368,6 +436,8 @@ def sim_step(
         "clock_skew": skew,
         **swim_metrics,
         **sync_metrics,
+        **fault_metrics,
+        **_node_fault_metrics(nf, alive, book, log),
     }
     new_state = dataclasses.replace(
         state,
@@ -382,8 +452,78 @@ def sim_step(
         hlc=hlc,
         last_cleared=last_cleared,
         cleared_hlc=cleared_hlc,
+        fault_burst=state.fault_burst if fl is None else fl["burst"],
     )
     return new_state, metrics
+
+
+def _node_fault_prologue(cfg, state, round_idx: int):
+    """The node-fault prologue both step programs run before anything
+    reads the state: the round's scheduled wipes and snapshot captures,
+    the straggler duty mask and the clock-skew plane. Returns ``(state,
+    None)`` with node faults off, else ``(state, {"wiped", "active",
+    "skew"})``."""
+    if not cfg.node_faults.enabled:
+        return state, None
+    n = cfg.num_nodes
+    dev = state.hlc.device
+    state, wiped = apply_node_faults(cfg, state, round_idx)
+    return state, {
+        "wiped": wiped,
+        "active": straggler_active(cfg.node_faults, n, round_idx, dev),
+        "skew": skew_plane(cfg.node_faults, n, dev),
+    }
+
+
+def _fault_lane(cfg, state, key):
+    """The round's link-fault lane, the same in both step programs: the
+    fold_in-derived keys, the advanced burst state and the blackhole
+    mask; None with link faults off."""
+    if not cfg.faults.enabled:
+        return None
+    k_burst, k_link, k_sync = fault_keys(key)
+    return {
+        "k_link": k_link,
+        "k_sync": k_sync,
+        "burst": burst_update(cfg.faults, state.fault_burst, k_burst),
+        "bh": blackhole_tensor(cfg.faults, cfg.num_nodes, state.hlc.device),
+    }
+
+
+def _burst_nodes(cfg, burst) -> torch.Tensor:
+    if cfg.faults.burst_on:
+        return burst.sum(dtype=torch.int32)
+    return _i32(0, burst.device)
+
+
+def _sync_client_ok(cfg, nf, state):
+    """The straggler duty mask on the sweep counter, for the pair rows
+    of the sync sweep (made only when a sweep runs): a parked node
+    initiates no sweep but still serves inbound ones. The cycle ticks on
+    the sweep counter, not the round counter, so its phase cannot alias
+    with ``sync_interval`` and starve a node's client side forever."""
+    if nf is None or nf["active"] is None:
+        return None
+    return lambda: straggler_active(cfg.node_faults, cfg.num_nodes,
+                                    state.sync_rounds, state.hlc.device)
+
+
+def _node_fault_metrics(nf, alive, book, log) -> dict:
+    """The node-fault metrics, shared by both step programs (additive
+    node-rounds): wipes this round, straggler node-rounds parked, and
+    live nodes still resyncing their own write cursor."""
+    if nf is None:
+        return {}
+    zero = _i32(0, alive.device)
+    return {
+        "node_fault_wipes": nf["wiped"].sum(dtype=torch.int32),
+        "node_fault_straggling": (
+            (alive & ~nf["active"]).sum(dtype=torch.int32)
+            if nf["active"] is not None else zero
+        ),
+        "node_fault_recovering": (recovering_mask(book, log) & alive).sum(
+            dtype=torch.int32),
+    }
 
 
 def _swim_block(cfg, swim_state, k_swim, alive, reach, round_idx: int):
@@ -436,16 +576,25 @@ def _sync_due(gate) -> bool:
 
 
 def _sync_block(cfg, is_sync: bool, book, log, table, hlc, last_cleared,
-                cleared_hlc, k_sync, alive, view, part, round_idx):
-    """One anti-entropy sweep when ``is_sync``; zero metrics otherwise."""
+                cleared_hlc, k_sync, alive, view, part, round_idx,
+                fault_key=None, client_ok=None):
+    """One anti-entropy sweep when ``is_sync``; zero metrics otherwise.
+    ``fault_key``: the sync-fault subkey with link faults on.
+    ``client_ok``: makes the straggler duty mask, which gates the pair
+    rows (the client side) only."""
     if not is_sync:
         dev = hlc.device
+        names = _SYNC_METRICS + (
+            ("fault_sync_lost",) if cfg.faults.enabled else ())
         return book, table, hlc, last_cleared, {
-            k: _i32(0, dev) for k in _SYNC_METRICS
+            k: _i32(0, dev) for k in names
         }
+    pairs = _pairwise_mask(alive, part)
+    if client_ok is not None:
+        pairs = pairs & client_ok()[:, None]
     return sync_round(
         cfg, book, log, table, hlc, last_cleared, cleared_hlc, k_sync,
-        alive, view, _pairwise_mask(alive, part), round_idx=round_idx,
+        alive, view, pairs, round_idx=round_idx, fault_key=fault_key,
     )
 
 
@@ -458,13 +607,15 @@ def _gap(alive, log, book) -> torch.Tensor:
     return (lag * alive[:, None]).sum().to(torch.float32)
 
 
-def _hlc_tick(alive, hlc_s, hlc_recv, round_):
+def _hlc_tick(alive, hlc_s, hlc_recv, round_, skew=None):
     """uhlc max+tick: merged clocks from this round's deliveries and sync
-    contacts, physical floor = the round counter; down nodes freeze.
-    Returns ``(hlc, skew)``."""
+    contacts, physical floor = the round counter, raised per node by the
+    ``skew`` offset plane under clock skew; down nodes freeze. Returns
+    ``(hlc, skew)``."""
+    floor = round_ if skew is None else round_ + skew
     hlc = torch.where(
         alive,
-        torch.maximum(torch.maximum(hlc_s, hlc_recv), round_) + 1,
+        torch.maximum(torch.maximum(hlc_s, hlc_recv), floor) + 1,
         hlc_s,
     )
     int_min = -(2 ** 31) + 1
@@ -485,6 +636,11 @@ def _repair_step(cfg, state: SimState, key, alive, part, round_idx: int):
     dev = state.hlc.device
     keys = prng.split(key, len(STEP_KEY_STREAMS))
     k_swim, k_sync = keys[7], keys[8]
+    # the full step's node-fault prologue and fault lane: a wipe in the
+    # convergence tail executes here too, the burst state keeps evolving
+    # and sync grants keep failing
+    state, nf = _node_fault_prologue(cfg, state, round_idx)
+    fl = _fault_lane(cfg, state, key)
     view = membership_view(cfg, state.swim, n)
     log, book = state.log, state.book
     lag_pre = log.head[None, :] - book.head
@@ -506,10 +662,22 @@ def _repair_step(cfg, state: SimState, key, alive, part, round_idx: int):
         cfg, is_sync, book, log, state.table, state.hlc, state.last_cleared,
         state.cleared_hlc, k_sync, alive, view, part,
         round_idx=state.sync_rounds,
+        fault_key=None if fl is None else fl["k_sync"],
+        client_ok=_sync_client_ok(cfg, nf, state),
     )
     gap = _gap(alive, log, book)
-    hlc, skew = _hlc_tick(alive, hlc_s, hlc_recv, state.round)
+    hlc, skew = _hlc_tick(alive, hlc_s, hlc_recv, state.round,
+                          None if nf is None else nf["skew"])
     zero = _i32(0, dev)
+    fault_metrics = {}
+    if fl is not None:
+        # the zeros the full step computes on zero lanes, and the live
+        # burst series
+        fault_metrics = dict.fromkeys(
+            ("fault_lost", "fault_dup", "fault_blackholed",
+             "fault_unreachable", "fault_delivered", "fault_parked",
+             "fault_emit_lost", "fault_matured"), zero)
+        fault_metrics["fault_burst_nodes"] = _burst_nodes(cfg, fl["burst"])
     metrics = {
         "writes": zero,
         "deletes": zero,
@@ -530,6 +698,8 @@ def _repair_step(cfg, state: SimState, key, alive, part, round_idx: int):
         "clock_skew": skew,
         **swim_metrics,
         **sync_metrics,
+        **fault_metrics,
+        **_node_fault_metrics(nf, alive, book, log),
     }
     new_state = dataclasses.replace(
         state,
@@ -540,5 +710,6 @@ def _repair_step(cfg, state: SimState, key, alive, part, round_idx: int):
         sync_rounds=state.sync_rounds + int(is_sync),
         hlc=hlc,
         last_cleared=last_cleared,
+        fault_burst=state.fault_burst if fl is None else fl["burst"],
     )
     return new_state, metrics

@@ -37,7 +37,7 @@ actor, the per-actor serialization the reference gets from its single
 write connection (``corro-types/src/agent.rs:500-731``).
 
 Schema-driven ingest (``layout=``) and the streaming tail of the digital
-twin are not ported yet (ROADMAP.md queue 1 item 9).
+twin are not ported yet (ROADMAP.md queue 1 item 8).
 """
 
 from __future__ import annotations

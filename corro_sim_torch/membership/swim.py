@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from corro_sim_torch import prng
+from corro_sim_torch.utils.runtime import host_array
 
 ALIVE, SUSPECT, DOWN = 0, 1, 2
 
@@ -136,16 +137,50 @@ def make_swim_state(num_nodes: int, enabled: bool, narrow: bool,
 
 def down_belief_matrix(sw, n: int) -> np.ndarray:
     """(observer, subject) bool numpy matrix: who believes whom DOWN.
-    Host-side; takes the full plane and the windowed state alike."""
-    status = sw.status.cpu().numpy()
+    Host-side; takes the full plane and the windowed state alike, on any
+    device or already on the host (``status`` and ``member`` as numpy
+    arrays)."""
+    status = host_array(sw.status)
     if hasattr(sw, "member"):
-        member = sw.member.cpu().numpy()
+        member = host_array(sw.member)
         out = np.zeros((n, n), bool)
         obs = np.broadcast_to(np.arange(n)[:, None], member.shape)
         hit = (member >= 0) & (status >= DOWN)
         out[obs[hit], member[hit]] = True
         return out
     return status >= DOWN
+
+
+def renew_membership(swim_state, wipe: torch.Tensor):
+    """Crash-restart the masked nodes' membership state: each wiped
+    node's belief row resets to the empty-DB state and its self entry
+    comes back ALIVE at a bumped incarnation (saturating at the layout's
+    ``inc_max``), the foca identity ``renew()`` that lets peers holding a
+    DOWN verdict re-admit it. The pre-wipe self-incarnation is read
+    before the reset. Takes the full (N, N) plane (wide or narrow
+    carrier) and the windowed member/belief state; ``wipe`` is an (N,)
+    bool mask, and untouched rows pass through unchanged."""
+    if hasattr(swim_state, "member"):  # windowed O(N·K) belief state
+        belief = swim_state.belief
+        lo = swim_layout(belief.dtype)
+        n = swim_state.member.shape[0]
+        old_inc = belief[:, 0] >> lo.inc_shift
+        renewed = torch.clamp(old_inc + 1, max=lo.inc_max) << lo.inc_shift
+        fresh = torch.full_like(swim_state.member, -1)
+        fresh[:, 0] = torch.arange(n, dtype=fresh.dtype, device=fresh.device)
+        member = torch.where(wipe[:, None], fresh, swim_state.member)
+        belief = torch.where(wipe[:, None], 0, belief)
+        belief[:, 0] = torch.where(wipe, renewed, belief[:, 0])
+        cursor = torch.where(wipe, 1, swim_state.cursor)
+        return dataclasses.replace(swim_state, member=member, belief=belief,
+                                   cursor=cursor)
+    p = swim_state.p
+    lo = swim_layout(p.dtype)
+    old_inc = p.diagonal() >> lo.inc_shift
+    renewed = torch.clamp(old_inc + 1, max=lo.inc_max) << lo.inc_shift
+    p = torch.where(wipe[:, None], 0, p)
+    p.diagonal().copy_(torch.where(wipe, renewed, p.diagonal()))
+    return dataclasses.replace(swim_state, p=p)
 
 
 def view_alive(swim: SwimState) -> torch.Tensor:

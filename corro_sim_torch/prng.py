@@ -81,21 +81,25 @@ def fold_in(key, data: int) -> np.ndarray:
     return np.array([y0, y1], dtype=np.uint32)
 
 
-def random_bits(key, shape, device) -> torch.Tensor:
+def random_bits(key, shape, device, offset: int = 0) -> torch.Tensor:
     """32 random bits per element (row-major counters), as int64 values
-    in ``[0, 2**32)``."""
+    in ``[0, 2**32)``. ``offset``: the counter of the first element, so
+    that rows ``[r, r + k)`` of a larger draw whose rows hold ``m``
+    elements are ``random_bits(key, (k, m), device, r * m)``."""
     shape = tuple(int(d) for d in shape)
     k0, k1 = _words(key)
-    lo = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    lo = torch.arange(offset, offset + math.prod(shape), dtype=torch.int64,
+                      device=device)
     b0, b1 = threefry2x32(k0, k1, torch.zeros_like(lo), lo)
     return (b0 ^ b1).reshape(shape)
 
 
 def uniform(key, shape, device, minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
+            maxval: float = 1.0, offset: int = 0) -> torch.Tensor:
     """float32 ``jax.random.uniform``: 23 random mantissa bits under
-    exponent 0, minus one, scaled."""
-    bits = random_bits(key, shape, device)
+    exponent 0, minus one, scaled. ``offset`` as in
+    :func:`random_bits`."""
+    bits = random_bits(key, shape, device, offset)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
     lo = torch.full((), minval, dtype=torch.float32, device=device)

@@ -1,7 +1,8 @@
 """Where a round of the port's main path spends its time.
 
     python -m corro_sim_torch.profile_slice [--swim | --config3 | --config6
-                                             | --host-read PAIRS] [--out DIR]
+                                             | --soak SPEC | --host-read PAIRS]
+                                            [--out DIR]
 
 Defines the slice's cells — the north-star cluster with SWIM off and,
 with ``--swim``, exactly as the JAX package's config 0 (full-view SWIM,
@@ -15,8 +16,12 @@ cell on the card from the same seed (``--config3``: config 3 at 1000
 nodes over its first 128 rounds, ``CONFIG3_PROFILE_ARGS``: the write
 phase, the drain and the start of the repair tail; ``--config6``: config
 6 at 10 000 nodes over its first 128 rounds, ``CONFIG6_PROFILE_ARGS``:
-the 64 load rounds and the drain): once to warm the allocator and the
-kernel build (discarded), then three times:
+the 64 load rounds and the drain; ``--soak SPEC``: config 0 at 10 000
+nodes soaked under the fault scenario ``SPEC`` over its first 64
+rounds, ``SOAK_PROFILE_ROUNDS``, with the soak CLI's arguments and no
+checker — ``lossy:p=0`` is the fault-free twin of ``lossy:p=0.1``):
+once to warm the allocator and the kernel build (discarded), then three
+times:
 
 1. plain, timed — the wall per round a user sees;
 2. with each stage of the step wrapped in a device synchronize and a
@@ -35,7 +40,8 @@ kernel build (discarded), then three times:
 Prints one JSON object and writes it, with the full kernel table, to
 ``DIR/profile_slice.json`` (``profile_slice_swim.json`` with ``--swim``,
 ``profile_slice_config3.json`` with ``--config3``,
-``profile_slice_config6.json`` with ``--config6``).
+``profile_slice_config6.json`` with ``--config6``,
+``profile_slice_soak_<spec>.json`` with ``--soak``).
 
 ``--host-read PAIRS`` measures instead the step's read of the sweep
 gate's device predicate: copied to the host where it is computed and
@@ -64,8 +70,15 @@ from corro_sim_torch import prng
 from corro_sim_torch.config import SimConfig
 from corro_sim_torch.core import merge_kernel as mk
 from corro_sim_torch.engine import step as step_mod
-from corro_sim_torch.engine.driver import Schedule, run_sim
+from corro_sim_torch.convert import state_to_numpy
+from corro_sim_torch.engine.driver import RunResult, Schedule, run_sim
 from corro_sim_torch.engine.state import init_state
+from corro_sim_torch.faults import (
+    InvariantChecker,
+    ResilienceScorecard,
+    Scenario,
+    make_scenario,
+)
 from corro_sim_torch.sync import sync as sync_mod
 from corro_sim_torch.workload import Workload, make_workload
 
@@ -83,6 +96,9 @@ STAGES = (
     (step_mod, "partial_versions"),  # 32 // cpv passes over the window
     (step_mod, "_swim_block"),  # SWIM tick rounds and skipped rounds
     (step_mod, "swim_step"),  # the SWIM tick alone
+    (step_mod, "_fault_lane"),  # fault keys, burst state (link faults)
+    (step_mod, "link_fault_masks"),  # the loss and dup draws at delivery
+    (step_mod, "apply_node_faults"),  # wipes and snapshot captures
     (sync_mod, "choose_sync_peers"),
     (sync_mod, "merge_grouped"),
     (sync_mod, "advance_heads"),
@@ -392,6 +408,165 @@ CONFIG_DIGEST_ROUNDS = {"config4_1024": None, "config5_2048": 37,
                         "config7_1536": 19, "config6_4000": 474}
 
 
+
+def soak_config(n: int = 10000) -> SimConfig:
+    """Config 0's SimConfig (the north-star cluster of
+    ``corro_sim/benchmarks.py:237-282``: full-view SWIM, narrow layout)
+    at ``n`` nodes: the soak's cluster at the project's target scale."""
+    return slice_config(n, swim=True)
+
+
+def config8_lane_config(n: int = 256) -> SimConfig:
+    """Config 8's per-lane base (``corro_sim/benchmarks.py:1106-1110``):
+    ``n`` nodes, max(64, n / 4) rows of 2 cells, log capacity 256, write
+    rate 0.3, SWIM (full view below 1024 nodes, else a view of 64), a
+    sync every 4 rounds."""
+    return SimConfig(
+        num_nodes=n, num_rows=max(64, n // 4), num_cols=2,
+        log_capacity=256, write_rate=0.3, swim_enabled=True,
+        swim_view_size=(64 if n >= 1024 else 0), sync_interval=4,
+    ).validate()
+
+
+# the JAX package's soak CLI defaults (corro_sim/cli.py, `soak`)
+SOAK_ARGS = dict(rounds=128, write_rounds=16, chunk=16, max_rounds=4096)
+# config 8's lane runs (corro_sim/benchmarks.py:1111-1114): 96 scenario
+# rounds, 16 write rounds, chunks of 16, at most 1024 rounds
+CONFIG8_SOAK_ARGS = dict(rounds=96, write_rounds=16, chunk=16,
+                         max_rounds=1024)
+
+
+@dataclasses.dataclass
+class SoakRun:
+    """One scenario's soak run: the run, its armed checkers, the
+    compiled scenario and the config it ran."""
+
+    result: RunResult
+    invariants: InvariantChecker | None
+    scenario: Scenario
+    cfg: SimConfig
+
+
+def run_soak(cfg: SimConfig, spec: str, rounds: int = 128,
+             write_rounds: int = 16, chunk: int = 16,
+             max_rounds: int = 4096, seed: int = 0, device=None,
+             invariants: bool = True, scorecard: bool | None = None,
+             **run_kw) -> SoakRun:
+    """One pass of the JAX package's serial soak loop
+    (``corro_sim/cli.py:591-640``): ``make_scenario(spec, n, rounds,
+    write_rounds, seed)``, ``cfg`` with the scenario's knobs, an
+    invariant checker (``invariants``), a resilience scorecard
+    (``scorecard``; None arms it on node-fault scenarios, as the soak
+    does), and ``run_sim`` from ``init_state(cfg, seed)`` with
+    ``min_rounds=max(heal_round, write_rounds)``. ``run_kw`` goes to
+    ``run_sim`` (``stop_on_convergence``, ``pipeline``, ...)."""
+    sc = make_scenario(spec, cfg.num_nodes, rounds=rounds,
+                       write_rounds=write_rounds, seed=seed)
+    cfg = sc.apply(cfg)
+    inv = InvariantChecker(cfg) if invariants else None
+    if scorecard is None:
+        scorecard = cfg.node_faults.enabled
+    card = ResilienceScorecard(cfg, scenario=sc) if scorecard else None
+    res = run_sim(
+        cfg, init_state(cfg, seed=seed, device=device), sc.schedule(),
+        max_rounds=max_rounds, chunk=chunk, seed=seed,
+        min_rounds=max(sc.heal_round or 0, write_rounds), device=device,
+        invariants=inv, scorecard=card, **run_kw,
+    )
+    return SoakRun(result=res, invariants=inv, scenario=sc, cfg=cfg)
+
+
+def fault_digest_run(case: str, device=None, **run_kw) -> SoakRun:
+    """The run behind ``DIGESTS["soak:<case>"]`` (``"<spec>@<seed>"``)."""
+    spec, seed = case.rsplit("@", 1)
+    args = dict(CONFIG8_SOAK_ARGS)
+    if case in FAULT_FIXED_ROUNDS:
+        args["max_rounds"] = FAULT_FIXED_ROUNDS[case]
+        run_kw.setdefault("stop_on_convergence", False)
+    return run_soak(config8_lane_config(), spec, seed=int(seed),
+                    device=device, **args, **run_kw)
+
+
+def fault_digest_record(case: str, run: SoakRun) -> dict:
+    """A fault digest run's outcome beside its JAX pin: the digest, the
+    rounds, the converged round, the invariant violations and the
+    resilience integers, and whether each matches."""
+    res = run.result
+    want_rounds, want_conv, want_viol, want_res = FAULT_PINS[case]
+    viol = [(v.round, v.invariant) for v in run.invariants.violations]
+    got_res = (None if res.resilience is None else
+               tuple(res.resilience[k] for k in RESILIENCE_INTS))
+    digest = run_digest(state_to_numpy(res.state), res.metrics)
+    rec = {"rounds": res.rounds, "converged_round": res.converged_round,
+           "digest": digest, "violations": viol, "resilience": got_res,
+           "invariants_ok": run.invariants.ok}
+    rec["match"] = (
+        digest == DIGESTS[f"soak:{case}"] and res.rounds == want_rounds
+        and res.converged_round == want_conv and viol == want_viol
+        and got_res == want_res
+    )
+    return rec
+
+# config 8's serial soak (corro_sim/benchmarks.py:1106-1114, cli.py's
+# serial loop): each scenario at seeds 0 and 1 on the lane base
+CONFIG8_SCENARIOS = ("lossy:p=0.1", "churn:rate=0.05", "crash_amnesia",
+                     "clock_skew")
+# the other scenarios of the JAX package's SOAK_DEFAULT, at seed 0
+SOAK_OTHERS = ("duplicating", "burst", "rolling_restart", "flapper",
+               "split_brain_heal", "stale_rejoin", "stragglers")
+FAULT_DIGEST_CASES = tuple(
+    [f"{spec}@{seed}" for seed in (0, 1) for spec in CONFIG8_SCENARIOS]
+    + [f"{spec}@0" for spec in SOAK_OTHERS] + ["blackhole_one_way@0"]
+)
+# blackhole_one_way never re-converges (the hole never heals): a fixed
+# 96 rounds
+FAULT_FIXED_ROUNDS = {"blackhole_one_way@0": 96}
+RESILIENCE_INTS = ("heal_round", "recovery_rounds", "rows_lost",
+                   "resync_rows", "wipes", "wipes_observed",
+                   "swim_false_down", "swim_flaps", "chunks_checked")
+
+# What the JAX package's run of each fault digest case reports (the run
+# behind DIGESTS["soak:<case>"]): (rounds run, converged round, the
+# invariant violations as (round, invariant), and the resilience
+# block's RESILIENCE_INTS, or None where the soak arms no scorecard).
+# split_brain_heal's SWIM false-DOWN is the JAX package's own verdict
+# (ROADMAP.md queue 3), which the port must reproduce.
+FAULT_PINS = {
+    "lossy:p=0.1@0": (64, 60, [],
+                     None),
+    "churn:rate=0.05@0": (80, 72, [],
+                         None),
+    "crash_amnesia@0": (64, 56, [],
+                       (12, 44, 0, 3702, 3, 3, 13, 0, 4)),
+    "clock_skew@0": (64, 56, [],
+                    (15, 41, 0, 0, 0, 0, 0, 0, 4)),
+    "lossy:p=0.1@1": (64, 60, [],
+                     None),
+    "churn:rate=0.05@1": (80, 72, [],
+                         None),
+    "crash_amnesia@1": (64, 56, [],
+                       (12, 44, 0, 3786, 3, 3, 36, 0, 4)),
+    "clock_skew@1": (64, 56, [],
+                    (15, 41, 0, 0, 0, 0, 0, 0, 4)),
+    "duplicating@0": (64, 60, [],
+                     None),
+    "burst@0": (64, 60, [],
+               None),
+    "rolling_restart@0": (80, 68, [],
+                         None),
+    "flapper@0": (80, 68, [],
+                 None),
+    "split_brain_heal@0": (80, 76, [(63, 'swim_false_down')],
+                          None),
+    "stale_rejoin@0": (64, 60, [],
+                      (12, 48, 0, 2250, 2, 2, 0, 0, 4)),
+    "stragglers@0": (144, 140, [],
+                    (15, 125, 0, 0, 0, 0, 0, 0, 9)),
+    "blackhole_one_way@0": (96, None, [],
+                           None),
+}
+
+
 # The replay fixtures: (path in the repository, config overrides on the
 # trace's suggest_config()); replayed with max_rounds=256. The first is
 # the JAX package's tests/test_replay_parity.py case.
@@ -459,6 +634,38 @@ DIGESTS = {
         "22ade412d6e3586d2b041ec3848daf1fc4dac719ca16098b174af2e9cd3fa3a4",
     "config6_4000":
         "6dab0d8ae7eb9497c3d5ced2b804a00c2e69edb04b5320aefa26cdb18254ed8e",
+    "soak:lossy:p=0.1@0":
+        "c5dd76ec08427872de719e00997d13e987ebfc61a552b52ca630d14f8be3609a",
+    "soak:churn:rate=0.05@0":
+        "cc97908c2a9d4851fcb7dd0837d2134fbd123f0ae0e48800a811c74de8d8b772",
+    "soak:crash_amnesia@0":
+        "f96607f11a2208398e72dde089ca7c09085a315b7e828351b153a12e6dca841f",
+    "soak:clock_skew@0":
+        "e24604cb57eefad8d07bba3e03163caab1ae1328bdb6711793c8fc731823554d",
+    "soak:lossy:p=0.1@1":
+        "cc3fdff93292b80324f424fa8522ceadb9f901951b5438cbd24a8e2b04981e49",
+    "soak:churn:rate=0.05@1":
+        "cb8390202f7a58278d94ebeb465892e22bbc6f733046cdccac635b848c967f30",
+    "soak:crash_amnesia@1":
+        "acab149d86de9c278d48a2db153fa128863a9dc76f72f2ab72c13ca0720adda3",
+    "soak:clock_skew@1":
+        "d7396a2e1d60ebf868f62f55ae0ce73b67a3c3b80a40c8779d83ae8f63c8b78e",
+    "soak:duplicating@0":
+        "bbabd72380224b8304b001a4bc27bbdd3f092c04ce5f1b0550369dafaa604f89",
+    "soak:burst@0":
+        "daec15ad7a4ae63bf2fc78713e7764a1405a6cf6e93144b55d9d08b0ca3d5022",
+    "soak:rolling_restart@0":
+        "e6b4a82d28728f334d77693f5ca37ceaa28a5666d9fecf92383b74dbb3740218",
+    "soak:flapper@0":
+        "55c7829729d547b21939f7d9e7abd403714d1d77e498a4da1342dc6f4c69aa36",
+    "soak:split_brain_heal@0":
+        "32a36c37bde7c455de2e0fc8e47dd812f96a46cb9e7dd56ef58c1f572e51cab2",
+    "soak:stale_rejoin@0":
+        "630742e6b09d7c543c60041dbcbcb38702916e1addf5866f1c592037e3a83809",
+    "soak:stragglers@0":
+        "f8f9e71f13505932ed6763a06a816cac227fb0cb35a3ae89a6debf8885577ef3",
+    "soak:blackhole_one_way@0":
+        "3a62173ee4273e357bbda609d29c59da0f8b7b5caac0ddfb6c239ae1f0abc567",
 }
 CONFIG6_DIGEST_EXCLUDE = ("gap",)
 
@@ -527,10 +734,20 @@ def _swim_ranges():
         step_mod.swim_step = fn
 
 
-def _run(cfg, device, workload=None):
+# rounds of a soak cell that --soak profiles
+SOAK_PROFILE_ROUNDS = 64
+
+
+def _run(cfg, device, workload=None, soak=None):
     """One seeded run of a cell: config 3 (multi-chunk) and config 6 (a
-    workload) over their profiled windows, the north-star cells to
-    convergence."""
+    workload) over their profiled windows, a soak cell (config 0 under
+    the scenario ``soak``) over its first ``SOAK_PROFILE_ROUNDS``
+    rounds, the north-star cells to convergence."""
+    if soak is not None:
+        args = dict(SOAK_ARGS, max_rounds=SOAK_PROFILE_ROUNDS)
+        return run_soak(cfg, soak, device=device, invariants=False,
+                        scorecard=False, stop_on_convergence=False,
+                        **args).result
     state = init_state(cfg, seed=0, device=device)
     if workload is not None:
         return run_sim(cfg, state, device=device, workload=workload,
@@ -569,7 +786,7 @@ def _stage_timers(device, totals, counts):
             setattr(mod, name, fn)
 
 
-def _merge_bounds(cfg, device, workload=None) -> list:
+def _merge_bounds(cfg, device, workload=None, soak=None) -> list:
     """Run the cell with the sync sweep's merge wrapped; per launch, a
     dict of the merge's in-place and out-of-place work, its sector bytes
     and the mailbox's counts. The wrapper copies the pre-merge planes,
@@ -600,7 +817,7 @@ def _merge_bounds(cfg, device, workload=None) -> list:
 
     sync_mod.merge_grouped = counted
     try:
-        _run(cfg, device, workload)
+        _run(cfg, device, workload, soak)
     finally:
         sync_mod.merge_grouped = merge
     return works
@@ -699,6 +916,9 @@ def main(argv=None) -> dict:
     cell.add_argument("--config6", action="store_true",
                       help="profile config 6 at 10 000 nodes (its first "
                            "128 rounds)")
+    cell.add_argument("--soak", metavar="SPEC",
+                      help="profile config 0 at 10 000 nodes under the "
+                           "fault scenario SPEC (its first 64 rounds)")
     cell.add_argument("--host-read", type=int, metavar="PAIRS",
                       help="the early read of the sweep gate against the "
                            "late read, PAIRS pairs on configs 0 and 6 at "
@@ -719,9 +939,11 @@ def main(argv=None) -> dict:
         cfg, wl = config6_config(), config6_workload()
     elif args.config3:
         cfg = config3_config()
+    elif args.soak:
+        cfg = soak_config()
     else:
         cfg = slice_config(swim=args.swim)
-    run = functools.partial(_run, cfg, device, wl)
+    run = functools.partial(_run, cfg, device, wl, args.soak)
 
     run()  # warm-up: allocator growth, kernel build
     torch.cuda.reset_peak_memory_stats(device)
@@ -733,6 +955,7 @@ def main(argv=None) -> dict:
         "seqs_per_version": cfg.seqs_per_version,
         "chunks_per_version": cfg.chunks_per_version,
         "workload": None if wl is None else wl.spec,
+        "scenario": args.soak,
         "repair_chunks": plain.repair_chunks,
         "card": torch.cuda.get_device_name(device),
         "nvidia_smi": smi, "rounds": rounds,
@@ -809,7 +1032,7 @@ def main(argv=None) -> dict:
         "top_kernels": table[:15],
     })
     merge_rows = [r for r in table if "grouped_merge" in r["kernel"]]
-    works = _merge_bounds(cfg, device, wl)
+    works = _merge_bounds(cfg, device, wl, args.soak)
     launches = sum(r["launches"] for r in merge_rows)
     def mean(f):
         return float(np.mean([f(w) for w in works]))
@@ -831,8 +1054,10 @@ def main(argv=None) -> dict:
         "bounded_launches": len(works),
     }
     os.makedirs(args.out, exist_ok=True)
+    soak_name = "".join(ch if ch.isalnum() else "_" for ch in args.soak or "")
     name = ("profile_slice_config6.json" if args.config6
             else "profile_slice_config3.json" if args.config3
+            else f"profile_slice_soak_{soak_name}.json" if args.soak
             else "profile_slice_swim.json" if args.swim
             else "profile_slice.json")
     with open(os.path.join(args.out, name), "w") as f:

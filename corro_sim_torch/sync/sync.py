@@ -136,12 +136,19 @@ def _rank_within_slot(slot: torch.Tensor) -> torch.Tensor:
 
 def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
                hlc, last_cleared, cleared_hlc, key, alive, view_alive,
-               reachable, round_idx=0):
+               reachable, round_idx=0, fault_key=None):
     """One anti-entropy sweep (multi-peer).
 
     Returns ``(book, table, hlc, last_cleared, metrics)``. On the mailbox
     path (``kernel_supported``) ``table`` is merged in place and the
-    returned table holds its storage."""
+    returned table holds its storage.
+
+    ``fault_key``: the round's sync-fault subkey
+    (:func:`~corro_sim_torch.faults.inject.fault_keys`) when link faults
+    are on: an admitted connection then drops with
+    ``faults.resolved_sync_loss`` and across a blackholed edge, before
+    the clock exchange (a dropped connection carries nothing), and the
+    drops count in ``fault_sync_lost``, not in the rejections."""
     if cfg.sync_hot_actors <= 0 or cfg.sync_deal_probes:
         raise NotImplementedError(
             "only the dense hot-actor sync schedule is ported"
@@ -154,6 +161,21 @@ def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
     )
     p_cnt = peer.shape[1]
     rejected = requested & ~granted
+    fault_metrics = {}
+    if cfg.faults.enabled:
+        from corro_sim_torch.faults.inject import (
+            blackhole_tensor,
+            sync_grant_keep,
+        )
+
+        keep = sync_grant_keep(
+            cfg.faults, fault_key, torch.arange(n, dtype=torch.int32,
+                                                device=dev),
+            peer, blackhole_tensor(cfg.faults, n, dev),
+        )
+        fault_metrics["fault_sync_lost"] = (granted & ~keep).sum(
+            dtype=torch.int32)
+        granted = granted & keep
     peer_l = peer.long()
 
     # clock exchange, both directions (api/peer.rs:1074-1126,1502-1521)
@@ -322,5 +344,6 @@ def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
         "sync_versions": new_versions,
         "sync_empties": empties,
         "sync_cells": shipped.sum(dtype=torch.int32),
+        **fault_metrics,
     }
     return book, table, hlc, last_cleared, metrics

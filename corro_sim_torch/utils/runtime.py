@@ -1,5 +1,6 @@
-"""Host-runtime helpers of the run loop: the atomic JSON dump and the
-asynchronous device-to-host fetch.
+"""Host-runtime helpers of the run loop: the atomic JSON dump, the
+asynchronous device-to-host fetch, the non-blocking upload and the host
+copy of a state leaf.
 
 ``atomic_json_dump`` is ``corro_sim/utils/runtime.py``'s. The JAX
 package's ``start_async_fetch`` starts ``copy_to_host_async`` on each
@@ -64,3 +65,21 @@ class AsyncFetch:
 def start_async_fetch(*tensors) -> AsyncFetch:
     """Begin copying ``tensors`` to the host without blocking."""
     return AsyncFetch(tensors)
+
+
+def upload(x: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``, without waiting for the card: through
+    pinned memory with ``non_blocking`` (a pageable copy would first
+    drain the card's queue)."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def host_array(x) -> np.ndarray:
+    """A state leaf as a numpy array: a tensor on any device is copied to
+    the host, anything else goes through ``np.asarray``."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

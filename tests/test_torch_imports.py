@@ -37,7 +37,12 @@ def test_port_imports_without_jax():
         " 'corro_sim_torch.io.values', 'corro_sim_torch.io.traces',"
         " 'corro_sim_torch.engine.replay', 'corro_sim_torch.obs.flight',"
         " 'corro_sim_torch.utils.metrics', 'corro_sim_torch.utils.tracing',"
-        " 'corro_sim_torch.utils.runtime') if m not in sys.modules]\n"
+        " 'corro_sim_torch.utils.runtime', 'corro_sim_torch.engine.features',"
+        " 'corro_sim_torch.faults', 'corro_sim_torch.faults.masks',"
+        " 'corro_sim_torch.faults.inject', 'corro_sim_torch.faults.nodes',"
+        " 'corro_sim_torch.faults.scenarios',"
+        " 'corro_sim_torch.faults.invariants',"
+        " 'corro_sim_torch.faults.scorecard') if m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'corro_sim' or m.startswith('corro_sim.')]\n"
@@ -92,14 +97,30 @@ def test_entry_points_refuse_without_cuda():
     dict(emit_slots=4, pend_slots=8, sync_hot_actors=0),
     dict(emit_slots=1, sync_deal_probes=2), dict(sync_hot_actors=0),
     dict(sync_deal_probes=1), dict(probes=1), dict(rtt_rings=True),
-    dict(latency_regions=2), dict(faults=pconfig.FaultConfig(loss=0.1)),
-    dict(node_faults=pconfig.NodeFaultConfig(skew=((0, 3),))),
+    # faults are ported: with faults on, what is not ported stays refused
+    dict(latency_regions=2), dict(faults=pconfig.FaultConfig(loss=0.1),
+                                  probes=1),
+    dict(node_faults=pconfig.NodeFaultConfig(skew=((0, 3),)),
+         rtt_rings=True),
     dict(sweep=pconfig.SweepConfig(lanes=2)),
 ])
 def test_unported_features_are_refused(change):
     cfg = dataclasses.replace(_small_cfg(), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP|queue 1"):
         pconfig.validate_torch_slice(cfg)
+
+
+@pytest.mark.parametrize("faults", [
+    dict(faults=pconfig.FaultConfig(loss=0.1, dup=0.1, burst_enter=0.2)),
+    dict(faults=pconfig.FaultConfig(blackhole=((1, -1),))),
+    dict(node_faults=pconfig.NodeFaultConfig(
+        crash=((1, 4),), stale=((2, 1, 5),), skew=((0, 3),),
+        straggle=((3, 4, 1),))),
+], ids=["link", "blackhole", "node"])
+def test_fault_configs_are_admitted(faults):
+    cfg = dataclasses.replace(_small_cfg(), **faults)
+    assert pconfig.validate_torch_slice(cfg) is cfg
+    init_state(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("swim", [

@@ -213,3 +213,50 @@ def test_cuda_kernel_all_invalid_cap_8192_mailbox(dev):
     _check(state, box, BIG_CAP, BIG_COLS)
     for t, b in zip((state.cv, state.vr, state.site, state.cl), before):
         assert torch.equal(t, b)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_on_a_crash_amnesia_catch_up_mailbox(dev, monkeypatch):
+    """A real sweep mailbox: config 0's shape (256 x 4 = 1024 cells) at
+    512 nodes under crash_amnesia, the first sweep after the wiped nodes
+    rejoin, which carries their catch-up lanes. The kernel must equal
+    the plain version on it."""
+    from corro_sim_torch.engine import driver
+    from corro_sim_torch.profile_slice import run_soak, soak_config
+    from corro_sim_torch.sync import sync as sync_mod
+
+    n = 512
+    now = {"round": -1}
+    captured = []
+    real_step, real_merge = driver.sim_step, sync_mod.merge_grouped
+
+    def step(cfg, state, key, alive, part, we, round_idx, **kw):
+        now["round"] = round_idx
+        return real_step(cfg, state, key, alive, part, we, round_idx, **kw)
+
+    def merge(table, box, cap):
+        if not captured and now["round"] >= rejoin:
+            victims = torch.as_tensor(nodes_down, device=box.device)
+            lanes = box[mk.LANE_VALID].view(n, cap)[victims]
+            if int(lanes.sum()) > 0:
+                captured.append((crdt.TableState(
+                    cv=table.cv.clone(), vr=table.vr.clone(),
+                    site=table.site.clone(), cl=table.cl.clone()),
+                    box.clone(), cap))
+        return real_merge(table, box, cap)
+
+    from corro_sim_torch.faults import make_scenario
+
+    sc = make_scenario("crash_amnesia", n, rounds=64, write_rounds=16)
+    nodes_down = [node for node, _r in sc.node_faults["crash"]]
+    rejoin = sc.node_faults["crash"][0][1]
+    monkeypatch.setattr(driver, "sim_step", step)
+    monkeypatch.setattr(sync_mod, "merge_grouped", merge)
+    run = run_soak(soak_config(n), "crash_amnesia", rounds=64,
+                   write_rounds=16, chunk=8, max_rounds=64, device="cuda",
+                   invariants=False, stop_on_convergence=False)
+    assert run.result.metrics["node_fault_wipes"].sum() == len(nodes_down)
+    assert captured, "no sweep after the rejoin reached the wiped nodes"
+    state, box, cap = captured[0]
+    assert state.cv.shape == (n, 256, 4)
+    _check(state, box, cap, 4)
