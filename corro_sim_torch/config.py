@@ -719,24 +719,13 @@ def sim_config_from_dict(d: dict) -> SimConfig:
 
 
 def validate_torch_slice(cfg: SimConfig) -> SimConfig:
-    """Refuse what the PyTorch port does not run yet.
+    """Refuse what the PyTorch port does not run yet: the fleet sweep.
 
-    Each refusal names the ROADMAP.md queue 1 item that will lift it.
+    The refusal names the ROADMAP.md queue 1 item that will lift it.
     Returns ``cfg`` (validated) so callers can chain it."""
     cfg.validate()
-    refusals = (
-        (cfg.sync_hot_actors == 0,
-         "sync_hot_actors == 0 (queue 1: legacy sync schedule)"),
-        (cfg.sync_deal_probes > 0,
-         "sync_deal_probes > 0 (queue 1: deal-probe sync schedule)"),
-        (cfg.sweep.enabled, "sweep (queue 1: fleet sweep)"),
-        (cfg.probes > 0, "probes (queue 1: probe tracer)"),
-        (cfg.rtt_rings, "rtt_rings (queue 1: RTT rings)"),
-        (cfg.inflight_slots > 0, "latency model (queue 1: in-flight ring)"),
-    )
-    for refused, what in refusals:
-        if refused:
-            raise NotImplementedError(
-                f"corro_sim_torch does not run {what} yet"
-            )
+    if cfg.sweep.enabled:
+        raise NotImplementedError(
+            "corro_sim_torch does not run sweep (queue 1: fleet sweep) yet"
+        )
     return cfg

@@ -1,8 +1,9 @@
 """Fused broadcast-delivery pass: one sorted lane stream, every consumer.
 
 Port of ``corro_sim/core/delivery.py``. One lane sort feeds the HLC
-scatter-max, the apply-queue rank, bookkeeping dedupe, the changeset
-gathers and the CRDT merge. The merge routes through the mailbox and
+scatter-max, the apply-queue rank, bookkeeping dedupe, the probe
+tracer's delivery merge point, the changeset gathers and the CRDT
+merge. The merge routes through the mailbox and
 :func:`~corro_sim_torch.core.merge_kernel.grouped_merge` when
 ``kernel_supported(cfg, "delivery", device)`` says so, and through the
 scatter merge :func:`~corro_sim_torch.core.crdt.apply_cell_changes`
@@ -25,6 +26,7 @@ from corro_sim_torch.core.merge_kernel import (
     merge_grouped,
     route_lanes,
 )
+from corro_sim_torch.engine.probe import probe_delivery_update
 from corro_sim_torch.utils.slots import ranks_within_group_masked
 from corro_sim_torch.utils.sort import lexsort, scatter_max
 
@@ -35,6 +37,7 @@ class DeliveryResult(NamedTuple):
 
     table: object
     book: object
+    probe: object  # updated ProbeState (untouched when probes are off)
     hlc_recv: torch.Tensor  # (N,) max sender clock delivered this round
     dst: torch.Tensor
     src: torch.Tensor
@@ -42,6 +45,8 @@ class DeliveryResult(NamedTuple):
     ver: torch.Tensor
     chunk: torch.Tensor
     delivered: torch.Tensor  # post-cap delivery mask
+    delivered_precap: torch.Tensor  # pre-cap mask: every landed lane is
+    # an RTT sample, capped or not (transport.rs:199-233)
     fresh_chunk: torch.Tensor
     complete: torch.Tensor
     dropped: torch.Tensor
@@ -52,9 +57,11 @@ class DeliveryResult(NamedTuple):
 
 
 def delivery_pass(cfg, table, book, log, hlc, dst, src, actor, ver, chunk,
-                  delivered) -> DeliveryResult:
-    """Sort once; deliver, account and merge off that one order. On the
-    mailbox path ``table`` is merged in place (consumed)."""
+                  delivered, probe=None, round_=None) -> DeliveryResult:
+    """Sort once; deliver, account, trace and merge off that one order.
+    On the mailbox path ``table`` is merged in place (consumed).
+    ``probe``: the probe tracer's state, updated at round ``round_`` when
+    ``cfg.probes`` (returned as given otherwise)."""
     n = cfg.num_nodes
     s = cfg.seqs_per_version
     cpv = cfg.chunks_per_version
@@ -83,6 +90,7 @@ def delivery_pass(cfg, table, book, log, hlc, dst, src, actor, ver, chunk,
     # bounded apply queue (config.rs:10-41): at most apply_queue_cap
     # deliveries per node per round, on both merge paths
     rankd = ranks_within_group_masked(dst, delivered)
+    delivered_precap = delivered
     overcap = delivered & (rankd >= cfg.apply_queue_cap)
     delivered = delivered & ~overcap
     book, fresh_chunk, complete, dropped = deliver_versions(
@@ -90,6 +98,10 @@ def delivery_pass(cfg, table, book, log, hlc, dst, src, actor, ver, chunk,
         chunk=None if cpv == 1 else chunk, bits_per_version=cpv,
     )
     dropped = dropped | overcap
+    if cfg.probes:
+        # the broadcast merge point rides the same sorted stream
+        probe = probe_delivery_update(
+            probe, round_, dst, src, actor, ver, delivered, complete)
     g_actor = torch.where(complete, actor, 0)
     g_slot = (torch.clamp(ver, min=1) - 1) % log.capacity
     c_row, c_col, c_vr, c_cv, c_cl, c_n = gather_changesets(
@@ -121,9 +133,10 @@ def delivery_pass(cfg, table, book, log, hlc, dst, src, actor, ver, chunk,
         )
 
     return DeliveryResult(
-        table=table, book=book, hlc_recv=hlc_recv,
+        table=table, book=book, probe=probe, hlc_recv=hlc_recv,
         dst=dst, src=src, actor=actor, ver=ver, chunk=chunk,
-        delivered=delivered, fresh_chunk=fresh_chunk, complete=complete,
+        delivered=delivered, delivered_precap=delivered_precap,
+        fresh_chunk=fresh_chunk, complete=complete,
         dropped=dropped, c_cleared=c_cleared, g_actor=g_actor,
         g_slot=g_slot, cell_live=cell_live,
     )

@@ -31,7 +31,9 @@ chunk-boundary state: the bookkeeping heads and SWIM beliefs they read
 per chunk are copied to the host as soon as the chunk is queued, before
 any later chunk (speculative or not) is queued after it, and they are
 fed committed chunks only. At the convergence report they read the
-committed state's tables, which no queued chunk consumes.
+committed state's tables, which no queued chunk consumes. The probe
+tracer's per-chunk extraction (``cfg.probes``) reads its ``(K, N)``
+planes the same way.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from corro_sim_torch.engine import step as step_mod
 from corro_sim_torch.engine.state import SimState, clone_state, state_nbytes
 from corro_sim_torch.engine.step import sim_step
 from corro_sim_torch.obs.flight import FlightRecorder
+from corro_sim_torch.obs.probes import PROBE_FIELDS, ProbeTrace
 from corro_sim_torch.utils.metrics import (
     PIPELINE_FETCH_WAIT,
     PIPELINE_FETCH_WAIT_HELP,
@@ -193,6 +196,8 @@ class RunResult:
     # checkers, {"invariants": s, "scorecard": s}, outside wall_seconds'
     # chunk walls (sequential loop) or overlapping the next chunk's
     # device work (pipelined loop)
+    probe: ProbeTrace | None = None  # the final state's probe trace when
+    # cfg.probes
 
     @property
     def wall_per_round_ms(self) -> float:
@@ -252,6 +257,14 @@ def _boundary_view(fetch: AsyncFetch) -> types.SimpleNamespace:
                                  swim=swim)
 
 
+def _probe_fetch(cfg: SimConfig, state: SimState) -> AsyncFetch | None:
+    """Start copying the probe tracer's planes to the host, for the
+    per-chunk extraction; None with probes off."""
+    if not cfg.probes:
+        return None
+    return start_async_fetch(*(getattr(state.probe, f) for f in PROBE_FIELDS))
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -266,6 +279,7 @@ class _InFlight:
     state_out: SimState  # the chunk's final state (chunk N+1's input)
     fetch: AsyncFetch | None  # its metric stacks on their way to the host
     boundary: AsyncFetch | None  # the checkers' leaves of state_out
+    probe: AsyncFetch | None  # state_out's probe planes (cfg.probes)
     ikeys: list
     use_repair: bool
     speculative: bool  # dispatched before the previous chunk's metrics
@@ -394,6 +408,7 @@ def run_sim(
     repair_chunks = 0
     stage_seconds = 0.0
     idle_writes = None
+    probe_p99_last = None  # the worst probe p99 delivery lag seen so far
     fetch_wait_total = 0.0
     spec_dispatched = 0
     spec_wasted = 0
@@ -418,12 +433,16 @@ def run_sim(
     check_seconds = {"invariants": 0.0, "scorecard": 0.0}
     armed = invariants is not None or scorecard is not None
 
+    # the repair step runs without the in-flight ring and RTT rings: a
+    # drained gossip ring does not drain parked lanes, and every landed
+    # lane is an RTT sample
+    repair_eligible = (phase_specialize and cfg.inflight_slots == 0
+                       and not cfg.rtt_rings)
+
     def select_repair(pend_live, we) -> bool:
         """Repair once the rings report drained and the chunk schedules
-        no writes (validate_torch_slice refuses in-flight slots and RTT
-        rings, the features that keep the JAX package off the repair
-        step)."""
-        return bool(phase_specialize and pend_live == 0 and not we.any())
+        no writes, where the config admits the repair step."""
+        return bool(repair_eligible and pend_live == 0 and not we.any())
 
     def dispatch(ci, base, state_in, known_pend_live, blocked_by_writes,
                  speculative, behind=None) -> _InFlight:
@@ -452,7 +471,8 @@ def run_sim(
                     if doomed(behind, we, use_repair):
                         return _InFlight(
                             ci=ci, base=base, state_out=st, fetch=None,
-                            boundary=None, ikeys=[], use_repair=use_repair,
+                            boundary=None, probe=None, ikeys=[],
+                            use_repair=use_repair,
                             speculative=speculative, alive=alive,
                             part=part, we=we, cut=True)
                     behind = None  # this chunk commits: stop checking
@@ -466,10 +486,12 @@ def run_sim(
                 per_round.append(m)
             i_s, f_s, ikeys = pack_metrics(per_round)
             fetch = start_async_fetch(i_s, f_s)
-            # the checkers' reads, queued before any chunk that follows
+            # the checkers' and the probe extraction's reads, queued
+            # before any chunk that follows
             boundary = _boundary_fetch(cfg, st) if armed else None
+            probe = _probe_fetch(cfg, st)
         return _InFlight(ci=ci, base=base, state_out=st, fetch=fetch,
-                         boundary=boundary, ikeys=ikeys,
+                         boundary=boundary, probe=probe, ikeys=ikeys,
                          use_repair=use_repair,
                          speculative=speculative, alive=alive, part=part,
                          we=we)
@@ -506,7 +528,7 @@ def run_sim(
         shared by both loops. Returns False when the run must stop
         (converged or poisoned)."""
         nonlocal rounds, prev_writes, last_pend_live, poisoned
-        nonlocal converged_round, repair_seen, repair_chunks
+        nonlocal converged_round, repair_seen, repair_chunks, probe_p99_last
         we, use_repair = inflight.we, inflight.use_repair
         runner = "repair" if use_repair else "full"
         if use_repair and not repair_seen:
@@ -593,6 +615,24 @@ def run_sim(
         prev_writes = bool(we.any())
         last_pend_live = int(m["pend_live"][-1])
         rounds = base + chunk
+        if cfg.probes:
+            # a probe whose p99 delivery lag worsened this chunk (a late
+            # straggler stretched the tail) annotates the flight record
+            planes = dict(zip(PROBE_FIELDS, inflight.probe.resolve()))
+            p99 = ProbeTrace.from_state(
+                cfg, types.SimpleNamespace(
+                    probe=types.SimpleNamespace(**planes))).delivery_p99()
+            if (p99 is not None and probe_p99_last is not None
+                    and p99 > probe_p99_last):
+                flight.annotate(rounds, "probe_p99_regression", p99=p99,
+                                prev=probe_p99_last)
+                counters.inc(
+                    "corro_probe_p99_regressions_total",
+                    help_="chunks in which a probe's p99 delivery lag "
+                          "worsened",
+                )
+            if p99 is not None:
+                probe_p99_last = p99
         if on_chunk is not None:
             on_chunk({
                 "chunk": ci,
@@ -829,4 +869,7 @@ def run_sim(
         pipeline=pipeline_stats,
         resilience=resilience,
         check_seconds=check_seconds if armed else None,
+        probe=(ProbeTrace.from_state(cfg, state, driver="run_sim",
+                                     seed=seed, rounds=rounds)
+               if cfg.probes else None),
     )

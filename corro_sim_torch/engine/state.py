@@ -1,12 +1,13 @@
 """The whole cluster as one dataclass of tensors.
 
 Port of ``corro_sim/engine/state.py``: a structure of arrays whose leading
-axis is the node dimension. The placeholder planes of features the port
-does not run yet (probe tracer, RTT rings, in-flight ring) keep the JAX
-package's placeholder shapes, and the optional planes of the feature
-registry (``engine/features.py``: the burst-loss plane, the node-fault
-epoch and snapshot) appear exactly where the JAX package's do, so the
-two states compare leaf for leaf.
+axis is the node dimension. The planes of optional features (the probe
+tracer, the RTT plane, the in-flight ring, the burst-loss plane) keep
+the JAX package's ``(1, ...)`` placeholder shapes when their feature is
+off, and the dict-style planes of the feature registry
+(``engine/features.py``: the node-fault epoch and snapshot) appear
+exactly where the JAX package's do, so the two states compare leaf for
+leaf.
 """
 
 from __future__ import annotations
@@ -26,40 +27,14 @@ from corro_sim_torch.core.compaction import CellOwnership, make_ownership
 from corro_sim_torch.core.crdt import TableState, make_table_state
 from corro_sim_torch.device import resolve_device
 from corro_sim_torch.engine.features import build_features, build_field
+from corro_sim_torch.engine.probe import ProbeState  # registers "probe"
 from corro_sim_torch.gossip.broadcast import GossipState, make_gossip_state
+from corro_sim_torch.membership.rtt import make_rtt
 from corro_sim_torch.membership.swim import SwimState, make_swim_state
 from corro_sim_torch.membership.swim_window import (
     SwimWindowState,
     make_swim_window_state,
 )
-
-
-@dataclasses.dataclass
-class ProbeState:
-    """The probe tracer's planes (``corro_sim/engine/probe.py``); only
-    the ``probes == 0`` placeholder exists in the port so far."""
-
-    actor: torch.Tensor  # (K,) int32
-    ver: torch.Tensor  # (K,) int32
-    first_seen: torch.Tensor  # (K, N) int32
-    infector: torch.Tensor  # (K, N) int32
-    hop: torch.Tensor  # (K, N) int32 (int8 under narrow_state)
-    dup: torch.Tensor  # (K,) int32
-    last_sync: torch.Tensor  # (N,) int32
-
-
-def make_probe_placeholder(narrow: bool, device) -> ProbeState:
-    i32 = dict(dtype=torch.int32, device=device)
-    return ProbeState(
-        actor=torch.zeros((1,), **i32),
-        ver=torch.zeros((1,), **i32),
-        first_seen=torch.full((1, 1), -1, **i32),
-        infector=torch.full((1, 1), -1, **i32),
-        hop=torch.full((1, 1), -1, dtype=torch.int8 if narrow else torch.int32,
-                       device=device),
-        dup=torch.zeros((1,), **i32),
-        last_sync=torch.full((1,), -1, **i32),
-    )
 
 
 @dataclasses.dataclass
@@ -77,9 +52,13 @@ class SimState:
     hlc: torch.Tensor  # (N,) int32 per-node hybrid logical clock
     last_cleared: torch.Tensor  # (N,) int32 newest applied EmptySet ts
     cleared_hlc: torch.Tensor  # (A, L) int32 EmptySet stamp per version
-    rtt: torch.Tensor  # (1, 1) uint8 placeholder (RTT rings off)
-    inflight: torch.Tensor  # (1, 6, 1) int32 placeholder (latency off)
-    probe: ProbeState  # placeholder (probes off)
+    rtt: torch.Tensor  # (N, N) uint8 observed edge delay [receiver,
+    # sender], 255 = unobserved; (1, 1) when rtt_rings is off
+    inflight: torch.Tensor  # (slots, 6, L) int32 in-flight delayed lanes,
+    # one ring slot per future round, planes (dst, src, actor, ver,
+    # chunk, valid); (1, 6, 1) when the latency model is off
+    probe: ProbeState  # the probe tracer (engine/probe.py); (1, 1)
+    # placeholder planes when probes == 0
     fault_burst: torch.Tensor  # (N,) bool Gilbert burst state per node's
     # receive path; a (1,) placeholder when burst loss is off
     features: dict = dataclasses.field(default_factory=dict)
@@ -140,9 +119,11 @@ def init_state(cfg: SimConfig, seed: int = 0, device=None) -> SimState:
         hlc=torch.zeros((n,), **i32),
         last_cleared=torch.full((n,), -1, **i32),
         cleared_hlc=torch.full((cfg.num_actors, cfg.log_capacity), -1, **i32),
-        rtt=torch.full((1, 1), 255, dtype=torch.uint8, device=dev),
-        inflight=torch.zeros((1, 6, 1), **i32),
-        probe=make_probe_placeholder(cfg.narrow_state, dev),
+        rtt=make_rtt(n, cfg.rtt_rings, dev),
+        inflight=torch.zeros(
+            (cfg.inflight_slots, 6, cfg.lanes_per_round)
+            if cfg.inflight_slots else (1, 6, 1), **i32),
+        probe=build_field("probe", cfg, seed, dev),
         fault_burst=build_field("fault_burst", cfg, seed, dev),
         features=build_features(cfg, seed, dev),
     )

@@ -1,18 +1,20 @@
 """One simulation round: the whole cluster advances in one batched step.
 
 Port of ``corro_sim/engine/step.py`` for the configurations
-:func:`~corro_sim_torch.config.validate_torch_slice` admits (probes, RTT
-rings, the latency ring and sweeps off). A version is one transaction's
+:func:`~corro_sim_torch.config.validate_torch_slice` admits (every one
+but the fleet sweep's). A version is one transaction's
 changeset of up to ``seqs_per_version`` cells, gossiped as
 ``chunks_per_version`` chunks; a receiver buffers partial versions and
 merges a version once every chunk arrived. Round structure:
 
   node-fault prologue (scheduled wipes, snapshot captures) -> local
-  writes -> eager ring-0 broadcast -> gossip dissemination -> link
-  faults at delivery ->
-  delivery + bookkeeping + CRDT merge -> rebroadcast of fresh changes ->
-  SWIM tick (every ``swim_interval`` rounds) -> (every ``sync_interval``
-  rounds, or on the adaptive floor cadence) anti-entropy sync -> HLC tick.
+  writes -> eager ring-0 broadcast -> gossip dissemination -> the
+  in-flight latency ring -> link faults at delivery -> probe origins ->
+  delivery + bookkeeping + probe tracer + CRDT merge -> RTT samples and
+  ring-0 recomputation -> rebroadcast of fresh changes -> SWIM tick
+  (every ``swim_interval`` rounds) -> (every ``sync_interval`` rounds, or
+  on the adaptive floor cadence) anti-entropy sync -> probe sync marks ->
+  HLC tick.
 
 Gossip and sync consult the membership view of the state at the start
 of the round (after the node-fault prologue); a SWIM tick's result shows
@@ -51,6 +53,12 @@ from corro_sim_torch.core.changelog import append_changesets
 from corro_sim_torch.core.compaction import update_ownership
 from corro_sim_torch.core.crdt import NEG, local_write
 from corro_sim_torch.core.delivery import delivery_pass
+from corro_sim_torch.engine.probe import (
+    probe_book_update,
+    probe_metrics,
+    probe_sync_mark,
+    probe_write_update,
+)
 from corro_sim_torch.engine.state import SimState
 from corro_sim_torch.faults.inject import (
     blackhole_tensor,
@@ -68,6 +76,11 @@ from corro_sim_torch.gossip.broadcast import (
     broadcast_step,
     enqueue_broadcasts,
     enqueue_own,
+)
+from corro_sim_torch.membership.rtt import (
+    link_delay,
+    observe_rtt,
+    recompute_ring0,
 )
 from corro_sim_torch.membership.swim import (
     plane_metrics,
@@ -332,7 +345,36 @@ def sim_step(
     ver = torch.cat([e_ver, g_ver])
     chunk = torch.cat([e_chunk, g_chunk])
     valid = torch.cat([e_valid, g_valid])
-    msgs_sent = valid.sum(dtype=torch.int32)
+    msgs_sent = valid.sum(dtype=torch.int32)  # emissions, pre-delay split
+
+    # ------------------------------------------------ in-flight latency
+    # a lane whose link delay d > 1 parks in a ring slot and re-enters
+    # the delivery lanes d - 1 rounds later; it parks only if its link is
+    # up at emission, and reachability is checked again at delivery.
+    # Matured lanes merge the sender's current clock.
+    inflight = state.inflight
+    parked = None  # the conservation counters of the ring, faults on
+    if cfg.inflight_slots:
+        slot = round_idx % cfg.inflight_slots
+        mat = inflight[slot].clone()  # (6, L) lanes maturing this round
+        far = valid & (link_delay(cfg, src, dst) > 1)
+        up = reach(src, dst)
+        park_ok = far & up
+        if fl is not None:
+            parked = {
+                "fault_parked": park_ok.sum(dtype=torch.int32),
+                "fault_emit_lost": (far & ~up).sum(dtype=torch.int32),
+                "fault_matured": mat[5].sum(dtype=torch.int32),
+            }
+        inflight[slot] = torch.stack([
+            x.to(torch.int32) for x in (dst, src, actor, ver, chunk, park_ok)
+        ])
+        dst = torch.cat([dst, mat[0]])
+        src = torch.cat([src, mat[1]])
+        actor = torch.cat([actor, mat[2]])
+        ver = torch.cat([ver, mat[3]])
+        chunk = torch.cat([chunk, mat[4]])
+        valid = torch.cat([valid & ~far, mat[5].bool()])
     delivered = valid & reach(src, dst)
     fault_metrics = {}
     if fl is not None:
@@ -355,17 +397,34 @@ def sim_step(
         delivered = delivered & keep
         fault_metrics["fault_dup"] = (delivered & dup).sum(dtype=torch.int32)
         fault_metrics["fault_delivered"] = delivered.sum(dtype=torch.int32)
-        # the latency ring is not ported: nothing parks or matures
-        for k in ("fault_parked", "fault_emit_lost", "fault_matured"):
-            fault_metrics[k] = zero
+        # conservation accounting for the invariant checker: emissions
+        # that parked or died at emission, and parked lanes maturing
+        fault_metrics.update(parked or dict.fromkeys(
+            ("fault_parked", "fault_emit_lost", "fault_matured"), zero))
         fault_metrics["fault_burst_nodes"] = _burst_nodes(cfg, fl["burst"])
+
+    # ------------------------------------------------------- probe origins
+    probe = state.probe
+    if cfg.probes:
+        probe = probe_write_update(probe, state.round, writers, w_ver)
 
     # --------------------------------------- fused delivery merge (1 pass)
     dv = delivery_pass(
         cfg, table, book, log, state.hlc, dst, src, actor, ver, chunk,
-        delivered,
+        delivered, probe=probe, round_=state.round,
     )
-    table, book = dv.table, dv.book
+    table, book, probe = dv.table, dv.book, dv.probe
+
+    # ------------------------------------------------- RTT samples + rings
+    # every landed lane is an RTT sample, capped or not; the rings are
+    # recomputed every ring_update_interval rounds, and the new ring-0
+    # takes the next round's eager sends
+    rtt, ring0 = state.rtt, state.ring0
+    if cfg.rtt_rings:
+        rtt = observe_rtt(cfg, rtt, dv.dst, dv.src, dv.delivered_precap)
+        iv = cfg.ring_update_interval
+        if round_idx % iv == iv - 1:
+            ring0 = recompute_ring0(rtt, ring0)
 
     # ------------------------------------------------- rebroadcast + enqueue
     if cpv <= cfg.pend_slots:
@@ -409,7 +468,9 @@ def sim_step(
         k_sync, alive, view, part, round_idx=state.sync_rounds,
         fault_key=None if fl is None else fl["k_sync"],
         client_ok=_sync_client_ok(cfg, nf, state),
+        rtt=rtt if cfg.rtt_rings else None,
     )
+    probe = _probe_after_sync(cfg, probe, book, is_sync, alive, state.round)
 
     # -------------------------------------------------------------- metrics
     gap = _gap(alive, log, book)
@@ -436,6 +497,7 @@ def sim_step(
         "clock_skew": skew,
         **swim_metrics,
         **sync_metrics,
+        **(probe_metrics(probe) if cfg.probes else {}),
         **fault_metrics,
         **_node_fault_metrics(nf, alive, book, log),
     }
@@ -452,9 +514,22 @@ def sim_step(
         hlc=hlc,
         last_cleared=last_cleared,
         cleared_hlc=cleared_hlc,
+        rtt=rtt,
+        ring0=ring0,
+        inflight=inflight,
+        probe=probe,
         fault_burst=state.fault_burst if fl is None else fl["burst"],
     )
     return new_state, metrics
+
+
+def _probe_after_sync(cfg, probe, book, is_sync: bool, alive, round_):
+    """The anti-entropy merge point and the sweep stamp, both step
+    programs' last probe updates of a round."""
+    if not cfg.probes:
+        return probe
+    probe = probe_book_update(probe, book.head, round_)
+    return probe_sync_mark(probe, is_sync, alive, round_)
 
 
 def _node_fault_prologue(cfg, state, round_idx: int):
@@ -577,11 +652,12 @@ def _sync_due(gate) -> bool:
 
 def _sync_block(cfg, is_sync: bool, book, log, table, hlc, last_cleared,
                 cleared_hlc, k_sync, alive, view, part, round_idx,
-                fault_key=None, client_ok=None):
+                fault_key=None, client_ok=None, rtt=None):
     """One anti-entropy sweep when ``is_sync``; zero metrics otherwise.
     ``fault_key``: the sync-fault subkey with link faults on.
     ``client_ok``: makes the straggler duty mask, which gates the pair
-    rows (the client side) only."""
+    rows (the client side) only. ``rtt``: the observed edge delays with
+    RTT rings on."""
     if not is_sync:
         dev = hlc.device
         names = _SYNC_METRICS + (
@@ -594,7 +670,8 @@ def _sync_block(cfg, is_sync: bool, book, log, table, hlc, last_cleared,
         pairs = pairs & client_ok()[:, None]
     return sync_round(
         cfg, book, log, table, hlc, last_cleared, cleared_hlc, k_sync,
-        alive, view, pairs, round_idx=round_idx, fault_key=fault_key,
+        alive, view, pairs, rtt=rtt, round_idx=round_idx,
+        fault_key=fault_key,
     )
 
 
@@ -630,8 +707,14 @@ def _hlc_tick(alive, hlc_s, hlc_recv, round_, skew=None):
 
 def _repair_step(cfg, state: SimState, key, alive, part, round_idx: int):
     """The post-quiesce round: SWIM + sync + bookkeeping only.
-    Preconditions (driver-checked): no writes this round and every gossip
-    ring drained; under those this is bit-for-bit :func:`sim_step`."""
+    Preconditions (driver-checked): no writes this round, every gossip
+    ring drained, no in-flight ring and no RTT rings; under those this is
+    bit-for-bit :func:`sim_step`. Of the probe tracer only the sync merge
+    point and the sweep stamp run: no writer and no lane make the
+    origin and delivery updates no-ops there."""
+    if cfg.inflight_slots or cfg.rtt_rings:
+        raise ValueError("the repair step runs without the in-flight ring "
+                         "and RTT rings")
     n = cfg.num_nodes
     dev = state.hlc.device
     keys = prng.split(key, len(STEP_KEY_STREAMS))
@@ -665,6 +748,8 @@ def _repair_step(cfg, state: SimState, key, alive, part, round_idx: int):
         fault_key=None if fl is None else fl["k_sync"],
         client_ok=_sync_client_ok(cfg, nf, state),
     )
+    probe = _probe_after_sync(cfg, state.probe, book, is_sync, alive,
+                              state.round)
     gap = _gap(alive, log, book)
     hlc, skew = _hlc_tick(alive, hlc_s, hlc_recv, state.round,
                           None if nf is None else nf["skew"])
@@ -698,6 +783,7 @@ def _repair_step(cfg, state: SimState, key, alive, part, round_idx: int):
         "clock_skew": skew,
         **swim_metrics,
         **sync_metrics,
+        **(probe_metrics(probe) if cfg.probes else {}),
         **fault_metrics,
         **_node_fault_metrics(nf, alive, book, log),
     }
@@ -710,6 +796,7 @@ def _repair_step(cfg, state: SimState, key, alive, part, round_idx: int):
         sync_rounds=state.sync_rounds + int(is_sync),
         hlc=hlc,
         last_cleared=last_cleared,
+        probe=probe,
         fault_burst=state.fault_burst if fl is None else fl["burst"],
     )
     return new_state, metrics

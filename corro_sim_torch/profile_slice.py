@@ -1,7 +1,8 @@
 """Where a round of the port's main path spends its time.
 
     python -m corro_sim_torch.profile_slice [--swim | --config3 | --config6
-                                             | --soak SPEC | --host-read PAIRS]
+                                             | --soak SPEC | --latency
+                                             | --host-read PAIRS]
                                             [--out DIR]
 
 Defines the slice's cells — the north-star cluster with SWIM off and,
@@ -19,7 +20,10 @@ phase, the drain and the start of the repair tail; ``--config6``: config
 the 64 load rounds and the drain; ``--soak SPEC``: config 0 at 10 000
 nodes soaked under the fault scenario ``SPEC`` over its first 64
 rounds, ``SOAK_PROFILE_ROUNDS``, with the soak CLI's arguments and no
-checker — ``lossy:p=0`` is the fault-free twin of ``lossy:p=0.1``):
+checker — ``lossy:p=0`` is the fault-free twin of ``lossy:p=0.1``;
+``--latency``: config 0 at 10 000 nodes across four latency regions with
+RTT rings and 8 probes, to convergence, whose fault-free twin is
+``--swim``):
 once to warm the allocator and the kernel build (discarded), then three
 times:
 
@@ -41,7 +45,8 @@ Prints one JSON object and writes it, with the full kernel table, to
 ``DIR/profile_slice.json`` (``profile_slice_swim.json`` with ``--swim``,
 ``profile_slice_config3.json`` with ``--config3``,
 ``profile_slice_config6.json`` with ``--config6``,
-``profile_slice_soak_<spec>.json`` with ``--soak``).
+``profile_slice_soak_<spec>.json`` with ``--soak``,
+``profile_slice_latency.json`` with ``--latency``).
 
 ``--host-read PAIRS`` measures instead the step's read of the sweep
 gate's device predicate: copied to the host where it is computed and
@@ -68,6 +73,7 @@ import torch
 from corro_sim_torch import merge_probe as mp
 from corro_sim_torch import prng
 from corro_sim_torch.config import SimConfig
+from corro_sim_torch.core import delivery as delivery_mod
 from corro_sim_torch.core import merge_kernel as mk
 from corro_sim_torch.engine import step as step_mod
 from corro_sim_torch.convert import state_to_numpy
@@ -99,6 +105,12 @@ STAGES = (
     (step_mod, "_fault_lane"),  # fault keys, burst state (link faults)
     (step_mod, "link_fault_masks"),  # the loss and dup draws at delivery
     (step_mod, "apply_node_faults"),  # wipes and snapshot captures
+    (step_mod, "observe_rtt"),  # RTT samples (rtt_rings)
+    (step_mod, "recompute_ring0"),  # the ring recomputation (rtt_rings)
+    (step_mod, "probe_write_update"),  # probe origins (probes)
+    (delivery_mod, "probe_delivery_update"),  # the probe merge point
+    (step_mod, "_probe_after_sync"),  # probe sync joins and stamps
+    (sync_mod, "_legacy_schedule"),  # the legacy sync schedule
     (sync_mod, "choose_sync_peers"),
     (sync_mod, "merge_grouped"),
     (sync_mod, "advance_heads"),
@@ -131,6 +143,77 @@ def slice_config(n: int = 10000, merge_kernel: str = "auto",
         sync_need_sample=64, sync_deal_probes=0, merge_kernel=merge_kernel,
         **swim_kw,
     )
+
+
+def latency_config(n: int = 10000) -> SimConfig:
+    """Config 0 (``slice_config(n, swim=True)``) across four regions: the
+    latency model with ``latency_inter`` at its default 4 (a far lane
+    delivers 3 rounds after emission, ``inflight_slots`` 3), RTT rings
+    recomputed every 8 rounds and 8 probes: the multi-region cell."""
+    return dataclasses.replace(
+        slice_config(n, swim=True), latency_regions=4, latency_inter=4,
+        rtt_rings=True, ring_update_interval=8, probes=8,
+    )
+
+
+def legacy_config(n: int = 10000, deal_probes: int = 0) -> SimConfig:
+    """Config 0 (``slice_config(n, swim=True)``) on the legacy full-axis
+    sync schedule (``sync_hot_actors=0``): the exact argmax serving
+    assignment, or ``deal_probes`` deal probes."""
+    return dataclasses.replace(
+        slice_config(n, swim=True), sync_hot_actors=0,
+        sync_deal_probes=deal_probes,
+    )
+
+
+# the slice-8 digest runs: (config, nodes), each under slice_schedule()
+# and RUN_ARGS, to convergence
+SLICE8_DIGEST_CASES = {
+    f"{name}_{n}": (name, n)
+    for name in ("latency", "legacy", "deal") for n in (256, 1000)
+}
+
+
+def writing_actors(cfg: SimConfig, schedule: Schedule, chunk: int,
+                   seed: int = 0) -> np.ndarray:
+    """The actors that commit at least one version in a sampler run of
+    ``cfg`` under ``schedule`` (chunks of ``chunk`` rounds): the writer
+    draw of each write round (``step._sample_writes``, the round key's
+    first lane against ``write_rate``), replayed on the host."""
+    n = cfg.num_nodes
+    root = prng.PRNGKey(seed)
+    wrote = np.zeros(n, bool)
+    rate = torch.full((), cfg.write_rate, dtype=torch.float32)
+    for r in range(schedule.write_rounds):
+        ci, j = divmod(r, chunk)
+        key = prng.split(prng.fold_in(root, ci), chunk)[j]
+        k_write = prng.split(key, len(step_mod.STEP_KEY_STREAMS))[0]
+        alive = schedule.slice(r, 1, n)[0][0]
+        wrote |= (prng.uniform(k_write, (n,), "cpu") < rate).numpy() & alive
+    return np.nonzero(wrote)[0].astype(np.int32)
+
+
+def aim_probes(state, actors: np.ndarray) -> None:
+    """Re-aim the state's probes, in place, at version 1 of ``actors``
+    spread evenly over the given ids (the JAX package's documented way:
+    replace ``actor``/``ver`` before running)."""
+    k = state.probe.actor.shape[0]
+    pick = actors[np.linspace(0, len(actors) - 1, k).round().astype(int)]
+    state.probe.actor = torch.as_tensor(pick, device=state.probe.actor.device)
+
+
+# the round at which each of those runs converges, as the JAX package's
+# does (the run behind DIGESTS[case])
+SLICE8_ROUNDS = {"latency_256": 34, "latency_1000": 23, "legacy_256": 37,
+                 "legacy_1000": 35, "deal_256": 38, "deal_1000": 37}
+
+
+def slice8_config(case: str) -> SimConfig:
+    """The configuration of a ``SLICE8_DIGEST_CASES`` run."""
+    name, n = SLICE8_DIGEST_CASES[case]
+    if name == "latency":
+        return latency_config(n)
+    return legacy_config(n, deal_probes=2 if name == "deal" else 0)
 
 
 # The Consul-services schema's table layout (the JAX package's
@@ -477,14 +560,20 @@ def run_soak(cfg: SimConfig, spec: str, rounds: int = 128,
 
 
 def fault_digest_run(case: str, device=None, **run_kw) -> SoakRun:
-    """The run behind ``DIGESTS["soak:<case>"]`` (``"<spec>@<seed>"``)."""
-    spec, seed = case.rsplit("@", 1)
+    """The run behind ``DIGESTS["soak:<case>"]`` (``"<spec>@<seed>"``, or
+    ``"<spec>@<seed>+latency"`` on the lane base across four latency
+    regions)."""
+    name, _, variant = case.partition("+")
+    spec, seed = name.rsplit("@", 1)
+    cfg = config8_lane_config()
+    if variant == "latency":
+        cfg = dataclasses.replace(cfg, latency_regions=4)
     args = dict(CONFIG8_SOAK_ARGS)
     if case in FAULT_FIXED_ROUNDS:
         args["max_rounds"] = FAULT_FIXED_ROUNDS[case]
         run_kw.setdefault("stop_on_convergence", False)
-    return run_soak(config8_lane_config(), spec, seed=int(seed),
-                    device=device, **args, **run_kw)
+    return run_soak(cfg, spec, seed=int(seed), device=device, **args,
+                    **run_kw)
 
 
 def fault_digest_record(case: str, run: SoakRun) -> dict:
@@ -514,10 +603,16 @@ CONFIG8_SCENARIOS = ("lossy:p=0.1", "churn:rate=0.05", "crash_amnesia",
 # the other scenarios of the JAX package's SOAK_DEFAULT, at seed 0
 SOAK_OTHERS = ("duplicating", "burst", "rolling_restart", "flapper",
                "split_brain_heal", "stale_rejoin", "stragglers")
+# lossy links under the latency ring: the ring's conservation counters
+LATENCY_SOAK_CASE = "lossy:p=0.1@0+latency"
 FAULT_DIGEST_CASES = tuple(
     [f"{spec}@{seed}" for seed in (0, 1) for spec in CONFIG8_SCENARIOS]
-    + [f"{spec}@0" for spec in SOAK_OTHERS] + ["blackhole_one_way@0"]
+    + [f"{spec}@0" for spec in SOAK_OTHERS] + ["blackhole_one_way@0",
+                                               LATENCY_SOAK_CASE]
 )
+# the cases chip_smoke.py runs: every scenario once, at seed 0
+FAULT_DIGEST_CHIP_CASES = tuple(c for c in FAULT_DIGEST_CASES
+                                if "@1" not in c)
 # blackhole_one_way never re-converges (the hole never heals): a fixed
 # 96 rounds
 FAULT_FIXED_ROUNDS = {"blackhole_one_way@0": 96}
@@ -564,6 +659,7 @@ FAULT_PINS = {
                     (15, 125, 0, 0, 0, 0, 0, 0, 9)),
     "blackhole_one_way@0": (96, None, [],
                            None),
+    LATENCY_SOAK_CASE: (80, 68, [], None),
 }
 
 
@@ -606,8 +702,10 @@ DIGEST_RUN_ARGS = dict(max_rounds=24, chunk=8, seed=0,
 # slice_schedule() and DIGEST_RUN_ARGS, config 3 under config3_schedule()
 # and CONFIG3_RUN_ARGS, config 6 with workload=config6_workload(1000) and
 # CONFIG6_RUN_ARGS, to convergence, and each CONFIG_DIGEST_CASES run as
-# config_digest_case(case) sets it up — and replay of each REPLAY_CASES
-# fixture; the state flattened by jax.tree_util.keystr (leading dot
+# config_digest_case(case) sets it up, each SLICE8_DIGEST_CASES run
+# (slice8_config(case) under slice_schedule() and RUN_ARGS), and each
+# FAULT_DIGEST_CASES run as fault_digest_run(case) sets it up — and
+# replay of each REPLAY_CASES fixture; the state flattened by jax.tree_util.keystr (leading dot
 # dropped) and the metrics as run_sim or replay returned them. The port
 # matches them on every device. The config-6 digests leave out the "gap"
 # series (CONFIG6_DIGEST_EXCLUDE), and so does config 4's: their lag sums
@@ -666,6 +764,20 @@ DIGESTS = {
         "f8f9e71f13505932ed6763a06a816cac227fb0cb35a3ae89a6debf8885577ef3",
     "soak:blackhole_one_way@0":
         "3a62173ee4273e357bbda609d29c59da0f8b7b5caac0ddfb6c239ae1f0abc567",
+    "soak:lossy:p=0.1@0+latency":
+        "99bc38a943194f320cf1919038c9de439f4012136a197b3acd4287168f5d64be",
+    "latency_256":
+        "cc926079e448a2aede507fd4a86451fa3f52e2bc9d095ce059f30768291f2b34",
+    "latency_1000":
+        "2854f8fdecb8b135d243dc3bad177b8e12ad6f49798b94813e44eed8df4946fd",
+    "legacy_256":
+        "e272e37f29c68d20108c547d0ada6712194c435acaa741fe43ddad575e5e86cb",
+    "legacy_1000":
+        "c1db81c6ff0b4561e11ecd75668f452f2d34711d780b67d9d2c63d30e419bd09",
+    "deal_256":
+        "23dd78b0c1aad86c591f4d4fbe4f0f0f33ddc115abe8cd94be164e0ae7eadc28",
+    "deal_1000":
+        "29b075e838d10d8100cb3865e9475ea844823d2172632c753ee22d32624e74d1",
 }
 CONFIG6_DIGEST_EXCLUDE = ("gap",)
 
@@ -891,6 +1003,31 @@ def host_read(pairs: int) -> dict:
     return out
 
 
+def launches_per_round(cfg: SimConfig, schedule: Schedule, rounds: int = 16,
+                       device="cuda") -> dict:
+    """Kernel launches per round and the device's busy share over the
+    first ``rounds`` rounds of a seeded run, under ``torch.profiler``
+    tracing the device only (host ops unrecorded, so the trace stays
+    small)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    state = init_state(cfg, seed=0, device=device)
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = run_sim(cfg, state, schedule, max_rounds=rounds, chunk=8,
+                      seed=0, stop_on_convergence=False, device=device)
+        torch.cuda.synchronize(device)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [(e.time_range.start, e.time_range.end) for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    return {"rounds": res.rounds,
+            "launches_per_round": len(kernels) / res.rounds,
+            "profiled_wall_per_round_ms": wall_ms / res.rounds,
+            "device_busy_share": _busy_ms(kernels) / wall_ms}
+
+
 def _busy_ms(intervals) -> float:
     """Length of the union of (start, end) microsecond intervals, in ms."""
     busy, end = 0.0, -1.0
@@ -919,6 +1056,9 @@ def main(argv=None) -> dict:
     cell.add_argument("--soak", metavar="SPEC",
                       help="profile config 0 at 10 000 nodes under the "
                            "fault scenario SPEC (its first 64 rounds)")
+    cell.add_argument("--latency", action="store_true",
+                      help="profile config 0 at 10 000 nodes across four "
+                           "latency regions with RTT rings and 8 probes")
     cell.add_argument("--host-read", type=int, metavar="PAIRS",
                       help="the early read of the sweep gate against the "
                            "late read, PAIRS pairs on configs 0 and 6 at "
@@ -941,6 +1081,8 @@ def main(argv=None) -> dict:
         cfg = config3_config()
     elif args.soak:
         cfg = soak_config()
+    elif args.latency:
+        cfg = latency_config()
     else:
         cfg = slice_config(swim=args.swim)
     run = functools.partial(_run, cfg, device, wl, args.soak)
@@ -1058,6 +1200,7 @@ def main(argv=None) -> dict:
     name = ("profile_slice_config6.json" if args.config6
             else "profile_slice_config3.json" if args.config3
             else f"profile_slice_soak_{soak_name}.json" if args.soak
+            else "profile_slice_latency.json" if args.latency
             else "profile_slice_swim.json" if args.swim
             else "profile_slice.json")
     with open(os.path.join(args.out, name), "w") as f:

@@ -1,9 +1,13 @@
 """Anti-entropy sync: vectorized ``compute_available_needs`` + budgeted
 repair.
 
-Port of ``corro_sim/sync/sync.py`` with the dense hot-actor request
-schedule (``sync_hot_actors > 0`` and ``sync_deal_probes == 0``); the
-legacy full-axis and the deal-probe schedules are not ported yet.
+Port of ``corro_sim/sync/sync.py`` with its three request schedules:
+the dense hot-actor schedule (``sync_hot_actors > 0`` and
+``sync_deal_probes == 0``), and the legacy full-actor-axis schedule
+(``sync_hot_actors == 0``) with its exact-argmax or deal-probe serving
+assignment (``sync_deal_probes > 0``). With measured RTTs (``rtt=``),
+closer peers win candidate ties and slow connections serve halved
+per-actor caps.
 
 Each sweep, every node picks up to ``resolved_sync_peers`` peers out of
 ``sync_candidates`` random members, ranked by sampled need
@@ -29,9 +33,11 @@ from corro_sim_torch.utils.sort import lexsort, scatter_max, top_k
 
 
 def choose_sync_peers(cfg, book: Bookkeeping, key, alive, view_alive,
-                      reachable):
+                      reachable, rtt=None):
     """Pick up to ``resolved_sync_peers`` peers per node and enforce the
-    server-side semaphore across every request of the sweep.
+    server-side semaphore across every request of the sweep. Candidates
+    rank by sampled need, then, with ``rtt`` (the ``(N, N)`` observed
+    edge delays), by lower delay (``handlers.rs:1018-1042``).
 
     Returns ``(peer, granted, requested)``, each ``(N, P)``."""
     n, a = book.head.shape
@@ -63,7 +69,14 @@ def choose_sync_peers(cfg, book: Bookkeeping, key, alive, view_alive,
     earlier = torch.ones((c, c), dtype=torch.bool, device=dev).tril(-1)
     dup = (cand[:, :, None] == cand[:, None, :]) & earlier[None]
     ok = believed & (cand != rows[:, None]) & ~dup.any(dim=2)
-    score = torch.where(ok, need, -1)
+    if rtt is not None:
+        # need * 64 + (63 - rtt): need dominates, close peers win ties
+        rtt_c = torch.clamp(rtt[rows.long()[:, None], cand_l].to(
+            torch.int32), max=63)
+        score = torch.clamp(need, max=1 << 24) * 64 + (63 - rtt_c)
+    else:
+        score = need
+    score = torch.where(ok, score, -1)
 
     topv, topi = top_k(score, p_cnt)  # (N, P), lower index wins ties
     peer = torch.gather(cand, 1, topi)
@@ -105,12 +118,45 @@ def choose_serving_slots(delta_p: torch.Tensor, topa: torch.Tensor, phase):
     return slot, best
 
 
-def _kth_positive(csum: torch.Tensor, kprime: int) -> torch.Tensor:
+def deal_serving_slots(granted: torch.Tensor, phase, kprime: int):
+    """``(slot, rank_in_slot)``: request lane k is dealt to the
+    ``(k + phase) mod g``-th granted slot of its node (g = the node's
+    granted count), the reference's round-robin request dealing
+    (``api/peer.rs:1241-1372``); a node with nothing granted gets the
+    sentinel ``P`` on every lane. ``rank_in_slot`` is the lane's position
+    among its slot's lanes, ``k // g``."""
+    n, p_cnt = granted.shape
+    dev = granted.device
+    g1 = torch.clamp(granted.sum(dim=1, dtype=torch.int32), min=1)[:, None]
+    grank = torch.cumsum(granted.to(torch.int32), dim=1,
+                         dtype=torch.int32) - 1  # (N, P)
+    lanes = torch.arange(kprime, dtype=torch.int32, device=dev)[None, :]
+    j = (lanes + phase) % g1  # (N, K')
+    slot = torch.full((n, kprime), p_cnt, dtype=torch.int32, device=dev)
+    for p in range(p_cnt):
+        match = granted[:, p:p + 1] & (grank[:, p:p + 1] == j)
+        slot = torch.where(match, p, slot)
+    return slot, lanes // g1
+
+
+def _kth_positive(csum: torch.Tensor, kprime: int,
+                  roll_phase=None) -> torch.Tensor:
     """(N, K') column index of the k-th positive from per-row inclusive
-    prefix counts: ``#{j : csum[j] < k}``, which for the monotone counts
-    here is a left binary search."""
+    prefix counts: the first column whose count reaches k, a left binary
+    search over each row.
+
+    The search needs rows in scan order. The legacy schedule's counts are
+    in rotated scan order (the scan starts at column ``roll_phase``), so
+    their row is rolled first, by index arithmetic on the device scalar.
+    The JAX package counts ``#{j : csum[j] < k}`` in one fused compare,
+    which does not depend on the column order, but builds an (N, A, K')
+    plane (ROADMAP.md queue 3)."""
+    n, a = csum.shape
+    if roll_phase is not None:
+        cols = (torch.arange(a, device=csum.device) + roll_phase) % a
+        csum = csum[:, cols]
     tk = torch.arange(1, kprime + 1, dtype=csum.dtype, device=csum.device)
-    tk = tk[None, :].expand(csum.shape[0], kprime).contiguous()
+    tk = tk[None, :].expand(n, kprime).contiguous()
     return torch.searchsorted(csum.contiguous(), tk, side="left").to(
         torch.int32)
 
@@ -134,9 +180,132 @@ def _rank_within_slot(slot: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _legacy_schedule(cfg, book, log, peer, granted, phase, round_idx, kp,
+                     kprime):
+    """The full-actor-axis request schedule (``sync_hot_actors == 0``).
+
+    1. Each node selects up to K' actors it still needs (its bookkeeping
+       against the written heads, the needs side of
+       ``compute_available_needs``, ``sync.rs:127-249``) by scanning the
+       actor axis from the sweep's random phase and keeping the first K'
+       positives (the reference's shuffled request dealing,
+       ``peer.rs:1241-1372``).
+    2. One serving slot per lane: the deal-probe assignment
+       (``cfg.sync_deal_probes``) or the exact argmax.
+
+    Returns ``(topa, slot, topv, lane_ok, within_budget)``, each (N, K').
+    (``round_idx`` is the dense schedule's; this one does not read it.)"""
+    n, a = book.head.shape
+    p_cnt = peer.shape[1]
+    my_need = torch.clamp(log.head[None, :] - book.head, min=0)  # (N, A)
+    pos = my_need > 0
+    # the inclusive prefix counts in rotated scan order, built in original
+    # column order: for column o the count is c[o] - c[phase - 1], plus
+    # the row total where o < phase wraps to the tail
+    c = torch.cumsum(pos.to(torch.int32), dim=1, dtype=torch.int32)
+    total = c[:, -1:]
+    cpm1 = torch.where(
+        phase > 0,
+        c.index_select(1, torch.clamp(phase - 1, min=0).reshape(1).long()),
+        0,
+    )
+    wraps = torch.arange(a, dtype=torch.int32, device=c.device)[None] < phase
+    csum = c - cpm1 + torch.where(wraps, total, 0)
+    del c, pos, my_need
+    idx = _kth_positive(csum, kprime, roll_phase=phase)
+    del csum
+    lane_ok = idx < a
+    topa = (torch.where(lane_ok, idx, 0) + phase) % a  # (N, K') int32
+    topa_l = topa.long()
+    my_head = torch.gather(book.head, 1, topa_l)  # (N, K')
+    if cfg.sync_deal_probes:
+        # deal lanes round-robin over the granted slots, then probe up to
+        # sync_deal_probes dealings per lane and serve from the furthest
+        # ahead (strict > keeps the earlier dealing on a tie)
+        slot, rank_in_slot = deal_serving_slots(granted, phase, kprime)
+        topv = torch.zeros((n, kprime), dtype=torch.int32,
+                           device=topa.device)
+        for i in range(min(cfg.sync_deal_probes, p_cnt)):
+            slot_i, _ = deal_serving_slots(granted, phase + i, kprime)
+            peer_i = torch.gather(peer, 1, torch.clamp(
+                slot_i, max=p_cnt - 1).long())
+            tv_i = torch.where(
+                slot_i < p_cnt,
+                torch.clamp(book.head[peer_i.long(), topa_l] - my_head,
+                            min=0),
+                0,
+            )
+            slot = torch.where(tv_i > topv, slot_i, slot)
+            topv = torch.maximum(tv_i, topv)
+        slot = torch.where(lane_ok & (topv > 0), slot, p_cnt)
+        within_budget = rank_in_slot < kp
+    else:
+        # exact argmax: what each granted peer can serve of each requested
+        # actor, (N, P, K'), then the furthest-ahead assignment; dead
+        # lanes get the sentinel slot P, their own budget group
+        ph = book.head[peer.long()[:, :, None], topa_l[:, None, :]]
+        delta_p = torch.clamp(ph - my_head[:, None, :], min=0)
+        delta_p = torch.where(granted[:, :, None], delta_p, 0)
+        slot, topv = choose_serving_slots(delta_p, topa, phase)
+        slot = torch.where(lane_ok & (topv > 0), slot, p_cnt)
+        within_budget = _rank_within_slot(slot) < kp
+    return topa, slot, topv, lane_ok, within_budget
+
+
+def _hot_schedule(cfg, book, log, peer, granted, phase, round_idx, kp,
+                  kprime):
+    """The dense hot-actor schedule: compact the actor axis to the actors
+    anyone could need, then run needs, capability and the serving
+    assignment as dense work over (N, P, A'). Returns ``(topa, slot,
+    topv, lane_ok, within_budget)``, each (N, K')."""
+    n, a = book.head.shape
+    p_cnt = peer.shape[1]
+    dev = book.head.device
+    ahot = min(cfg.sync_hot_actors, a)
+    min_head = book.head.min(dim=0).values
+    hot_mask = log.head > min_head
+    hot_cs = torch.cumsum(hot_mask.to(torch.int32), 0).to(torch.int32)
+    total_hot = hot_cs[-1]
+    total1 = torch.clamp(total_hot, min=1)
+    # sequential window rotation over the hot set (sweep k serves hot
+    # ranks [k*A', (k+1)*A') mod total)
+    start = (torch.as_tensor(round_idx, dtype=torch.int32, device=dev)
+             * ahot) % total1
+    ranks = (start + torch.arange(ahot, dtype=torch.int32, device=dev)) \
+        % total1 + 1
+    hpos = torch.searchsorted(hot_cs, ranks.to(hot_cs.dtype), side="left")
+    hot_ok = torch.arange(ahot, device=dev) < total_hot
+    hot_idx = torch.where(hot_ok, hpos, 0).clamp(0, a - 1)  # (A',) int64
+
+    head_hot = book.head[:, hot_idx]  # (N, A')
+    ph_hot = head_hot[peer.long()]  # (N, P, A')
+    delta_p = torch.clamp(ph_hot - head_hot[:, None, :], min=0)
+    delta_p = torch.where(
+        granted[:, :, None] & hot_ok[None, None, :], delta_p, 0
+    )
+    slot_d, best_d = choose_serving_slots(
+        delta_p, hot_idx.to(torch.int32)[None, :].expand(n, ahot), phase
+    )
+
+    ch = torch.cumsum((best_d > 0).to(torch.int32), dim=1).to(torch.int32)
+    idx = _kth_positive(ch, kprime)
+    lane_ok = idx < ahot
+    pos_sel = torch.where(lane_ok, idx, 0).long()
+    topa = hot_idx[pos_sel].to(torch.int32)  # (N, K')
+    slot = torch.gather(slot_d, 1, pos_sel)
+    topv = torch.where(lane_ok, torch.gather(best_d, 1, pos_sel), 0)
+    slot = torch.where(lane_ok & (topv > 0), slot, p_cnt)
+    if kp >= kprime:
+        within_budget = torch.ones((n, kprime), dtype=torch.bool,
+                                   device=dev)
+    else:
+        within_budget = _rank_within_slot(slot) < kp
+    return topa, slot, topv, lane_ok, within_budget
+
+
 def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
                hlc, last_cleared, cleared_hlc, key, alive, view_alive,
-               reachable, round_idx=0, fault_key=None):
+               reachable, rtt=None, round_idx=0, fault_key=None):
     """One anti-entropy sweep (multi-peer).
 
     Returns ``(book, table, hlc, last_cleared, metrics)``. On the mailbox
@@ -148,16 +317,15 @@ def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
     are on: an admitted connection then drops with
     ``faults.resolved_sync_loss`` and across a blackholed edge, before
     the clock exchange (a dropped connection carries nothing), and the
-    drops count in ``fault_sync_lost``, not in the rejections."""
-    if cfg.sync_hot_actors <= 0 or cfg.sync_deal_probes:
-        raise NotImplementedError(
-            "only the dense hot-actor sync schedule is ported"
-        )
+    drops count in ``fault_sync_lost``, not in the rejections.
+
+    ``rtt``: the ``(N, N)`` observed edge delays when ``rtt_rings`` is
+    on; they rank sync candidates and size each connection's caps."""
     n, a = book.head.shape
     dev = book.head.device
     k_peer, k_phase = prng.split(key)
     peer, granted, requested = choose_sync_peers(
-        cfg, book, k_peer, alive, view_alive, reachable
+        cfg, book, k_peer, alive, view_alive, reachable, rtt
     )
     p_cnt = peer.shape[1]
     rejected = requested & ~granted
@@ -202,52 +370,30 @@ def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
     offs = torch.arange(1, cap + 1, dtype=torch.int32, device=dev)
 
     phase = prng.randint(k_phase, (), 0, a, dev)
+    # the dense schedule is exact-argmax only: a deal-probe policy takes
+    # the legacy schedule
+    schedule = (_hot_schedule
+                if cfg.sync_hot_actors > 0 and not cfg.sync_deal_probes
+                else _legacy_schedule)
+    topa, slot, topv, lane_ok, within_budget = schedule(
+        cfg, book, log, peer, granted, phase, round_idx, kp, kprime)
 
-    # dense hot-actor schedule: compact the actor axis to the actors
-    # anyone could need, then run needs, capability and the serving
-    # assignment as dense work over (N, P, A')
-    ahot = min(cfg.sync_hot_actors, a)
-    min_head = book.head.min(dim=0).values
-    hot_mask = log.head > min_head
-    hot_cs = torch.cumsum(hot_mask.to(torch.int32), 0).to(torch.int32)
-    total_hot = hot_cs[-1]
-    total1 = torch.clamp(total_hot, min=1)
-    # sequential window rotation over the hot set (sweep k serves hot
-    # ranks [k*A', (k+1)*A') mod total)
-    start = (torch.as_tensor(round_idx, dtype=torch.int32, device=dev)
-             * ahot) % total1
-    ranks = (start + torch.arange(ahot, dtype=torch.int32, device=dev)) \
-        % total1 + 1
-    hpos = torch.searchsorted(hot_cs, ranks.to(hot_cs.dtype), side="left")
-    hot_ok = torch.arange(ahot, device=dev) < total_hot
-    hot_idx = torch.where(hot_ok, hpos, 0).clamp(0, a - 1)  # (A',) int64
-
-    head_hot = book.head[:, hot_idx]  # (N, A')
-    ph_hot = head_hot[peer_l]  # (N, P, A')
-    delta_p = torch.clamp(ph_hot - head_hot[:, None, :], min=0)
-    delta_p = torch.where(
-        granted[:, :, None] & hot_ok[None, None, :], delta_p, 0
-    )
-    slot_d, best_d = choose_serving_slots(
-        delta_p, hot_idx.to(torch.int32)[None, :].expand(n, ahot), phase
-    )
-
-    ch = torch.cumsum((best_d > 0).to(torch.int32), dim=1).to(torch.int32)
-    idx = _kth_positive(ch, kprime)
-    lane_ok = idx < ahot
-    pos_sel = torch.where(lane_ok, idx, 0).long()
-    topa = hot_idx[pos_sel].to(torch.int32)  # (N, K')
-    slot = torch.gather(slot_d, 1, pos_sel)
-    topv = torch.where(lane_ok, torch.gather(best_d, 1, pos_sel), 0)
-    slot = torch.where(lane_ok & (topv > 0), slot, p_cnt)
-    if kp >= kprime:
-        within_budget = torch.ones((n, kprime), dtype=torch.bool,
-                                   device=dev)
+    # adaptive chunk sizing (peer.rs:345-349): a slow connection serves
+    # halved per-actor caps, floored at 1; an unobserved edge (255)
+    # serves the full cap. Sentinel slots clamp to the last peer: their
+    # topv is 0, so their take is 0 whatever the cap.
+    if rtt is not None:
+        raw = rtt[rows_l[:, None], peer_l].to(torch.int32)  # (N, P)
+        delay = torch.where(raw == 255, 1, torch.clamp(raw, max=4))
+        cap_slot = torch.clamp(torch.bitwise_right_shift(
+            torch.full_like(delay, cap), torch.clamp(delay - 1, min=0)),
+            min=1)
+        cap_lane = torch.gather(cap_slot, 1,
+                                torch.clamp(slot, max=p_cnt - 1).long())
     else:
-        within_budget = _rank_within_slot(slot) < kp
-
+        cap_lane = cap
     take = torch.where(
-        lane_ok & within_budget, torch.clamp(topv, max=cap), 0
+        lane_ok & within_budget, torch.clamp(topv, max=cap_lane), 0
     )
 
     # flat gather lanes: (N, K', cap) -> versions head+1 ... head+take

@@ -4,8 +4,8 @@
   input order (a chain of stable argsorts, least significant key first).
 - :func:`top_k` — ``jax.lax.top_k``: the lower index wins a tie, which a
   stable descending sort keeps and ``torch.topk`` does not.
-- :func:`scatter_max`, :func:`scatter_add`, :func:`scatter_set` —
-  ``x.at[idx].max/add/set(v, mode="drop")`` on the flattened leading
+- :func:`scatter_max`, :func:`scatter_min`, :func:`scatter_add`,
+  :func:`scatter_set` — ``x.at[idx].max/min/add/set(v, mode="drop")`` on the flattened leading
   axes: lanes whose index is masked out or out of range change nothing.
 """
 
@@ -60,18 +60,28 @@ def _lane_mask(ok, vals):
     return ok.reshape(ok.shape + (1,) * (vals.dim() - ok.dim()))
 
 
-def scatter_max(dest, idx, vals, keep=None):
-    """``dest.at[idx].max(vals, mode="drop")`` (returns a new tensor)."""
+def _scatter_reduce(dest, idx, vals, keep, reduce: str, identity: int):
     flat, lin, ok, vals = _prep(dest, idx, vals, keep)
-    lowest = torch.iinfo(dest.dtype).min
-    vals = torch.where(_lane_mask(ok, vals), vals, lowest)
+    vals = torch.where(_lane_mask(ok, vals), vals, identity)
     row = flat[0].numel()
     if row > 1:
         lin = (lin[..., None] * row + torch.arange(
             row, device=lin.device)).reshape(-1)
     out = flat.reshape(-1).clone()
-    out.scatter_reduce_(0, lin.reshape(-1), vals.reshape(-1), "amax")
+    out.scatter_reduce_(0, lin.reshape(-1), vals.reshape(-1), reduce)
     return out.reshape(dest.shape)
+
+
+def scatter_max(dest, idx, vals, keep=None):
+    """``dest.at[idx].max(vals, mode="drop")`` (returns a new tensor)."""
+    return _scatter_reduce(dest, idx, vals, keep, "amax",
+                           torch.iinfo(dest.dtype).min)
+
+
+def scatter_min(dest, idx, vals, keep=None):
+    """``dest.at[idx].min(vals, mode="drop")`` (returns a new tensor)."""
+    return _scatter_reduce(dest, idx, vals, keep, "amin",
+                           torch.iinfo(dest.dtype).max)
 
 
 def scatter_add(dest, idx, vals, keep=None):

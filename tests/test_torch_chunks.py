@@ -362,6 +362,7 @@ def test_delivery_pass_with_chunks(mid, merge_kernel):
     out_p = p_delivery.delivery_pass(
         _port_cfg(dataclasses.replace(cfg, merge_kernel=merge_kernel)),
         _table_copy(port), port.book, port.log, port.hlc, *map(_t, args),
+        probe=port.probe, round_=port.round,
     )
     _compare(out_r, out_p)
     assert out_p.complete.any() and (out_p.fresh_chunk & ~out_p.complete).any()

@@ -42,7 +42,9 @@ def test_port_imports_without_jax():
         " 'corro_sim_torch.faults.inject', 'corro_sim_torch.faults.nodes',"
         " 'corro_sim_torch.faults.scenarios',"
         " 'corro_sim_torch.faults.invariants',"
-        " 'corro_sim_torch.faults.scorecard') if m not in sys.modules]\n"
+        " 'corro_sim_torch.faults.scorecard',"
+        " 'corro_sim_torch.membership.rtt', 'corro_sim_torch.engine.probe',"
+        " 'corro_sim_torch.obs.probes') if m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'corro_sim' or m.startswith('corro_sim.')]\n"
@@ -93,21 +95,39 @@ def test_entry_points_refuse_without_cuda():
 
 
 @pytest.mark.parametrize("change", [
-    dict(swim_enabled=True, rtt_rings=True),
-    dict(emit_slots=4, pend_slots=8, sync_hot_actors=0),
-    dict(emit_slots=1, sync_deal_probes=2), dict(sync_hot_actors=0),
-    dict(sync_deal_probes=1), dict(probes=1), dict(rtt_rings=True),
-    # faults are ported: with faults on, what is not ported stays refused
-    dict(latency_regions=2), dict(faults=pconfig.FaultConfig(loss=0.1),
-                                  probes=1),
-    dict(node_faults=pconfig.NodeFaultConfig(skew=((0, 3),)),
-         rtt_rings=True),
     dict(sweep=pconfig.SweepConfig(lanes=2)),
 ])
 def test_unported_features_are_refused(change):
     cfg = dataclasses.replace(_small_cfg(), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP|queue 1"):
         pconfig.validate_torch_slice(cfg)
+
+
+@pytest.mark.parametrize("change", [
+    dict(swim_enabled=True, rtt_rings=True),
+    dict(emit_slots=4, pend_slots=8, sync_hot_actors=0),
+    dict(emit_slots=1, sync_deal_probes=2), dict(sync_hot_actors=0),
+    dict(sync_deal_probes=1), dict(probes=1), dict(rtt_rings=True),
+    dict(latency_regions=2), dict(faults=pconfig.FaultConfig(loss=0.1),
+                                  probes=1),
+    dict(node_faults=pconfig.NodeFaultConfig(skew=((0, 3),)),
+         rtt_rings=True),
+    dict(latency_regions=2, rtt_rings=True, probes=2, narrow_state=True),
+])
+def test_lifted_refusals_are_admitted(change):
+    """The legacy and deal-probe sync schedules, the latency ring, RTT
+    rings and probes are ported: admitted, and init_state builds their
+    planes at full size."""
+    cfg = dataclasses.replace(_small_cfg(), **change)
+    assert pconfig.validate_torch_slice(cfg) is cfg
+    state = init_state(cfg, device="cpu")
+    n = cfg.num_nodes
+    assert tuple(state.rtt.shape) == ((n, n) if cfg.rtt_rings else (1, 1))
+    assert tuple(state.inflight.shape) == (
+        (cfg.inflight_slots, 6, cfg.lanes_per_round) if cfg.inflight_slots
+        else (1, 6, 1))
+    assert tuple(state.probe.first_seen.shape) == (
+        (cfg.probes, n) if cfg.probes else (1, 1))
 
 
 @pytest.mark.parametrize("faults", [
@@ -132,21 +152,20 @@ def test_swim_configs_are_admitted(swim):
     assert pconfig.validate_torch_slice(cfg) is cfg
 
 
-def test_emit_slots_cap_is_refused_up_front():
+def test_emit_slots_cap_and_legacy_schedules_are_admitted():
     """Config 6's egress shape (emit_slots 4 < pend_slots 8) is ported:
     validate_torch_slice and init_state admit it and broadcast_step
-    services an emit_slots window. What stays refused up front, with or
-    without the cap, are the legacy and deal-probe sync schedules."""
+    services an emit_slots window. The legacy and deal-probe sync
+    schedules are admitted with and without the cap."""
     cfg = dataclasses.replace(_small_cfg(), emit_slots=4, pend_slots=8)
     assert pconfig.validate_torch_slice(cfg) is cfg
     init_state(cfg, device="cpu")
-    for change, what in ((dict(sync_hot_actors=0), "legacy"),
-                         (dict(sync_deal_probes=1), "deal-probe")):
-        bad = dataclasses.replace(cfg, **change)
-        with pytest.raises(NotImplementedError, match=what):
-            pconfig.validate_torch_slice(bad)
-        with pytest.raises(NotImplementedError, match=what):
-            init_state(bad, device="cpu")
+    for change in (dict(sync_hot_actors=0), dict(sync_deal_probes=1),
+                   dict(emit_slots=4, pend_slots=8, sync_hot_actors=0),
+                   dict(emit_slots=1, sync_deal_probes=2)):
+        ok = dataclasses.replace(cfg, **change)
+        assert pconfig.validate_torch_slice(ok) is ok
+        init_state(ok, device="cpu")
     # the step services 4 of the 8 slots: 8 nodes x 4 slots x fanout 2
     out = broadcast_step(
         make_gossip_state(8, 8, "cpu"), prng.PRNGKey(0),

@@ -288,7 +288,7 @@ def _delivery(port, ref, rng, merge_kernel):
     out_p = p_delivery.delivery_pass(
         _port_cfg(_cfg(merge_kernel)), _table_copy(port), port.book, port.log,
         port.hlc,
-        *map(_t, args),
+        *map(_t, args), probe=port.probe, round_=port.round,
     )
     return out_r, out_p
 
