@@ -43,7 +43,19 @@ probe trees held to the BFS oracle and its RTT plane to the link delays
 and on two deal probes ("legacy_sync_10k"); and those three shapes at
 256 and 1000 nodes held to the JAX package's digests and rounds
 ("slice8_digests"); a lossy soak under the latency ring runs among the
-fault digests. Every phase prints one JSON line with its seconds; any failure raises and exits
+fault digests. Then the fleet sweep and resumable checkpoints: the
+kernel at config 8's lane shape; config 8's grid through
+``corro_sim_torch.sweep.engine.run_sweep`` in lockstep (seeds 0-3 of its
+eight), every lane held to the JAX package's lane digests and the
+frontier to its digest, beside the four seed-0 lanes' serial twins
+("config8_sweep"); eight of its lanes through the compact fleet
+scheduler at width 4, pipelined ("config8_compact"); its lane base at
+1024 nodes (windowed SWIM in the lanes), two lanes against their serial
+twins ("config8_1024"); and config 0 at 10 000 nodes under crash_amnesia
+checkpointed every chunk, killed after chunk 1 and resumed from its
+token to the uninterrupted run of "soak_10k", then the JAX package's
+committed token resumed to its pin ("checkpoint_10k"). Every phase
+prints one JSON line with its seconds; any failure raises and exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.
@@ -68,6 +80,9 @@ SWIM_SLICE_ROUNDS = 22
 CONFIG3_ROUNDS = 1144
 # rounds of config 3's shape run at 10 000 nodes
 CONFIG3_10K_ROUNDS = 64
+# config 8's seeds in the "config8_sweep" phase: config 8 runs seeds 0-7;
+# seeds 0-3 (16 lanes) keep the script inside its time budget
+CONFIG8_SMOKE_SEEDS = 4
 # config 6's kernel arm against its scatter arm: nodes and rounds; the
 # row count is pinned to 2048 (config 6's formula gives 2046 at 256
 # nodes) so that the 4096-cell space lets the kernel run
@@ -135,7 +150,8 @@ def soak_record(run, launches: int) -> dict:
 def fault_digest_phase(emit) -> int:
     """Phase ``fault_digests``: config 8's lane base at 256 nodes under
     each ``FAULT_DIGEST_CHIP_CASES`` scenario at seed 0 (the seed-1
-    repeats stay pinned for the CPU), and under lossy links across four
+    repeats stay pinned for the CPU; config 8's own four scenarios run as
+    serial twins in "config8_sweep"), and under lossy links across four
     latency regions (the ring's conservation counters checked by the
     invariant checker), through ``run_soak`` with config 8's run
     arguments (blackhole_one_way for a fixed 96 rounds), held to the JAX
@@ -179,13 +195,14 @@ def fault_digest_phase(emit) -> int:
     return launches["fault_digests"]
 
 
-def soak_phase(emit) -> int:
+def soak_phase(emit) -> tuple:
     """Phase ``soak_10k``: config 0's cluster at 10 000 nodes under
     config 8's four scenarios with the soak CLI's arguments, the
     scorecard and the invariant checker armed on each, each run
     sequential so that its wall is the simulation's alone (the checkers'
     host seconds apart). Each must re-converge with a final gap of 0 and
-    identical tables, and lose no row. Returns the merge launches."""
+    identical tables, and lose no row. Returns the merge launches and the
+    crash_amnesia run's result."""
     import torch
 
     from corro_sim_torch.core import merge_kernel as mk
@@ -198,6 +215,7 @@ def soak_phase(emit) -> int:
 
     launches = {"soak_10k": 0}
     soaks = {}
+    kept = None
     for spec in CONFIG8_SCENARIOS:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -208,6 +226,9 @@ def soak_phase(emit) -> int:
         n_launch = mk.LAUNCHES["grouped_merge"]
         launches["soak_10k"] += n_launch
         soaks[spec] = rec = soak_record(run, n_launch)
+        if spec == "crash_amnesia":
+            kept = run.result  # the uninterrupted run "checkpoint_10k"
+            # resumes to
         del run
         emit(dict(phase="soak_10k_run", **rec))
         if (rec["converged_round"] is None or rec["final_gap"] != 0.0
@@ -229,7 +250,377 @@ def soak_phase(emit) -> int:
           "check_seconds": {k: v["check_seconds"] for k, v in soaks.items()},
           "invariants_ok": {k: v["invariants"]["ok"]
                             for k, v in soaks.items()}})
-    return launches["soak_10k"]
+    return launches["soak_10k"], kept
+
+
+def _sweep(plan, **kw) -> tuple:
+    """``run_sweep`` of ``plan`` on the card, config 8's arguments, the
+    merge launches counted around it; returns ``(result, launches,
+    wall_s)``."""
+    import torch
+
+    from corro_sim_torch.core import merge_kernel as mk
+    from corro_sim_torch.profile_slice import CONFIG8_SWEEP_ARGS
+    from corro_sim_torch.sweep.engine import run_sweep
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_sweep(plan, **CONFIG8_SWEEP_ARGS, device="cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = mk.LAUNCHES["grouped_merge"]
+    committed = sum(int(lr.state.sync_rounds) for lr in res.lanes)
+    if launches != res.sweeps["sweeps_run"] or launches < committed:
+        raise AssertionError(
+            f"sweep: expected one kernel launch per sweep run "
+            f"({res.sweeps['sweeps_run']}; {committed} committed), "
+            f"counted {launches}")
+    return res, launches, wall
+
+
+def config8_sweep_phase(emit, seeds: int) -> tuple:
+    """Phase ``config8_sweep``: config 8's grid exactly (its lane base at
+    256 nodes, its four scenarios × ``seeds`` seeds, ``run_sweep`` in
+    lockstep with checkers armed), every lane held to the JAX package's
+    lane (``SWEEP_PINS``) and the frontier to its digest; the kernel's
+    mailbox cap checked against ``sync_mailbox_lanes``; then the four
+    seed-0 lanes' serial twins through ``run_soak``, held to
+    ``FAULT_PINS`` and to their lanes' rounds. Returns the launches of
+    the sweep and of the serial twins."""
+    import torch
+
+    from corro_sim_torch.core import merge_kernel as mk
+    from corro_sim_torch.profile_slice import (
+        CONFIG8_FRONTIERS,
+        CONFIG8_SERIAL_CASES,
+        config8_plan,
+        fault_digest_record,
+        fault_digest_run,
+        frontier_digest,
+        sweep_books,
+        sweep_lane_record,
+        sync_mailbox_lanes,
+    )
+    from corro_sim_torch.sweep import build_frontier
+    from corro_sim_torch.sync import sync as sync_mod
+
+    plan = config8_plan(range(seeds))
+    caps = set()
+    merge = sync_mod.merge_grouped
+
+    def spy(table, box, cap):
+        caps.add(cap)
+        return merge(table, box, cap)
+
+    sync_mod.merge_grouped = spy
+    try:
+        res, launches, wall = _sweep(plan)
+    finally:
+        sync_mod.merge_grouped = merge
+    lanes = [sweep_lane_record(lr) for lr in res.lanes]
+    fd = frontier_digest(build_frontier(res.lanes))
+    books = dict(sweep_books(res, wall), launches=launches)
+    want_cap = sync_mailbox_lanes(plan.union_cfg)
+    by_lane = {rec["lane"]: rec for rec in lanes}
+    del res
+    torch.cuda.empty_cache()
+    serial = {}
+    serial_launches = 0
+    for case in CONFIG8_SERIAL_CASES:
+        mk.reset_launch_counts()
+        run = fault_digest_run(case, device="cuda")
+        torch.cuda.synchronize()
+        n_launch = mk.LAUNCHES["grouped_merge"]
+        serial_launches += n_launch
+        rec = fault_digest_record(case, run)
+        lane = next(r for k, r in by_lane.items()
+                    if k.split(":")[0] == case.split(":")[0].split("@")[0]
+                    and k.endswith("@0"))
+        rec.update(sim_s=run.result.wall_seconds,
+                   check_seconds=run.result.check_seconds,
+                   sweeps_run=run.result.pipeline["sweeps_run"],
+                   launches=n_launch,
+                   lane_rounds_equal=(lane["rounds"] == rec["rounds"]
+                                      and lane["converged_round"]
+                                      == rec["converged_round"]))
+        serial[case] = rec
+        del run
+    emit({"phase": "config8_sweep", "nodes": 256, "seeds": seeds,
+          "seeds_note": ("seeds 0-7 (32 lanes), config 8 exactly"
+                         if seeds == 8 else
+                         f"seeds 0-{seeds - 1} ({4 * seeds} lanes), cut "
+                         "from config 8's 8 for the time budget"),
+          **books,
+          "mailbox_caps": sorted(caps), "want_cap": want_cap,
+          "frontier_digest": fd,
+          "frontier_match": fd == CONFIG8_FRONTIERS[seeds],
+          "lanes_match": sum(r["match"] for r in lanes),
+          "lane_records": lanes, "serial_twins": serial,
+          "serial_launches": serial_launches})
+    bad = [r["lane"] for r in lanes if not r["match"]]
+    if bad:
+        raise AssertionError(f"config 8 sweep lanes differ from the JAX "
+                             f"package's: {bad}")
+    if fd != CONFIG8_FRONTIERS[seeds]:
+        raise AssertionError("config 8's frontier differs from the JAX "
+                             "package's")
+    if caps != {want_cap}:
+        raise AssertionError(f"the lanes' mailbox caps {sorted(caps)} are "
+                             f"not {want_cap}")
+    for case, rec in serial.items():
+        if not (rec["match"] and rec["lane_rounds_equal"]):
+            raise AssertionError(f"serial twin {case} differs from its pin "
+                                 "or its lane")
+        if rec["launches"] != rec["sweeps_run"]:
+            raise AssertionError(f"{case}: expected one kernel launch per "
+                                 "sweep run")
+    return launches, serial_launches
+
+
+def config8_compact_phase(emit) -> int:
+    """Phase ``config8_compact``: config 8's four scenarios at seeds 0-1
+    (8 lanes) through the fleet scheduler (``compact=True``,
+    ``width=4``, ``pipeline=True``), every lane held to ``SWEEP_PINS``;
+    prints the occupancy curve with its refills. Returns the launches."""
+    from corro_sim_torch.profile_slice import (
+        config8_plan,
+        sweep_books,
+        sweep_lane_record,
+    )
+
+    plan = config8_plan(range(2))
+    res, launches, wall = _sweep(plan, compact=True, width=4,
+                                       pipeline=True)
+    lanes = [sweep_lane_record(lr) for lr in res.lanes]
+    emit({"phase": "config8_compact", "nodes": 256, "seeds": 2,
+          "width": 4, **sweep_books(res, wall), "launches": launches,
+          "lanes_match": sum(r["match"] for r in lanes),
+          "lane_records": lanes})
+    bad = [r["lane"] for r in lanes if not r["match"]]
+    if bad:
+        raise AssertionError(f"compacted config 8 lanes differ from the "
+                             f"JAX package's: {bad}")
+    if not res.compaction["refills"]:
+        raise AssertionError("the compacted sweep refilled no slot")
+    return launches
+
+
+def config8_1024_phase(emit) -> int:
+    """Phase ``config8_1024``: config 8's lane base at 1024 nodes (its
+    rule gives 256 rows and a SWIM view of 64: windowed SWIM inside the
+    lanes) under the four scenarios at seed 0, lockstep. Every lane must
+    converge with no row lost and the invariant verdict of the JAX
+    package's run (``CONFIG8_1024_VIOLATIONS``: none, but for the churn
+    lane's SWIM false-DOWNs), and the lossy and crash-amnesia lanes equal
+    their serial twins run on the card. Returns the launches of the
+    sweep and of the twins."""
+    import torch
+
+    from corro_sim_torch.core import merge_kernel as mk
+    from corro_sim_torch.engine.driver import run_sim
+    from corro_sim_torch.engine.state import init_state
+    from corro_sim_torch.faults import InvariantChecker, ResilienceScorecard
+    from corro_sim_torch.profile_slice import (
+        CONFIG8_1024_CHURN,
+        CONFIG8_1024_VIOLATIONS,
+        CONFIG8_SWEEP_ARGS,
+        config8_plan,
+        sweep_books,
+        twin_match,
+    )
+
+    plan = config8_plan([0], n=1024)
+    res, launches, wall = _sweep(plan)
+    books = sweep_books(res, wall)
+    lanes = {}
+    for lr in res.lanes:
+        base = lr.spec.split(":")[0]
+        viol = [(v["round"], v["invariant"])
+                for v in (lr.invariants or {}).get("violations", [])]
+        lanes[lr.cell] = d = {
+            "rounds": lr.rounds, "converged_round": lr.converged_round,
+            "rows_lost": (lr.resilience or {}).get("rows_lost"),
+            "invariants_ok": (lr.invariants or {}).get("ok"),
+            "violations": viol,
+            "swim_false_down": (lr.resilience or {}).get("swim_false_down"),
+        }
+        d["verdict_match"] = viol == CONFIG8_1024_VIOLATIONS[base]
+        if base == "churn":
+            d["verdict_match"] &= all(d[k] == v for k, v in
+                                      CONFIG8_1024_CHURN.items())
+    twins = {}
+    for li in (0, 2):
+        lane = plan.lanes[li]
+        torch.cuda.empty_cache()
+        mk.reset_launch_counts()
+        serial = run_sim(
+            lane.cfg, init_state(lane.cfg, seed=lane.seed, device="cuda"),
+            lane.scenario.schedule(), seed=lane.seed,
+            min_rounds=lane.min_rounds, device="cuda",
+            invariants=InvariantChecker(lane.cfg),
+            scorecard=ResilienceScorecard(lane.cfg, scenario=lane.scenario),
+            **CONFIG8_SWEEP_ARGS,
+        )
+        torch.cuda.synchronize()
+        twins[lane.cell] = dict(twin_match(res.lanes[li], serial),
+                                sim_s=serial.wall_seconds,
+                                launches=mk.LAUNCHES["grouped_merge"])
+        launches += twins[lane.cell]["launches"]
+        del serial
+    emit({"phase": "config8_1024", "nodes": 1024,
+          "swim_view_size": plan.union_cfg.swim_view_size,
+          "rows": plan.union_cfg.num_rows,
+          **books, "launches": launches, "lanes_detail": lanes,
+          "twins": twins})
+    for cell, d in lanes.items():
+        if (d["converged_round"] is None or d["rows_lost"] != 0
+                or not d["verdict_match"]):
+            raise AssertionError(f"config 8 at 1024 nodes: {cell} did not "
+                                 "converge, lost rows or differs from the "
+                                 "JAX package's verdict")
+    for cell, d in twins.items():
+        if not d["match"]:
+            raise AssertionError(f"config 8 at 1024 nodes: {cell} differs "
+                                 "from its serial twin")
+    del res
+    torch.cuda.empty_cache()
+    return launches
+
+
+class _Kill(Exception):
+    """Raised from ``on_chunk``: the in-process stand-in for a lost
+    device."""
+
+
+def checkpoint_phase(emit, soak_ref) -> int:
+    """Phase ``checkpoint_10k``: config 0 at 10 000 nodes under
+    crash_amnesia with the soak's arguments, pipelined, a token written
+    after every chunk; killed from ``on_chunk`` after chunk 1 (chunk 0's
+    token on disk), then resumed from the token. Its state and every
+    metric must equal the uninterrupted run of "soak_10k" (``soak_ref``;
+    the two loops give the same run). Prints the token's bytes and its
+    save, load and install seconds. Then the JAX package's committed
+    token (``TOKEN_FIXTURE``) resumes on the card to its pin. Returns
+    the launches."""
+    import os
+
+    import torch
+
+    from corro_sim_torch.core import merge_kernel as mk
+    from corro_sim_torch.convert import state_to_numpy
+    from corro_sim_torch.engine.driver import run_sim
+    from corro_sim_torch.engine.state import init_state
+    from corro_sim_torch.io.checkpoint import load_sim_checkpoint
+    from corro_sim_torch.profile_slice import (
+        DIGESTS,
+        SOAK_ARGS,
+        TOKEN_FIXTURE,
+        TOKEN_ROUNDS,
+        run_digest,
+        run_soak,
+        soak_config,
+        token_case,
+    )
+    from corro_sim_torch.utils.metrics import histograms
+
+    spec = "crash_amnesia"
+    os.makedirs("bench_out", exist_ok=True)
+    path = os.path.join("bench_out", "checkpoint_10k.npz")
+    hist = "corro_soak_checkpoint_seconds"
+    h = histograms.get(hist)
+    saves0 = (h.count, h.sum) if h is not None else (0, 0.0)
+
+    def bomb(info):
+        if info["chunk"] >= 1:
+            raise _Kill
+
+    launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        run_soak(soak_config(10000), spec, device="cuda", invariants=False,
+                 scorecard=False, pipeline=True, checkpoint_path=path,
+                 checkpoint_every=1, on_chunk=bomb, **SOAK_ARGS)
+        raise AssertionError("the checkpointed run was not killed")
+    except _Kill:
+        pass
+    killed_s = time.perf_counter() - t0
+    launches += mk.LAUNCHES["grouped_merge"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    h = histograms.get(hist)
+    saves = (h.count - saves0[0], h.sum - saves0[1])
+    token_bytes = os.path.getsize(path)
+    t0 = time.perf_counter()
+    ck = load_sim_checkpoint(path)
+    load_s = time.perf_counter() - t0
+    cfg = ck.cfg
+    t0 = time.perf_counter()
+    probe = ck.install_state(init_state(cfg, seed=0, device="cuda"))
+    torch.cuda.synchronize()
+    install_s = time.perf_counter() - t0
+    del probe
+    torch.cuda.empty_cache()
+    mk.reset_launch_counts()
+    run = run_soak(soak_config(10000), spec, device="cuda",
+                   invariants=False, scorecard=False, pipeline=True,
+                   resume=ck, **SOAK_ARGS)
+    torch.cuda.synchronize()
+    launches += mk.LAUNCHES["grouped_merge"]
+    res = run.result
+    peak = torch.cuda.max_memory_allocated()
+    ref_leaves = state_to_numpy(soak_ref.state)
+    got_leaves = state_to_numpy(res.state)
+    same_leaves = (set(ref_leaves) == set(got_leaves) and all(
+        np.array_equal(got_leaves[k], v) for k, v in ref_leaves.items()))
+    del ref_leaves, got_leaves
+    same_metrics = (set(res.metrics) == set(soak_ref.metrics) and all(
+        np.array_equal(res.metrics[k], v)
+        for k, v in soak_ref.metrics.items()))
+    rec = {"nodes": 10000, "scenario": run.scenario.spec,
+           "token_bytes": token_bytes, "token_rounds": ck.rounds,
+           "next_chunk": ck.next_chunk, "saves": saves[0],
+           "save_s": saves[1], "load_s": load_s, "install_s": install_s,
+           "killed_run_s": killed_s, "rounds": res.rounds,
+           "converged_round": res.converged_round,
+           "want": [soak_ref.rounds, soak_ref.converged_round],
+           "resumed_sim_s": res.wall_seconds, "leaves_equal": same_leaves,
+           "metrics_equal": same_metrics, "max_memory_allocated": peak}
+    del run, res, ck
+    os.remove(path)
+    torch.cuda.empty_cache()
+
+    # the JAX package's token, resumed on the card
+    mk.reset_launch_counts()
+    tok = load_sim_checkpoint(TOKEN_FIXTURE)
+    tcfg, sched, kw = token_case(device="cuda")
+    tres = run_sim(tcfg, init_state(tcfg, seed=0, device="cuda"), sched,
+                   resume=tok, **kw)
+    torch.cuda.synchronize()
+    launches += mk.LAUNCHES["grouped_merge"]
+    tdigest = run_digest(state_to_numpy(tres.state), tres.metrics)
+    rec["jax_token"] = {
+        "path": TOKEN_FIXTURE, "nodes": tcfg.num_nodes,
+        "resumed_at_round": tok.rounds,
+        "rounds": [tres.rounds, tres.converged_round],
+        "want_rounds": list(TOKEN_ROUNDS), "digest": tdigest,
+        "match": (tdigest == DIGESTS["token_jax_64"]
+                  and (tres.rounds, tres.converged_round) == TOKEN_ROUNDS),
+    }
+    emit({"phase": "checkpoint_10k", "launches": launches, **rec})
+    if not (same_leaves and same_metrics
+            and rec["rounds"] == soak_ref.rounds
+            and rec["converged_round"] == soak_ref.converged_round):
+        raise AssertionError("the resumed 10k soak differs from the "
+                             "uninterrupted run")
+    if not rec["jax_token"]["match"]:
+        raise AssertionError("the JAX package's token resumed on the card "
+                             "misses its pin")
+    return launches
 
 
 def drive(cfg, schedule=None, run_args=None, workload=None, prepare=None,
@@ -582,6 +973,7 @@ def main() -> int:
         config6_workload,
         config7_config,
         config7_schedule,
+        config8_lane_config,
         config_digest_case,
         digest_config,
         run_digest,
@@ -590,6 +982,7 @@ def main() -> int:
         slice_config,
         slice_schedule,
         state_bytes,
+        sync_mailbox_lanes,
     )
     from corro_sim_torch.utils.slots import ranks_within_group
 
@@ -804,6 +1197,34 @@ def main() -> int:
     }
     emit(dict(phase="kernel_check_config6", kernel="grouped_merge",
               bit_equal=True, **config6_kernel))
+
+    # config 8's lane shape: 256 nodes, 64 x 2 cells (the cols-2
+    # instance); each lane's sweep mailbox holds K' * cap * S = 64 * 8 *
+    # 1 = 512 lanes per node (sync_mailbox_lanes; "config8_sweep" checks
+    # it against the lanes' own launches)
+    c8cfg = config8_lane_config(256)
+    n, r, c = c8cfg.num_nodes, c8cfg.num_rows, c8cfg.num_cols
+    cap8l = sync_mailbox_lanes(c8cfg)
+    state = populated_table(rng, n, r, c, dev)
+    box8l = sync_box(random_lanes(rng, n, r, c, n * cap8l), c, dev)
+    c8_before, c8_after = check(f"sync_{n}x{r * c}x{cap8l}_cols{c}", state,
+                                box8l, cap8l, c)
+    c8_ms = time_in_place_ms(launch(cap8l, c, box8l), c8_before, 20)
+    c8_plain_ms = time_ms(
+        lambda: mk.grouped_merge_reference(*c8_before, box8l, cap8l, c), 5,
+        batch=5)
+    c8_work = mk.merge_work(c8_before, box8l, cap8l, c, c8_after)
+    c8_bound_ms, c8_bound_by = mk.bound_ms(c8_work)
+    del state, box8l, c8_before, c8_after
+    config8_kernel = {
+        "shape": {"nodes": n, "cells": r * c, "cols": c, "cap": cap8l},
+        "kernel_ms": c8_ms, "plain_ms": c8_plain_ms,
+        "bound_ms": c8_bound_ms, "bound_by": c8_bound_by,
+        "bytes": c8_work[0], "ops": c8_work[1],
+        "share_of_bound": c8_bound_ms / c8_ms,
+    }
+    emit(dict(phase="kernel_check_config8_lane", kernel="grouped_merge",
+              bit_equal=True, **config8_kernel))
 
     # config 5's sweep mailbox at its sized 16 384 nodes: K' * cap * S =
     # 512 * 16 * 1 = 8192 lanes per node over 128 x 2 cells, more than a
@@ -1273,14 +1694,23 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------- faults: config 8's lanes as serial twins, and the 10k soak
-    fault_launches = {"fault_digests": fault_digest_phase(emit),
-                      "soak_10k": soak_phase(emit)}
+    fault_launches = {"fault_digests": fault_digest_phase(emit)}
+    fault_launches["soak_10k"], soak_ref = soak_phase(emit)
 
     # ------- the rest of the step: latency ring, RTT rings, probes, the
     # legacy and deal-probe sync schedules
     fault_launches["latency_10k"] = latency_phase(emit)
     fault_launches["legacy_sync_10k"] = legacy_phase(emit)
     fault_launches["slice8_digests"] = slice8_digest_phase(emit)
+
+    # ------- the fleet sweep and resumable checkpoints
+    (fault_launches["config8_sweep"],
+     fault_launches["config8_serial"]) = config8_sweep_phase(
+         emit, CONFIG8_SMOKE_SEEDS)
+    fault_launches["config8_compact"] = config8_compact_phase(emit)
+    fault_launches["config8_1024"] = config8_1024_phase(emit)
+    fault_launches["checkpoint_10k"] = checkpoint_phase(emit, soak_ref)
+    del soak_ref
 
     by_path = {label: rec["launches"]["grouped_merge"] for label, rec in (
         ("slice", slice_rec), ("swim_slice", swim_rec), ("config3", c3_rec),
@@ -1311,6 +1741,8 @@ def main() -> int:
             "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
         "config5_cap8192": {k: cap8_kernel[k] for k in (
             "tile", "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
+        "config8_lane": {k: config8_kernel[k] for k in (
+            "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {

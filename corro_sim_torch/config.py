@@ -719,13 +719,8 @@ def sim_config_from_dict(d: dict) -> SimConfig:
 
 
 def validate_torch_slice(cfg: SimConfig) -> SimConfig:
-    """Refuse what the PyTorch port does not run yet: the fleet sweep.
-
-    The refusal names the ROADMAP.md queue 1 item that will lift it.
-    Returns ``cfg`` (validated) so callers can chain it."""
+    """Validate ``cfg`` for the PyTorch port, which runs every
+    configuration the JAX package's step runs (the fleet sweep's union
+    configs included). Returns ``cfg`` so callers can chain it."""
     cfg.validate()
-    if cfg.sweep.enabled:
-        raise NotImplementedError(
-            "corro_sim_torch does not run sweep (queue 1: fleet sweep) yet"
-        )
     return cfg

@@ -26,6 +26,14 @@ step is eager), so between the speculative chunk's rounds the host
 checks whether chunk N's metrics have landed; once they show that the
 speculative chunk will be discarded, the rest of it is not queued.
 
+A run checkpoints at chunk boundaries (``checkpoint_path=``,
+``checkpoint_every=``; ``io/checkpoint.py``) and resumes from a token
+(``resume=``) bit for bit: the keys of chunk ``ci`` are ``fold_in(root,
+ci)`` with ``ci`` continuing from the token, the schedule rows depend on
+the absolute round only, and the repair-selection cursor comes back. A
+token holds the committed state, copied to the host as soon as its
+chunk is queued.
+
 An invariant checker and a resilience scorecard (``faults/``) read the
 chunk-boundary state: the bookkeeping heads and SWIM beliefs they read
 per chunk are copied to the host as soon as the chunk is queued, before
@@ -50,11 +58,12 @@ import torch
 
 from corro_sim_torch import prng
 from corro_sim_torch.config import SimConfig, validate_torch_slice
+from corro_sim_torch.convert import _leaves
 from corro_sim_torch.core.merge_kernel import build_kernel, kernel_supported
 from corro_sim_torch.device import resolve_device
 from corro_sim_torch.engine import step as step_mod
 from corro_sim_torch.engine.state import SimState, clone_state, state_nbytes
-from corro_sim_torch.engine.step import sim_step
+from corro_sim_torch.engine.step import host_knobs, sim_step
 from corro_sim_torch.obs.flight import FlightRecorder
 from corro_sim_torch.obs.probes import PROBE_FIELDS, ProbeTrace
 from corro_sim_torch.utils.metrics import (
@@ -198,6 +207,8 @@ class RunResult:
     # device work (pipelined loop)
     probe: ProbeTrace | None = None  # the final state's probe trace when
     # cfg.probes
+    checkpoint_seconds: float = 0.0  # host seconds writing resume tokens
+    # (the state's host copy, compression and the atomic write)
 
     @property
     def wall_per_round_ms(self) -> float:
@@ -287,6 +298,8 @@ class _InFlight:
     part: np.ndarray
     we: np.ndarray
     cut: bool = False  # speculative and stopped early: to be discarded
+    snapshot: AsyncFetch | None = None  # every leaf of state_out, when
+    # the chunk's commit writes a checkpoint
 
 
 def run_sim(
@@ -307,6 +320,10 @@ def run_sim(
     invariants=None,
     scorecard=None,
     phase_specialize: bool = True,
+    resume=None,
+    checkpoint_path: str | None = None,
+    checkpoint_every: int = 0,
+    checkpoint_meta: dict | None = None,
 ) -> RunResult:
     """Run ``state`` forward in chunks of ``chunk`` rounds until
     convergence (or ``max_rounds``) — the JAX package's ``run_sim``.
@@ -354,7 +371,20 @@ def run_sim(
     and a ``resilience`` flight annotation.
 
     ``phase_specialize``: False keeps the full step through the
-    convergence tail (the repair step is bit-for-bit the same there)."""
+    convergence tail (the repair step is bit-for-bit the same there).
+
+    ``resume``: a :class:`~corro_sim_torch.io.checkpoint.SimCheckpoint`
+    (the JAX package's tokens too): continue a killed run at its last
+    checkpointed chunk boundary, bit for bit. Pass the killed run's
+    config, schedule, seed and chunk (``check_compatible`` refuses
+    others) and an ``init_state``-shaped template as ``state``; the
+    metric series and the flight timeline stitch, walls restart at zero.
+    It does not compose with ``workload``.
+
+    ``checkpoint_path``/``checkpoint_every``: write a resume token to
+    ``checkpoint_path`` after every ``checkpoint_every``-th committed
+    chunk that does not end the run (write-then-rename), after
+    ``on_chunk``; ``checkpoint_meta`` rides the token verbatim."""
     validate_torch_slice(cfg)
     want = resolve_device(device)
     if state.hlc.device.type != want.type:
@@ -383,6 +413,46 @@ def run_sim(
         **({"workload": workload.spec} if workload is not None else {}),
     )
 
+    metrics_chunks: list = []
+    rounds = 0
+    start_ci = 0
+    last_pend_live = None
+    prev_writes = False
+    repair_seen = False
+    repair_chunks = 0
+    probe_p99_last = None  # the worst probe p99 delivery lag seen so far
+    if resume is not None:
+        # state, key position, repair-selection cursor, metric tail and
+        # flight timeline all come back; the loops below then run as if
+        # the earlier chunks had run in this process
+        if workload is not None:
+            raise ValueError(
+                "resume does not compose with workload runs "
+                "(the schedule cursor is not checkpointed)"
+            )
+        resume.check_compatible(cfg, seed=seed, chunk=chunk)
+        state = resume.install_state(state)
+        rounds = resume.rounds
+        start_ci = resume.next_chunk
+        cur = resume.cursor
+        last_pend_live = cur.get("last_pend_live")
+        prev_writes = bool(cur.get("prev_writes", False))
+        repair_seen = bool(cur.get("repair_seen", False))
+        repair_chunks = int(cur.get("repair_chunks", 0))
+        probe_p99_last = cur.get("probe_p99_last")
+        if resume.metrics:
+            metrics_chunks.append(dict(resume.metrics))
+        flight.ingest_ndjson(resume.flight_lines)
+        flight.set_meta(resumed_from=resume.path, resumed_at_round=rounds)
+        flight.annotate(rounds, "resume", chunk=start_ci)
+        counters.inc(
+            "corro_soak_resumes_total",
+            help_="runs continued from a chunk-boundary checkpoint "
+                  "(run_sim resume=)",
+        )
+        if checkpoint_meta is None:
+            checkpoint_meta = resume.meta
+
     t0 = time.perf_counter()
     if dev.type == "cuda" and (
         kernel_supported(cfg, "sync", dev)
@@ -394,21 +464,17 @@ def run_sim(
 
     # the round counter on the host, for the SWIM cadence and the sweep
     # gate: one read here, none per round
-    round0 = int(state.round)
+    round0 = int(state.round) - rounds
+    # a sweep lane's knob leaf on the host: the step decides from it
+    knobs = (host_knobs(state) if cfg.sweep.enabled else None)
     root = prng.PRNGKey(seed)
     gates0 = dict(step_mod.SWEEP_GATES)
-    metrics_chunks: list = []
     converged_round = None
     poisoned = False
-    rounds = 0
     wall = 0.0
-    last_pend_live = None
-    prev_writes = False
-    repair_seen = False
-    repair_chunks = 0
     stage_seconds = 0.0
     idle_writes = None
-    probe_p99_last = None  # the worst probe p99 delivery lag seen so far
+    checkpoint_seconds = 0.0
     fetch_wait_total = 0.0
     spec_dispatched = 0
     spec_wasted = 0
@@ -443,6 +509,10 @@ def run_sim(
         """Repair once the rings report drained and the chunk schedules
         no writes, where the config admits the repair step."""
         return bool(repair_eligible and pend_live == 0 and not we.any())
+
+    def checkpoint_due(ci: int) -> bool:
+        return bool(checkpoint_path and checkpoint_every
+                    and (ci + 1) % checkpoint_every == 0)
 
     def dispatch(ci, base, state_in, known_pend_live, blocked_by_writes,
                  speculative, behind=None) -> _InFlight:
@@ -481,7 +551,7 @@ def run_sim(
                     round0 + base + r, repair=use_repair,
                     writes=None if staged is None else tuple(
                         x[r] for x in staged),
-                    quiesced=quiesced[r],
+                    quiesced=quiesced[r], knobs=knobs,
                 )
                 per_round.append(m)
             i_s, f_s, ikeys = pack_metrics(per_round)
@@ -490,11 +560,15 @@ def run_sim(
             # before any chunk that follows
             boundary = _boundary_fetch(cfg, st) if armed else None
             probe = _probe_fetch(cfg, st)
+            # a checkpoint holds this committed state: copy it before a
+            # later chunk is queued behind it
+            snapshot = (start_async_fetch(*(t for _, t in _leaves(st)))
+                        if checkpoint_due(ci) else None)
         return _InFlight(ci=ci, base=base, state_out=st, fetch=fetch,
                          boundary=boundary, probe=probe, ikeys=ikeys,
                          use_repair=use_repair,
                          speculative=speculative, alive=alive, part=part,
-                         we=we)
+                         we=we, snapshot=snapshot)
 
     def doomed(pending: _InFlight, we, use_repair) -> bool:
         """Whether ``pending``'s metrics (landed) show that the chunk
@@ -671,7 +745,44 @@ def run_sim(
                     check_seconds["invariants"] += time.perf_counter() - t
                     violations_found(found, converged_round)
                 return False
+        if checkpoint_due(ci):
+            # only a continuing run reaches here: a token never re-animates
+            # a finished run
+            save_checkpoint(ci, inflight)
         return True
+
+    def save_checkpoint(ci, inflight: _InFlight) -> None:
+        nonlocal checkpoint_seconds
+        from corro_sim_torch.io.checkpoint import (
+            save_sim_checkpoint,
+            state_flat,
+        )
+
+        t = time.perf_counter()
+        flat = state_flat(inflight.state_out, inflight.snapshot.resolve())
+        save_sim_checkpoint(
+            checkpoint_path, cfg=cfg, state=flat, seed=seed, chunk=chunk,
+            rounds=rounds, next_chunk=ci + 1,
+            cursor={
+                "last_pend_live": last_pend_live,
+                "prev_writes": prev_writes,
+                "repair_seen": repair_seen,
+                "repair_chunks": repair_chunks,
+                "probe_p99_last": probe_p99_last,
+            },
+            metrics={
+                k: np.concatenate([np.asarray(c[k]) for c in metrics_chunks])
+                for k in metrics_chunks[0]
+            },
+            flight=flight, meta=checkpoint_meta,
+        )
+        checkpoint_seconds += time.perf_counter() - t
+        flight.annotate(rounds, "checkpoint", chunk=ci, path=checkpoint_path)
+        counters.inc(
+            "corro_soak_checkpoints_total",
+            help_="chunk-boundary soak checkpoints written "
+                  "(run_sim checkpoint_every=)",
+        )
 
     def resolve(inflight: _InFlight, mode: str) -> tuple:
         """The chunk's metrics on the host, and the seconds the host
@@ -697,7 +808,7 @@ def run_sim(
         _sync(dev)
         if not pipeline:
             # ----------------------------------------------- sequential loop
-            ci = 0
+            ci = start_ci
             while rounds < max_rounds:
                 t0 = time.perf_counter()
                 with tracer.span("chunk", ci=ci, slow_warn=False):
@@ -721,8 +832,8 @@ def run_sim(
             pending = None
             last_commit_t = time.perf_counter()
             if rounds < max_rounds:
-                pending = dispatch(0, 0, state, last_pend_live, False,
-                                   speculative=False)
+                pending = dispatch(start_ci, rounds, state, last_pend_live,
+                                   False, speculative=False)
             while pending is not None:
                 nxt = None
                 next_base = pending.base + chunk
@@ -872,4 +983,5 @@ def run_sim(
         probe=(ProbeTrace.from_state(cfg, state, driver="run_sim",
                                      seed=seed, rounds=rounds)
                if cfg.probes else None),
+        checkpoint_seconds=checkpoint_seconds,
     )

@@ -87,3 +87,14 @@ def enabled_feature_names(cfg) -> tuple[str, ...]:
     return tuple(
         name for name in sorted(_REGISTRY) if _REGISTRY[name].enabled(cfg)
     )
+
+
+def volatile_scrub_prefixes() -> tuple[str, ...]:
+    """Flattened state-dict key prefixes of every volatile feature leaf,
+    which the checkpoint scrub drops (``io/checkpoint.py``): a field leaf
+    under its field name, a dict leaf under ``features/<name>``. The
+    caller matches a prefix exactly or up to a ``/``."""
+    return tuple(
+        leaf.field if leaf.field is not None else f"features/{name}"
+        for name, leaf in sorted(_REGISTRY.items()) if leaf.volatile
+    )

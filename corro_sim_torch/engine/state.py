@@ -20,6 +20,7 @@ import torch
 # the fault modules register their feature leaves at import time
 import corro_sim_torch.faults.inject  # noqa: F401
 import corro_sim_torch.faults.nodes  # noqa: F401
+import corro_sim_torch.sweep.knobs  # noqa: F401
 from corro_sim_torch.config import SimConfig, validate_torch_slice
 from corro_sim_torch.core.bookkeeping import Bookkeeping, make_bookkeeping
 from corro_sim_torch.core.changelog import ChangeLog, make_changelog

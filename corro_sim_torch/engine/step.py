@@ -1,8 +1,6 @@
 """One simulation round: the whole cluster advances in one batched step.
 
-Port of ``corro_sim/engine/step.py`` for the configurations
-:func:`~corro_sim_torch.config.validate_torch_slice` admits (every one
-but the fleet sweep's). A version is one transaction's
+Port of ``corro_sim/engine/step.py``. A version is one transaction's
 changeset of up to ``seqs_per_version`` cells, gossiped as
 ``chunks_per_version`` chunks; a receiver buffers partial versions and
 merges a version once every chunk arrived. Round structure:
@@ -27,6 +25,15 @@ round and sweep counters, with no draw, so the repair step derives the
 same fault timeline as the full step. With both off the step runs none
 of their code.
 
+Under a fleet sweep (``cfg.sweep``, ``corro_sim_torch/sweep/``) one lane
+runs the step under the plan's union config and reads its own knobs
+from the ``sweep_knobs`` leaf, as the JAX package's vmapped lane does:
+link-fault thresholds (``faults/inject.py::LaneFaultKnobs``), node-fault
+planes, the write source and, with ``sweep.sim_knobs``, the write and
+delete rates and the sync and suspicion cadences. Where the step decides
+on the host it decides from the lane's host copy of the leaf (the
+``knobs`` argument), which holds the same values.
+
 Every stage is a batched tensor op over all nodes. Whether the sync
 sweep runs is decided on the host wherever host data fixes it: the
 interval rounds, ``sync_adaptive`` off, a round off the floor cadence,
@@ -43,6 +50,7 @@ the caller passes on the host.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -61,6 +69,7 @@ from corro_sim_torch.engine.probe import (
 )
 from corro_sim_torch.engine.state import SimState
 from corro_sim_torch.faults.inject import (
+    LaneFaultKnobs,
     blackhole_tensor,
     burst_update,
     fault_keys,
@@ -173,6 +182,32 @@ def _write_cells(cfg: SimConfig, k_col, k_ncell, n: int, dev):
     return w_col, w_ncells
 
 
+def host_knobs(state: SimState) -> dict:
+    """A sweep lane's ``sweep_knobs`` leaf as host numpy values (one copy
+    of each; the step never changes the leaf)."""
+    return {k: v.detach().cpu().numpy()
+            for k, v in state.features["sweep_knobs"].items()}
+
+
+@functools.lru_cache(maxsize=64)
+def _sim_knob_config(cfg: SimConfig, write_rate: float, delete_rate: float,
+                     sync_interval: int, suspect_rounds: int) -> SimConfig:
+    return dataclasses.replace(
+        cfg, write_rate=write_rate, delete_rate=delete_rate,
+        sync_interval=sync_interval, swim_suspect_rounds=suspect_rounds)
+
+
+def _lane_config(cfg: SimConfig, sw: dict) -> SimConfig:
+    """The union config with a lane's SimConfig scalar knobs
+    (``sweep.sim_knobs``): the float32 write and delete thresholds and
+    the sync and suspicion cadences the step reads from ``cfg``."""
+    if not cfg.sweep.sim_knobs:
+        return cfg
+    return _sim_knob_config(
+        cfg, float(sw["write_rate"]), float(sw["delete_rate"]),
+        int(sw["sync_interval"]), int(sw["swim_suspect_rounds"]))
+
+
 def _sample_writes(cfg: SimConfig, state: SimState, write_keys, alive,
                    write_enable: bool):
     """The sampler's round of local writes, in the ``writes`` tuple's
@@ -212,6 +247,7 @@ def sim_step(
     repair: bool = False,
     writes: tuple | None = None,
     quiesced: bool | None = None,
+    knobs: dict | None = None,
 ):
     """Advance the cluster one round; returns ``(state, metrics)``.
 
@@ -234,9 +270,18 @@ def sim_step(
 
     ``repair``: the post-quiesce specialization (:func:`_repair_step`),
     bit-for-bit this step while no writes run and every gossip ring is
-    drained; it takes no ``writes``."""
+    drained; it takes no ``writes``.
+
+    ``knobs``: under a sweep, the lane's host copy of its
+    ``sweep_knobs`` leaf (:func:`host_knobs`; read here when None). With
+    ``sweep.workload``, ``writes`` feeds the lane only where its
+    ``use_workload`` knob says so; else the sampler does."""
+    sw = None
+    if cfg.sweep.enabled:
+        sw = knobs if knobs is not None else host_knobs(state)
+        cfg = _lane_config(cfg, sw)
     if repair:
-        return _repair_step(cfg, state, key, alive, part, round_idx)
+        return _repair_step(cfg, state, key, alive, part, round_idx, sw)
     n = cfg.num_nodes
     s = cfg.seqs_per_version
     cpv = cfg.chunks_per_version
@@ -245,12 +290,14 @@ def sim_step(
     (k_write, k_row, k_col, k_val, k_del, k_ncell, k_bcast, k_swim,
      k_sync) = prng.split(key, len(STEP_KEY_STREAMS))
     reach = _reachable_fn(alive, part)
-    state, nf = _node_fault_prologue(cfg, state, round_idx)
-    fl = _fault_lane(cfg, state, key)
+    state, nf = _node_fault_prologue(cfg, state, round_idx, sw)
+    fl = _fault_lane(cfg, state, key, sw)
     view = membership_view(cfg, state.swim, n)
 
     # ---------------------------------------------------------- local writes
-    if writes is not None:
+    if writes is not None and not (
+            sw is not None and cfg.sweep.workload
+            and not bool(sw["use_workload"])):
         writers, w_row_s, w_col, w_val, w_del, w_ncells = writes
         writers = writers & alive
         w_del = w_del & writers
@@ -266,7 +313,7 @@ def sim_step(
         # history back; identically all-pass absent wipes
         writers = writers & ~(recovering_mask(state.book, state.log) & alive)
         w_del = w_del & writers
-        if cfg.node_faults.wipe_enabled and quiesced is False:
+        if nf["wipes"] and quiesced is False:
             # the gate may silence every scheduled writer, which only
             # the device sees
             quiesced = None
@@ -390,7 +437,7 @@ def sim_step(
             fault_metrics["fault_blackholed"] = holed.sum(dtype=torch.int32)
         else:
             fault_metrics["fault_blackholed"] = zero
-        keep, dup = link_fault_masks(cfg.faults, fl["k_link"], dst,
+        keep, dup = link_fault_masks(fl["conf"], fl["k_link"], dst,
                                      fl["burst"])
         fault_metrics["fault_lost"] = (delivered & ~keep).sum(
             dtype=torch.int32)
@@ -401,7 +448,7 @@ def sim_step(
         # that parked or died at emission, and parked lanes maturing
         fault_metrics.update(parked or dict.fromkeys(
             ("fault_parked", "fault_emit_lost", "fault_matured"), zero))
-        fault_metrics["fault_burst_nodes"] = _burst_nodes(cfg, fl["burst"])
+        fault_metrics["fault_burst_nodes"] = _burst_nodes(fl)
 
     # ------------------------------------------------------- probe origins
     probe = state.probe
@@ -466,8 +513,7 @@ def sim_step(
     book, table, hlc_s, last_cleared, sync_metrics = _sync_block(
         cfg, is_sync, book, log, table, state.hlc, last_cleared, cleared_hlc,
         k_sync, alive, view, part, round_idx=state.sync_rounds,
-        fault_key=None if fl is None else fl["k_sync"],
-        client_ok=_sync_client_ok(cfg, nf, state),
+        fault=fl, client_ok=_sync_client_ok(cfg, nf, state),
         rtt=rtt if cfg.rtt_rings else None,
     )
     probe = _probe_after_sync(cfg, probe, book, is_sync, alive, state.round)
@@ -532,43 +578,56 @@ def _probe_after_sync(cfg, probe, book, is_sync: bool, alive, round_):
     return probe_sync_mark(probe, is_sync, alive, round_)
 
 
-def _node_fault_prologue(cfg, state, round_idx: int):
+def _node_fault_prologue(cfg, state, round_idx: int, sw=None):
     """The node-fault prologue both step programs run before anything
     reads the state: the round's scheduled wipes and snapshot captures,
     the straggler duty mask and the clock-skew plane. Returns ``(state,
     None)`` with node faults off, else ``(state, {"wiped", "active",
-    "skew"})``."""
-    if not cfg.node_faults.enabled:
+    "skew", "wipes", "leaf"})``: ``wipes`` whether any wipe is scheduled
+    at all, ``leaf`` the sweep lane's knob leaf (None off the sweep)."""
+    lane = sw is not None and cfg.sweep.node_faults
+    if not (cfg.node_faults.enabled or lane):
         return state, None
     n = cfg.num_nodes
     dev = state.hlc.device
-    state, wiped = apply_node_faults(cfg, state, round_idx)
+    leaf = state.features["sweep_knobs"] if lane else None
+    state, wiped = apply_node_faults(cfg, state, round_idx,
+                                     sweep=sw if lane else None)
     return state, {
         "wiped": wiped,
-        "active": straggler_active(cfg.node_faults, n, round_idx, dev),
-        "skew": skew_plane(cfg.node_faults, n, dev),
+        "active": straggler_active(cfg.node_faults, n, round_idx, dev,
+                                   sweep=leaf),
+        "skew": skew_plane(cfg.node_faults, n, dev, sweep=leaf),
+        "wipes": (bool((sw["wipe_round"] >= 0).any())
+                  if lane and "wipe_round" in sw
+                  else cfg.node_faults.wipe_enabled),
+        "leaf": leaf,
     }
 
 
-def _fault_lane(cfg, state, key):
+def _fault_lane(cfg, state, key, sw=None):
     """The round's link-fault lane, the same in both step programs: the
-    fold_in-derived keys, the advanced burst state and the blackhole
-    mask; None with link faults off."""
-    if not cfg.faults.enabled:
+    fold_in-derived keys, the advanced burst state, the blackhole mask
+    and the thresholds (``cfg.faults``, or a sweep lane's
+    :class:`LaneFaultKnobs`); None with link faults off."""
+    lane = sw is not None and cfg.sweep.link_faults
+    if not (cfg.faults.enabled or lane):
         return None
+    conf = LaneFaultKnobs(sw, cfg.sweep.burst) if lane else cfg.faults
     k_burst, k_link, k_sync = fault_keys(key)
     return {
         "k_link": k_link,
         "k_sync": k_sync,
-        "burst": burst_update(cfg.faults, state.fault_burst, k_burst),
+        "burst": burst_update(conf, state.fault_burst, k_burst),
         "bh": blackhole_tensor(cfg.faults, cfg.num_nodes, state.hlc.device),
+        "conf": conf,
     }
 
 
-def _burst_nodes(cfg, burst) -> torch.Tensor:
-    if cfg.faults.burst_on:
-        return burst.sum(dtype=torch.int32)
-    return _i32(0, burst.device)
+def _burst_nodes(fl) -> torch.Tensor:
+    if fl["conf"].burst_on:
+        return fl["burst"].sum(dtype=torch.int32)
+    return _i32(0, fl["burst"].device)
 
 
 def _sync_client_ok(cfg, nf, state):
@@ -580,7 +639,8 @@ def _sync_client_ok(cfg, nf, state):
     if nf is None or nf["active"] is None:
         return None
     return lambda: straggler_active(cfg.node_faults, cfg.num_nodes,
-                                    state.sync_rounds, state.hlc.device)
+                                    state.sync_rounds, state.hlc.device,
+                                    sweep=nf["leaf"])
 
 
 def _node_fault_metrics(nf, alive, book, log) -> dict:
@@ -652,16 +712,17 @@ def _sync_due(gate) -> bool:
 
 def _sync_block(cfg, is_sync: bool, book, log, table, hlc, last_cleared,
                 cleared_hlc, k_sync, alive, view, part, round_idx,
-                fault_key=None, client_ok=None, rtt=None):
+                fault=None, client_ok=None, rtt=None):
     """One anti-entropy sweep when ``is_sync``; zero metrics otherwise.
-    ``fault_key``: the sync-fault subkey with link faults on.
+    ``fault``: the round's link-fault lane (:func:`_fault_lane`) with
+    link faults on.
     ``client_ok``: makes the straggler duty mask, which gates the pair
     rows (the client side) only. ``rtt``: the observed edge delays with
     RTT rings on."""
     if not is_sync:
         dev = hlc.device
         names = _SYNC_METRICS + (
-            ("fault_sync_lost",) if cfg.faults.enabled else ())
+            ("fault_sync_lost",) if fault is not None else ())
         return book, table, hlc, last_cleared, {
             k: _i32(0, dev) for k in names
         }
@@ -671,7 +732,9 @@ def _sync_block(cfg, is_sync: bool, book, log, table, hlc, last_cleared,
     return sync_round(
         cfg, book, log, table, hlc, last_cleared, cleared_hlc, k_sync,
         alive, view, pairs, rtt=rtt, round_idx=round_idx,
-        fault_key=fault_key,
+        fault_key=None if fault is None else fault["k_sync"],
+        fault_cfg=(None if fault is None or fault["conf"] is cfg.faults
+                   else fault["conf"]),
     )
 
 
@@ -705,7 +768,8 @@ def _hlc_tick(alive, hlc_s, hlc_recv, round_, skew=None):
     return hlc, skew
 
 
-def _repair_step(cfg, state: SimState, key, alive, part, round_idx: int):
+def _repair_step(cfg, state: SimState, key, alive, part, round_idx: int,
+                 sw=None):
     """The post-quiesce round: SWIM + sync + bookkeeping only.
     Preconditions (driver-checked): no writes this round, every gossip
     ring drained, no in-flight ring and no RTT rings; under those this is
@@ -722,8 +786,8 @@ def _repair_step(cfg, state: SimState, key, alive, part, round_idx: int):
     # the full step's node-fault prologue and fault lane: a wipe in the
     # convergence tail executes here too, the burst state keeps evolving
     # and sync grants keep failing
-    state, nf = _node_fault_prologue(cfg, state, round_idx)
-    fl = _fault_lane(cfg, state, key)
+    state, nf = _node_fault_prologue(cfg, state, round_idx, sw)
+    fl = _fault_lane(cfg, state, key, sw)
     view = membership_view(cfg, state.swim, n)
     log, book = state.log, state.book
     lag_pre = log.head[None, :] - book.head
@@ -744,8 +808,7 @@ def _repair_step(cfg, state: SimState, key, alive, part, round_idx: int):
     book, table, hlc_s, last_cleared, sync_metrics = _sync_block(
         cfg, is_sync, book, log, state.table, state.hlc, state.last_cleared,
         state.cleared_hlc, k_sync, alive, view, part,
-        round_idx=state.sync_rounds,
-        fault_key=None if fl is None else fl["k_sync"],
+        round_idx=state.sync_rounds, fault=fl,
         client_ok=_sync_client_ok(cfg, nf, state),
     )
     probe = _probe_after_sync(cfg, state.probe, book, is_sync, alive,
@@ -762,7 +825,7 @@ def _repair_step(cfg, state: SimState, key, alive, part, round_idx: int):
             ("fault_lost", "fault_dup", "fault_blackholed",
              "fault_unreachable", "fault_delivered", "fault_parked",
              "fault_emit_lost", "fault_matured"), zero)
-        fault_metrics["fault_burst_nodes"] = _burst_nodes(cfg, fl["burst"])
+        fault_metrics["fault_burst_nodes"] = _burst_nodes(fl)
     metrics = {
         "writes": zero,
         "deletes": zero,

@@ -30,6 +30,7 @@ from corro_sim_torch.utils.runtime import upload
 
 __all__ = [
     "FAULT_KEY_TAG",
+    "LaneFaultKnobs",
     "blackhole_mask",
     "blackhole_tensor",
     "burst_update",
@@ -133,6 +134,28 @@ def link_fault_masks(faults, k_link, dst: torch.Tensor,
     else:
         dup = torch.zeros((lanes,), dtype=torch.bool, device=dev)
     return keep, dup
+
+
+class LaneFaultKnobs:
+    """Stands in for :class:`FaultConfig` in the kernels above with one
+    sweep lane's thresholds (``corro_sim_torch/sweep/knobs.py``): the
+    lane's host copy of its ``sweep_knobs`` leaf, so every draw the
+    knobs fix is skipped for that lane exactly as for a config holding
+    the same values. The gate (``burst_on``) is the union sweep's."""
+
+    __slots__ = (
+        "loss", "dup", "burst_enter", "burst_exit", "burst_loss",
+        "resolved_sync_loss", "burst_on",
+    )
+
+    def __init__(self, knobs: dict, burst_on: bool):
+        self.loss = float(knobs["loss"])
+        self.dup = float(knobs["dup"])
+        self.burst_enter = float(knobs["burst_enter"])
+        self.burst_exit = float(knobs["burst_exit"])
+        self.burst_loss = float(knobs["burst_loss"])
+        self.resolved_sync_loss = float(knobs["sync_loss"])
+        self.burst_on = bool(burst_on)
 
 
 def sync_grant_keep(faults, k_sync, rows: torch.Tensor, peer: torch.Tensor,

@@ -1,7 +1,7 @@
 """Node-lifecycle fault kernels: the tensor side of
 :class:`NodeFaultConfig`.
 
-Port of ``corro_sim/faults/nodes.py`` (its static-schedule path). Four
+Port of ``corro_sim/faults/nodes.py``. Four
 fault kinds, all compiled from static schedules over the round counter,
 with no random draw:
 
@@ -24,6 +24,11 @@ package's masked writes are then identities), and a round with one
 uploads its mask. Every mask equals the JAX package's, so the full and
 the repair step derive the same fault timeline and the post-quiesce
 switch stays bit-for-bit.
+
+Under a fleet sweep (``corro_sim_torch/sweep/``) the schedules are a
+lane's knob planes instead (one wipe per node, -1 = never): the host
+decisions read the lane's host copy of its ``sweep_knobs`` leaf, the
+masks computed on the card (skew, duty cycles) read the leaf itself.
 
 Write-gate soundness: node ordinal == actor id, so a wiped node must not
 mint fresh versions while its own actor column is still behind the log
@@ -119,10 +124,13 @@ def _skew_on(skew: tuple, n: int, device: str) -> torch.Tensor:
     return upload(plane, device)
 
 
-def skew_plane(nf, n: int, device) -> torch.Tensor | None:
+def skew_plane(nf, n: int, device, sweep=None) -> torch.Tensor | None:
     """(N,) int32 per-node clock offset for ``_hlc_tick``'s physical
     floor, on ``device`` (uploaded once per run shape; callers must not
-    write to it), or None when skew is off."""
+    write to it), or None when skew is off. ``sweep``: a lane's
+    ``sweep_knobs`` leaf, whose ``skew`` plane replaces the schedule."""
+    if sweep is not None:
+        return sweep["skew"] if "skew" in sweep else None
     if not (nf.skew or nf.trace_vacuous):
         return None
     return _skew_on(tuple(nf.skew), n, str(device))
@@ -139,11 +147,20 @@ def _straggle_on(straggle: tuple, vacuous: bool, device: str):
             upload(period, device), upload(active, device))
 
 
-def straggler_active(nf, n: int, round_, device) -> torch.Tensor | None:
+def straggler_active(nf, n: int, round_, device,
+                     sweep=None) -> torch.Tensor | None:
     """(N,) bool participation mask: False while a straggler's duty
     cycle parks it, ``(round + node) % period < active``. None when
     stragglers are off. ``round_`` is the host round (gossip gates) or
-    the device sweep counter (sync gates)."""
+    the device sweep counter (sync gates). ``sweep``: a lane's
+    ``sweep_knobs`` leaf; its duty planes give the dense per-node form
+    of the same expression (non-stragglers at period 1, active 1)."""
+    if sweep is not None:
+        if "straggle_period" not in sweep:
+            return None
+        ids = torch.arange(n, dtype=torch.int32, device=device)
+        return ((round_ + ids) % sweep["straggle_period"]
+                ) < sweep["straggle_active"]
     if not (nf.straggle or nf.trace_vacuous):
         return None
     nodes, nodes32, period, active = _straggle_on(
@@ -178,7 +195,18 @@ def _wipe_masks(nf, n: int, round_: int):
     return cap, am, sv
 
 
-def apply_node_faults(cfg, state, round_: int):
+def _sweep_wipe_masks(sweep: dict, round_: int):
+    """The host masks of round ``round_`` from a lane's knob planes:
+    ``(capture, amnesia, stale, epoch_jump)``."""
+    fire = sweep["wipe_round"] == int(round_)
+    if "snap_round" in sweep:
+        stale = np.asarray(sweep["wipe_stale"], bool)
+        return (sweep["snap_round"] == int(round_), fire & ~stale,
+                fire & stale, int(sweep["epoch_jump"]))
+    return None, fire, None, int(sweep["epoch_jump"])
+
+
+def apply_node_faults(cfg, state, round_: int, sweep=None):
     """The node-fault prologue, at the start of a round in both step
     programs: capture stale-rejoin snapshots, then execute every wipe
     scheduled for round ``round_`` (the host's count of ``state.round``).
@@ -193,17 +221,26 @@ def apply_node_faults(cfg, state, round_: int):
     forgets. Not wiped: the global change log and its cleared stamps,
     link fault state.
 
+    ``sweep``: a lane's host copy of its ``sweep_knobs`` leaf; where it
+    holds wipe planes they replace the schedules.
+
     The snapshot and the restored planes are new tensors: the merge
     updates table planes in place, so neither may share storage with
     the table."""
     nf = cfg.node_faults
     n = cfg.num_nodes
     dev = state.hlc.device
-    if not (nf.wipe_enabled or nf.trace_vacuous):
+    if sweep is not None and "wipe_round" not in sweep:
+        sweep = None  # sweeping, but no lane arms the wipe planes
+    if sweep is None and not (nf.wipe_enabled or nf.trace_vacuous):
         return state, torch.zeros((n,), dtype=torch.bool, device=dev)
     feats = dict(state.features)
     table, book = state.table, state.book
-    cap, am, sv = _wipe_masks(nf, n, round_)
+    if sweep is not None:
+        cap, am, sv, epoch_jump = _sweep_wipe_masks(sweep, round_)
+    else:
+        cap, am, sv = _wipe_masks(nf, n, round_)
+        epoch_jump = nf.epoch_jump
     if cap is not None and cap.any():
         c = upload(cap, str(dev))
         snap = feats["node_snapshot"]
@@ -258,7 +295,7 @@ def apply_node_faults(cfg, state, round_: int):
     # the configured per-epoch jump; _hlc_tick's max keeps it monotone
     epoch = feats["node_epoch"] + wiped.to(torch.int32)
     feats["node_epoch"] = epoch
-    hlc = torch.where(wiped, (round_ + nf.epoch_jump * epoch).to(torch.int32),
+    hlc = torch.where(wiped, (round_ + epoch_jump * epoch).to(torch.int32),
                       state.hlc)
     last_cleared = torch.where(wiped, -1, state.last_cleared)
     return dataclasses.replace(

@@ -2,6 +2,7 @@
 
     python -m corro_sim_torch.profile_slice [--swim | --config3 | --config6
                                              | --soak SPEC | --latency
+                                             | --config8
                                              | --host-read PAIRS]
                                             [--out DIR]
 
@@ -47,6 +48,10 @@ Prints one JSON object and writes it, with the full kernel table, to
 ``profile_slice_config6.json`` with ``--config6``,
 ``profile_slice_soak_<spec>.json`` with ``--soak``,
 ``profile_slice_latency.json`` with ``--latency``).
+
+``--config8`` runs the JAX package's config 8 exactly instead (its 32
+lanes through ``run_sweep`` in lockstep, then compacted at width 16 and
+pipelined, and its first lane serially), to ``DIR/config8.json``.
 
 ``--host-read PAIRS`` measures instead the step's read of the sweep
 gate's device predicate: copied to the host where it is computed and
@@ -610,9 +615,14 @@ FAULT_DIGEST_CASES = tuple(
     + [f"{spec}@0" for spec in SOAK_OTHERS] + ["blackhole_one_way@0",
                                                LATENCY_SOAK_CASE]
 )
-# the cases chip_smoke.py runs: every scenario once, at seed 0
+# config 8's scenarios at seed 0: the serial twins of config 8's seed-0
+# sweep lanes, which chip_smoke.py runs in its "config8_sweep" phase
+CONFIG8_SERIAL_CASES = tuple(f"{spec}@0" for spec in CONFIG8_SCENARIOS)
+# the cases chip_smoke.py's "fault_digests" phase runs: the other
+# scenarios once, at seed 0
 FAULT_DIGEST_CHIP_CASES = tuple(c for c in FAULT_DIGEST_CASES
-                                if "@1" not in c)
+                                if "@1" not in c
+                                and c not in CONFIG8_SERIAL_CASES)
 # blackhole_one_way never re-converges (the hole never heals): a fixed
 # 96 rounds
 FAULT_FIXED_ROUNDS = {"blackhole_one_way@0": 96}
@@ -663,6 +673,249 @@ FAULT_PINS = {
 }
 
 
+# ---------------------------------------------------- config 8's sweep
+# config 8 exactly (corro_sim/benchmarks.py:1073-1258): config 8's lane
+# base under its four scenarios × seeds, raced by run_sweep with
+# scorecards and invariant checkers armed
+CONFIG8_PLAN_ARGS = dict(rounds=96, write_rounds=16)
+CONFIG8_SWEEP_ARGS = dict(max_rounds=1024, chunk=16)
+
+
+def config8_plan(seeds, n: int = 256, scenarios=CONFIG8_SCENARIOS):
+    """Config 8's sweep plan: ``build_plan`` of the lane base at ``n``
+    nodes over ``scenarios`` × ``seeds``."""
+    from corro_sim_torch.sweep import build_plan
+
+    return build_plan(config8_lane_config(n), list(scenarios), list(seeds),
+                      **CONFIG8_PLAN_ARGS)
+
+
+# What the JAX package's run_sweep of config8_plan(range(8)) reports for
+# each lane, "<canonical spec>@<seed>": (run_digest of the lane's state
+# — its leaves flattened by jax.tree_util.keystr, leading dot dropped,
+# the knob leaf included — and its metric series, rounds run, converged
+# round, the invariant violations as (round, invariant), and the
+# resilience block's RESILIENCE_INTS). Made on the CPU with
+#   build_plan(base, CONFIG8_SCENARIOS, range(8), rounds=96,
+#              write_rounds=16)
+#   run_sweep(plan, max_rounds=1024, chunk=16)
+# (base the SimConfig of config8_lane_config(256)); CONFIG8_FRONTIERS
+# holds, by seed count, the sha256 of json.dumps(build_frontier(
+# res.lanes), sort_keys=True) of that run and of the same run over
+# range(4) (whose lanes equal the first four seeds' here). A lane of a
+# compacted or pipelined run reports the same.
+SWEEP_PINS = {
+    "lossy:p=0.1@0": (
+        "abb41c681c6dcb9bfda34bc321f47a3bd61424b6603fb229d92966850fa4d094",
+        64, 60, [], (None, None, 0, 0, 0, 0, 0, 0, 4)),
+    "lossy:p=0.1@1": (
+        "b471d104a64b7d57ebd88cb56ab3e36ce00e9b6ed8508560ca95a001d63261fb",
+        64, 60, [], (None, None, 0, 0, 0, 0, 0, 0, 4)),
+    "lossy:p=0.1@2": (
+        "2d7c6e1c0f0128ca1cf5d48dbb3f01389e0ba0ab5ac467620f0536cbf3387952",
+        64, 64, [], (None, None, 0, 0, 0, 0, 0, 0, 4)),
+    "lossy:p=0.1@3": (
+        "112c9ad28b02285afa48177152c1ee2a42f47ae6d190ed92b6a7b56e92c8c728",
+        64, 60, [], (None, None, 0, 0, 0, 0, 0, 0, 4)),
+    "lossy:p=0.1@4": (
+        "19c9b5ecec1b0109ed012e7eb9abbf3a50377db0419453e779dbeb41446cc4d4",
+        64, 64, [], (None, None, 0, 0, 0, 0, 0, 0, 4)),
+    "lossy:p=0.1@5": (
+        "7119e1e2777e08c7db42c80e40d9186e90493bbfd2f92152d7563d6cd61cd192",
+        64, 60, [], (None, None, 0, 0, 0, 0, 0, 0, 4)),
+    "lossy:p=0.1@6": (
+        "afdf2444503f87f175729b9217dc915e3de08de598006201b0f62b78f24305a8",
+        64, 60, [], (None, None, 0, 0, 0, 0, 0, 0, 4)),
+    "lossy:p=0.1@7": (
+        "9289add9a49b8e99fcf78e7e47452c92d3ebc5cd914889dcb02bdb84439be642",
+        64, 60, [], (None, None, 0, 0, 0, 0, 0, 0, 4)),
+    "churn:down=6,rate=0.05,until=48@0": (
+        "207ba8afc8586c4c7afcdb8b30287be52ec63dcf7d8850db1384f98f9ab09417",
+        80, 72, [], (53, 19, 0, 0, 0, 0, 19115, 285, 5)),
+    "churn:down=6,rate=0.05,until=48@1": (
+        "159cbdb85ee9cbf3f203af47a49fcb45d7f644a99f5973912a6371fd1e77f7e3",
+        80, 72, [], (53, 19, 0, 0, 0, 0, 18343, 821, 5)),
+    "churn:down=6,rate=0.05,until=48@2": (
+        "be343a5a55a4f2b7982307a3186172798da612b24d183d5f441b71d9cee47777",
+        80, 72, [], (53, 19, 0, 0, 0, 0, 18495, 390, 5)),
+    "churn:down=6,rate=0.05,until=48@3": (
+        "7289aa7b549df40fc15b044460cfaaf08e411b16e59b229a1cc3bb8a90940eaa",
+        80, 68, [], (53, 15, 0, 0, 0, 0, 17150, 563, 5)),
+    "churn:down=6,rate=0.05,until=48@4": (
+        "67caca207241dd479795b72e211663d0d363a6d2b41ae0459c80d47644edb76e",
+        80, 68, [], (53, 15, 0, 0, 0, 0, 17314, 791, 5)),
+    "churn:down=6,rate=0.05,until=48@5": (
+        "a79878843ccefb52f27197634b6a44bf327cbabaf1bf3ba01f26e7e82e56591e",
+        80, 76, [], (53, 23, 0, 0, 0, 0, 20892, 936, 5)),
+    "churn:down=6,rate=0.05,until=48@6": (
+        "a90c4a45d6750545445b975f12464daa6904ab0f3ebc31b44ae3ce5bbfa440b4",
+        80, 68, [], (53, 15, 0, 0, 0, 0, 17773, 458, 5)),
+    "churn:down=6,rate=0.05,until=48@7": (
+        "20dd7ef68675f7713c9b828b8bb9de6823f58c7906d76861aed71e084da4da52",
+        80, 68, [], (53, 15, 0, 0, 0, 0, 18492, 414, 5)),
+    "crash_amnesia:at=8,down=4,jump=0,nodes=3@0": (
+        "6ccf29a2321ab697d3d60e5cb312d09d0e1f6ff9ffe9c4cec9be181d628e99f3",
+        64, 56, [], (12, 44, 0, 3702, 3, 3, 13, 0, 4)),
+    "crash_amnesia:at=8,down=4,jump=0,nodes=3@1": (
+        "d8063849e1643b95c0a8246ac536befda5376c7e31934a9938f7e956c5e36134",
+        64, 56, [], (12, 44, 0, 3786, 3, 3, 36, 0, 4)),
+    "crash_amnesia:at=8,down=4,jump=0,nodes=3@2": (
+        "24618da332da41ca435c5d3e812fb2a8f5714481d8a8d0a03b286e8bdc349008",
+        64, 52, [], (12, 40, 0, 3750, 3, 3, 28, 0, 4)),
+    "crash_amnesia:at=8,down=4,jump=0,nodes=3@3": (
+        "399c3e33be051b3c5fac7620f54a2fc5343be889804c9d5736d075ed1fc94c25",
+        64, 56, [], (12, 44, 0, 3735, 3, 3, 21, 0, 4)),
+    "crash_amnesia:at=8,down=4,jump=0,nodes=3@4": (
+        "41111e9b40627bbaecaac3ff81e3c0f2547469d21c5d467b984392f3f034ff23",
+        64, 56, [], (12, 44, 0, 3645, 3, 3, 20, 0, 4)),
+    "crash_amnesia:at=8,down=4,jump=0,nodes=3@5": (
+        "0b2f5336c0759db227ca82090bb2fd9fc1d28426b906ab60451cf2760e1f7227",
+        64, 60, [], (12, 48, 0, 3726, 3, 3, 22, 0, 4)),
+    "crash_amnesia:at=8,down=4,jump=0,nodes=3@6": (
+        "145b39a2e3a3a16636867095ffaea4ab17c0ad031f25dd394d2d8b66f894faed",
+        64, 52, [], (12, 40, 0, 3693, 3, 3, 14, 0, 4)),
+    "crash_amnesia:at=8,down=4,jump=0,nodes=3@7": (
+        "9449ba4ae9ca28fe028b8ba5dab823e14a24e4e9a46cb71b76f65fdbc85bacc2",
+        64, 52, [], (12, 40, 0, 3609, 3, 3, 21, 0, 4)),
+    "clock_skew:max_skew=64,nodes=64@0": (
+        "d66796f4bb2eed1aa520dbd514bd3277bb8e5dd0dbfddfe4751e1f9a3bb16922",
+        64, 56, [], (15, 41, 0, 0, 0, 0, 0, 0, 4)),
+    "clock_skew:max_skew=64,nodes=64@1": (
+        "b20800330b99abc8124746e6beb2d2b197d5606a49c5d256d2c73a025c8665c0",
+        64, 56, [], (15, 41, 0, 0, 0, 0, 0, 0, 4)),
+    "clock_skew:max_skew=64,nodes=64@2": (
+        "ac997396bff893df790fcea76d6d74f1bd350ce103b59b6b6cf782f5f077979a",
+        64, 56, [], (15, 41, 0, 0, 0, 0, 0, 0, 4)),
+    "clock_skew:max_skew=64,nodes=64@3": (
+        "833029d30588eaaa1d54bd1886b97cebe5862e22afe4d436082646492d979403",
+        64, 56, [], (15, 41, 0, 0, 0, 0, 0, 0, 4)),
+    "clock_skew:max_skew=64,nodes=64@4": (
+        "1d2cea9feac5ca1b7f36f32377a125e2600c7b62668cfa6419a904125ce2d71a",
+        64, 52, [], (15, 37, 0, 0, 0, 0, 0, 0, 4)),
+    "clock_skew:max_skew=64,nodes=64@5": (
+        "ce317ac3d638117b4bff00d186f5ebd8d135ca5376d8920eb4529a25d96ef9d8",
+        64, 56, [], (15, 41, 0, 0, 0, 0, 0, 0, 4)),
+    "clock_skew:max_skew=64,nodes=64@6": (
+        "682dae267f7f90b64903ea35edd52dd24f6b3b70df91fb56656d9420268c88d4",
+        64, 52, [], (15, 37, 0, 0, 0, 0, 0, 0, 4)),
+    "clock_skew:max_skew=64,nodes=64@7": (
+        "81bbb0cee937e8c9b74bf139ff481c8fc5f055899b6a6e454cc92c58c139c376",
+        64, 56, [], (15, 41, 0, 0, 0, 0, 0, 0, 4)),
+}
+CONFIG8_FRONTIERS = {
+    8: "50881eaf133f93cb90f96652ac544773a0bd1e6f4799b66274d49c2d7a07e55f",
+    4: "b3a8a91b2fe62fd612af7314db5a15da1a9ee5372b7192d5e5964c195506856a",
+}
+
+
+# The invariant verdicts of config 8's lanes at 1024 nodes (seed 0, by
+# scenario): the JAX package's serial run of each on the CPU
+# (make_scenario(spec, 1024, rounds=96, write_rounds=16, seed=0), its
+# config on config8_lane_config(1024), an InvariantChecker and a
+# ResilienceScorecard, run_sim(max_rounds=1024, chunk=16, seed=0,
+# min_rounds=max(heal_round, 16))). Under churn the reference's own
+# checker reports a SWIM false-DOWN every chunk from round 31 (observer
+# 0 holding a live node DOWN past the window; ROADMAP.md queue 3): that
+# run converges at round 148 of 160 with no row lost and 87 354
+# false-DOWN beliefs counted, and the port's lane must report the same.
+CONFIG8_1024_VIOLATIONS = {
+    "lossy": [], "crash_amnesia": [], "clock_skew": [],
+    "churn": [(r, "swim_false_down")
+              for r in (31, 47, 63, 79, 95, 111, 127, 143, 159)],
+}
+CONFIG8_1024_CHURN = {"rounds": 160, "converged_round": 148,
+                      "swim_false_down": 87354}
+
+
+def sweep_lane_record(lr) -> dict:
+    """A sweep lane's outcome beside its pin (``SWEEP_PINS``)."""
+    key = f"{lr.spec}@{lr.seed}"
+    want = SWEEP_PINS[key]
+    viol = [(v["round"], v["invariant"])
+            for v in (lr.invariants or {}).get("violations", [])]
+    got_res = (None if lr.resilience is None else
+               tuple(lr.resilience[k] for k in RESILIENCE_INTS))
+    digest = run_digest(state_to_numpy(lr.state), lr.metrics)
+    rec = {"lane": key, "rounds": lr.rounds,
+           "converged_round": lr.converged_round, "digest": digest,
+           "violations": viol, "resilience": got_res,
+           "invariants_ok": (lr.invariants or {}).get("ok")}
+    rec["match"] = (digest == want[0] and lr.rounds == want[1]
+                    and lr.converged_round == want[2]
+                    and viol == [tuple(v) for v in want[3]]
+                    and got_res == (None if want[4] is None
+                                    else tuple(want[4])))
+    return rec
+
+
+def frontier_digest(frontier: dict) -> str:
+    return hashlib.sha256(
+        json.dumps(frontier, sort_keys=True).encode()).hexdigest()
+
+
+def sync_mailbox_lanes(cfg: SimConfig) -> int:
+    """The lanes per node of the sync sweep's merge mailbox under
+    ``cfg`` (``sync/sync.py``: K' actors × ``sync_cap_per_actor`` × S
+    cells, padded to 128), the cap the kernel is launched with."""
+    a = cfg.num_actors
+    kp = min(cfg.sync_actor_topk, a)
+    req = cfg.sync_req_actors or 2 * kp
+    lanes = (min(req, kp * cfg.resolved_sync_peers, a)
+             * cfg.sync_cap_per_actor * cfg.seqs_per_version)
+    return lanes + (-lanes) % 128
+
+
+def twin_match(lane_result, serial: RunResult) -> dict:
+    """A sweep lane against its serial twin run on the same device:
+    whether the rounds, the converged round, every metric the twin
+    computes and every state leaf the twin holds are equal (the lane
+    adds its knob leaf and the union config's zero-valued metric
+    families)."""
+    got = state_to_numpy(lane_result.state)
+    want = state_to_numpy(serial.state)
+    leaves = all(np.array_equal(got[k], v) for k, v in want.items())
+    metrics = all(np.array_equal(np.asarray(lane_result.metrics[k]),
+                                 np.asarray(v))
+                  for k, v in serial.metrics.items())
+    return {"rounds": lane_result.rounds == serial.rounds,
+            "converged_round": (lane_result.converged_round
+                                == serial.converged_round),
+            "metrics": metrics, "leaves": leaves,
+            "match": (leaves and metrics
+                      and lane_result.rounds == serial.rounds
+                      and lane_result.converged_round
+                      == serial.converged_round)}
+
+
+# ------------------------------------------------- the JAX sim token
+# A resume token the JAX package wrote (tests/fixtures/
+# sim_token_jax_64.npz): config 8's lane base at 64 nodes soaked under
+# crash_amnesia (seed 0, config 8's soak arguments, no checker), checkpointed
+# after every chunk and killed from on_chunk after chunk 1, so the token
+# holds chunk 0's end. tests/test_torch_checkpoint.py regenerates it with
+# the JAX package; its resume must reach DIGESTS["token_jax_64"], the JAX
+# package's uninterrupted run, at TOKEN_ROUNDS (rounds, converged round).
+TOKEN_FIXTURE = os.path.join("tests", "fixtures", "sim_token_jax_64.npz")
+TOKEN_SPEC = "crash_amnesia"
+TOKEN_NODES = 64
+TOKEN_KILL_AFTER = 1
+TOKEN_ROUNDS = (32, 24)
+
+
+def token_case(device=None) -> tuple:
+    """``(cfg, schedule, run_kw)`` of the token's run, for ``run_sim``."""
+    args = CONFIG8_SOAK_ARGS
+    sc = make_scenario(TOKEN_SPEC, TOKEN_NODES, rounds=args["rounds"],
+                       write_rounds=args["write_rounds"], seed=0)
+    cfg = sc.apply(config8_lane_config(TOKEN_NODES))
+    run_kw = dict(max_rounds=args["max_rounds"], chunk=args["chunk"],
+                  seed=0, min_rounds=max(sc.heal_round or 0,
+                                         args["write_rounds"]))
+    if device is not None:
+        run_kw["device"] = device
+    return cfg, sc.schedule(), run_kw
+
+
 # The replay fixtures: (path in the repository, config overrides on the
 # trace's suggest_config()); replayed with max_rounds=256. The first is
 # the JAX package's tests/test_replay_parity.py case.
@@ -704,7 +957,8 @@ DIGEST_RUN_ARGS = dict(max_rounds=24, chunk=8, seed=0,
 # CONFIG6_RUN_ARGS, to convergence, and each CONFIG_DIGEST_CASES run as
 # config_digest_case(case) sets it up, each SLICE8_DIGEST_CASES run
 # (slice8_config(case) under slice_schedule() and RUN_ARGS), and each
-# FAULT_DIGEST_CASES run as fault_digest_run(case) sets it up — and
+# FAULT_DIGEST_CASES run as fault_digest_run(case) sets it up, the
+# uninterrupted run of token_case() ("token_jax_64", sequential) — and
 # replay of each REPLAY_CASES fixture; the state flattened by jax.tree_util.keystr (leading dot
 # dropped) and the metrics as run_sim or replay returned them. The port
 # matches them on every device. The config-6 digests leave out the "gap"
@@ -778,6 +1032,8 @@ DIGESTS = {
         "23dd78b0c1aad86c591f4d4fbe4f0f0f33ddc115abe8cd94be164e0ae7eadc28",
     "deal_1000":
         "29b075e838d10d8100cb3865e9475ea844823d2172632c753ee22d32624e74d1",
+    "token_jax_64":
+        "076de31056a2995462f4bbfa9d3c66f04d8561136a8937a9efab6ef143db62a4",
 }
 CONFIG6_DIGEST_EXCLUDE = ("gap",)
 
@@ -1041,6 +1297,88 @@ def _busy_ms(intervals) -> float:
     return busy / 1e3
 
 
+def sweep_books(res, wall: float) -> dict:
+    """A sweep's JSON books: clusters per second per device, walls, the
+    gate counts, the occupancy block and curve, and the peak memory."""
+    from corro_sim_torch.obs.lanes import fleet_occupancy
+
+    occ = fleet_occupancy(res)
+    return {
+        "lanes": len(res.lanes), "rounds": res.rounds,
+        "dispatches": res.dispatches,
+        "clusters_per_second_per_device":
+            res.clusters_per_second_per_device,
+        "sweep_wall_s": res.wall_seconds, "wall_s": wall,
+        "setup_s": res.compile_seconds, "sweeps": res.sweeps,
+        "occupancy": {k: occ[k] for k in (
+            "lanes", "dispatches", "executed_lane_rounds",
+            "useful_lane_rounds", "wasted_frozen_lane_rounds",
+            "occupancy_ratio")},
+        "occupancy_curve": [
+            {k: e[k] for k in ("lanes_active", "width", "pending",
+                               "refills") if k in e}
+            for e in occ["curve"]],
+        "compaction": res.compaction, "pipeline": res.pipeline,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    }
+
+
+def config8(seeds: int = 8, n: int = 256) -> dict:
+    """Config 8 exactly (``corro_sim/benchmarks.py:1073-1258``,
+    ``run_config_8``) on the card: the lanes in lockstep, then the same
+    grid through the fleet scheduler at half the lane count, pipelined;
+    then the grid's first lane run serially, whose wall times the lane
+    count is the serial soak loop's estimate. Clusters per second per
+    device, walls, occupancy and the frontier."""
+    from corro_sim_torch.sweep import build_frontier
+    from corro_sim_torch.sweep.engine import run_sweep
+
+    plan = config8_plan(range(seeds), n=n)
+    out = {"lanes": plan.num_lanes, "nodes_per_lane": n, "seeds": seeds,
+           "scenarios": [lane.spec for lane in plan.lanes[::seeds]]}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lock = run_sweep(plan, **CONFIG8_SWEEP_ARGS, device="cuda")
+    torch.cuda.synchronize()
+    out["lockstep"] = sweep_books(lock, time.perf_counter() - t0)
+    frontier = build_frontier(lock.lanes)
+    out["frontier"] = frontier
+    out["frontier_digest"] = frontier_digest(frontier)
+    if n == 256 and seeds in CONFIG8_FRONTIERS:
+        out["frontier_match"] = (out["frontier_digest"]
+                                 == CONFIG8_FRONTIERS[seeds])
+        out["lanes_match"] = sum(sweep_lane_record(lr)["match"]
+                                 for lr in lock.lanes)
+    width = max(1, plan.num_lanes // 2)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    comp = run_sweep(plan, **CONFIG8_SWEEP_ARGS, device="cuda",
+                     compact=True, width=width, pipeline=True)
+    torch.cuda.synchronize()
+    out["compact"] = dict(
+        sweep_books(comp, time.perf_counter() - t0), width=width,
+        matches_lockstep=all(
+            a.converged_round == b.converged_round and a.rounds == b.rounds
+            and a.poisoned == b.poisoned
+            for a, b in zip(lock.lanes, comp.lanes)))
+    del lock, comp
+    ref = plan.lanes[0]
+    t0 = time.perf_counter()
+    serial = run_sim(ref.cfg, init_state(ref.cfg, seed=ref.seed,
+                                         device="cuda"),
+                     ref.scenario.schedule(), seed=ref.seed,
+                     min_rounds=ref.min_rounds, device="cuda",
+                     **CONFIG8_SWEEP_ARGS)
+    torch.cuda.synchronize()
+    out["serial_lane"] = {
+        "lane": f"{ref.spec}@{ref.seed}", "wall_s": time.perf_counter() - t0,
+        "sim_s": serial.wall_seconds, "setup_s": serial.setup_seconds,
+        "converged_round": serial.converged_round,
+        "loop_estimate_s": serial.wall_seconds * plan.num_lanes,
+    }
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="bench_out")
@@ -1059,6 +1397,9 @@ def main(argv=None) -> dict:
     cell.add_argument("--latency", action="store_true",
                       help="profile config 0 at 10 000 nodes across four "
                            "latency regions with RTT rings and 8 probes")
+    cell.add_argument("--config8", action="store_true",
+                      help="config 8 exactly: its 32 lanes in lockstep, "
+                           "then compacted at width 16, pipelined")
     cell.add_argument("--host-read", type=int, metavar="PAIRS",
                       help="the early read of the sweep gate against the "
                            "late read, PAIRS pairs on configs 0 and 6 at "
@@ -1072,6 +1413,15 @@ def main(argv=None) -> dict:
         with open(os.path.join(args.out, "host_read.json"), "w") as f:
             json.dump(report, f, indent=1)
         print(json.dumps(report))
+        return report
+    if args.config8:
+        report = dict(config8(), card=torch.cuda.get_device_name(0),
+                      nvidia_smi=mp.nvidia_smi())
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "config8.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        print(json.dumps({k: v for k, v in report.items()
+                          if k != "frontier"}))
         return report
     device = torch.device("cuda")
     wl = None

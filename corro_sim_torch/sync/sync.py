@@ -305,7 +305,8 @@ def _hot_schedule(cfg, book, log, peer, granted, phase, round_idx, kp,
 
 def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
                hlc, last_cleared, cleared_hlc, key, alive, view_alive,
-               reachable, rtt=None, round_idx=0, fault_key=None):
+               reachable, rtt=None, round_idx=0, fault_key=None,
+               fault_cfg=None):
     """One anti-entropy sweep (multi-peer).
 
     Returns ``(book, table, hlc, last_cleared, metrics)``. On the mailbox
@@ -320,7 +321,11 @@ def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
     drops count in ``fault_sync_lost``, not in the rejections.
 
     ``rtt``: the ``(N, N)`` observed edge delays when ``rtt_rings`` is
-    on; they rank sync candidates and size each connection's caps."""
+    on; they rank sync candidates and size each connection's caps.
+
+    ``fault_cfg``: a sweep lane's fault knobs
+    (:class:`~corro_sim_torch.faults.inject.LaneFaultKnobs`) in place of
+    ``cfg.faults``; None off the sweep."""
     n, a = book.head.shape
     dev = book.head.device
     k_peer, k_phase = prng.split(key)
@@ -330,14 +335,14 @@ def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
     p_cnt = peer.shape[1]
     rejected = requested & ~granted
     fault_metrics = {}
-    if cfg.faults.enabled:
+    if cfg.faults.enabled or fault_cfg is not None:
         from corro_sim_torch.faults.inject import (
             blackhole_tensor,
             sync_grant_keep,
         )
 
         keep = sync_grant_keep(
-            cfg.faults, fault_key, torch.arange(n, dtype=torch.int32,
+            fault_cfg if fault_cfg is not None else cfg.faults, fault_key, torch.arange(n, dtype=torch.int32,
                                                 device=dev),
             peer, blackhole_tensor(cfg.faults, n, dev),
         )

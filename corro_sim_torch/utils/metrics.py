@@ -1,8 +1,9 @@
 """Process-wide counters and histograms of the run loop.
 
-The part of ``corro_sim/utils/metrics.py`` that ``run_sim`` writes to:
-:data:`counters`, :data:`histograms` (the reference exporter's
-``SECONDS_BUCKETS``) and the names of the chunk-pipeline series; each
+The part of ``corro_sim/utils/metrics.py`` that ``run_sim`` and
+``run_sweep`` write to: :data:`counters`, :data:`histograms` (the
+reference exporter's ``SECONDS_BUCKETS``), :data:`gauges`, and the names
+of the chunk-pipeline and fleet-sweep series; each
 registry keeps its series by ``(name, labels)``, labels in the
 Prometheus text format (``'{reason="converged"}'``).
 """
@@ -35,6 +36,40 @@ PIPELINE_FETCH_WAIT_HELP = (
 PIPELINE_SPECULATIVE_TOTAL = "corro_pipeline_speculative_total"
 PIPELINE_SPECULATIVE_WASTED = "corro_pipeline_speculative_wasted_total"
 PIPELINE_OVERLAP_SECONDS = "corro_pipeline_overlap_seconds_total"
+
+
+# ---- corro_sweep_*: the fleet sweep (sweep/engine.py, obs/lanes.py):
+# lanes racing, converged and poisoned (gauges), lane-rounds dispatched
+# for settled lanes (by the JAX package's definition: a dispatch
+# executes its width, whether or not a slot's lane races), and each
+# frontier cell's heal-to-re-convergence rounds (a histogram)
+SWEEP_LANES_ACTIVE = "corro_sweep_lanes_active"
+SWEEP_LANES_ACTIVE_HELP = (
+    "sweep lanes still racing (not yet converged or poisoned; "
+    "corro_sim_torch/sweep/engine.py)"
+)
+SWEEP_LANES_CONVERGED = "corro_sweep_lanes_converged"
+SWEEP_LANES_CONVERGED_HELP = (
+    "sweep lanes frozen at their convergence chunk"
+)
+SWEEP_LANES_POISONED = "corro_sweep_lanes_poisoned"
+SWEEP_LANES_POISONED_HELP = (
+    "sweep lanes frozen by the ring-wrap poison tripwire"
+)
+SWEEP_WASTED_LANE_ROUNDS_TOTAL = "corro_sweep_wasted_lane_rounds_total"
+SWEEP_WASTED_LANE_ROUNDS_HELP = (
+    "lane-rounds of dispatch width holding no racing lane "
+    "(corro_sim_torch/obs/lanes.py fleet occupancy)"
+)
+SWEEP_RECOVERY_ROUNDS = "corro_sweep_recovery_rounds"
+SWEEP_RECOVERY_ROUNDS_HELP = (
+    "per-lane heal -> re-convergence rounds by frontier cell "
+    "(scenario spec + knob suffix; corro_sim_torch/sweep/engine.py)"
+)
+ROUNDS_BUCKETS = (
+    0.0, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0, 24.0, 32.0, 48.0,
+    64.0, 96.0, 128.0,
+)
 
 
 class Histogram:
@@ -102,3 +137,26 @@ class CounterRegistry:
 
 histograms = HistogramRegistry()
 counters = CounterRegistry()
+
+
+class GaugeRegistry:
+    """Named last-value gauges, ``(name, labels) -> value``."""
+
+    def __init__(self):
+        self._g: dict[tuple, float] = {}
+        self._help: dict[str, str] = {}
+        self._lock = threading.Lock()
+
+    def set(self, name: str, value: float, labels: str = "",
+            help_: str = "") -> None:
+        with self._lock:
+            self._g[(name, labels)] = value
+            if help_:
+                self._help.setdefault(name, help_)
+
+    def get(self, name: str, labels: str = "") -> float | None:
+        with self._lock:
+            return self._g.get((name, labels))
+
+
+gauges = GaugeRegistry()

@@ -44,7 +44,11 @@ def test_port_imports_without_jax():
         " 'corro_sim_torch.faults.invariants',"
         " 'corro_sim_torch.faults.scorecard',"
         " 'corro_sim_torch.membership.rtt', 'corro_sim_torch.engine.probe',"
-        " 'corro_sim_torch.obs.probes') if m not in sys.modules]\n"
+        " 'corro_sim_torch.obs.probes', 'corro_sim_torch.io.checkpoint',"
+        " 'corro_sim_torch.sweep', 'corro_sim_torch.sweep.knobs',"
+        " 'corro_sim_torch.sweep.plan', 'corro_sim_torch.sweep.engine',"
+        " 'corro_sim_torch.sweep.frontier', 'corro_sim_torch.obs.lanes')"
+        " if m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'corro_sim' or m.startswith('corro_sim.')]\n"
@@ -98,9 +102,18 @@ def test_entry_points_refuse_without_cuda():
     dict(sweep=pconfig.SweepConfig(lanes=2)),
 ])
 def test_unported_features_are_refused(change):
+    """The sweep's union config runs on one device; what is left of it,
+    the lane axis over a device mesh, is refused naming its ROADMAP
+    queue 1 item."""
+    from corro_sim_torch.sweep import build_plan
+    from corro_sim_torch.sweep.engine import run_sweep
+
     cfg = dataclasses.replace(_small_cfg(), **change)
+    assert pconfig.validate_torch_slice(cfg) is cfg
+    plan = build_plan(_small_cfg(), ["lossy:p=0.1"], [0], rounds=16,
+                      write_rounds=4)
     with pytest.raises(NotImplementedError, match="ROADMAP|queue 1"):
-        pconfig.validate_torch_slice(cfg)
+        run_sweep(plan, mesh=object(), device="cpu")
 
 
 @pytest.mark.parametrize("change", [
