@@ -48,13 +48,22 @@ kernel at config 8's lane shape; config 8's grid through
 ``corro_sim_torch.sweep.engine.run_sweep`` in lockstep (seeds 0-3 of its
 eight), every lane held to the JAX package's lane digests and the
 frontier to its digest, beside the four seed-0 lanes' serial twins
-("config8_sweep"); eight of its lanes through the compact fleet
-scheduler at width 4, pipelined ("config8_compact"); its lane base at
-1024 nodes (windowed SWIM in the lanes), two lanes against their serial
-twins ("config8_1024"); and config 0 at 10 000 nodes under crash_amnesia
-checkpointed every chunk, killed after chunk 1 and resumed from its
-token to the uninterrupted run of "soak_10k", then the JAX package's
-committed token resumed to its pin ("checkpoint_10k"). Every phase
+("config8_sweep"); its four seed-0 lanes through the compact fleet
+scheduler at width 2, pipelined ("config8_compact"); its lane base at
+1024 nodes (windowed SWIM in the lanes), the lossy and churn lanes, the
+lossy one against its serial twin ("config8_1024"); and config 0 at
+10 000 nodes under crash_amnesia checkpointed every chunk, killed after
+chunk 1 and resumed from its token to the uninterrupted run of
+"soak_10k", then the JAX package's committed token resumed to its pin
+("checkpoint_10k"). Then the digital twin: a seeded Consul-schema
+changeset feed with hostile lines shadowed at 256 nodes through
+``corro_sim_torch.engine.twin.run_twin``, killed after chunk 1 and
+resumed from its cursor token, and forecast from its fork under the
+what-if grid, each held to the JAX package's pins ("twin_digests"); and
+a Consul-schema feed of 128 actors shadowed at 10 000 nodes to one
+converged table, the JAX package's, then forecast from its fork at
+10 000 nodes with one lane held to its serial fork resume
+("twin_10k"). Every phase
 prints one JSON line with its seconds; any failure raises and exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside the repository, it exits non-zero and
@@ -81,8 +90,8 @@ CONFIG3_ROUNDS = 1144
 # rounds of config 3's shape run at 10 000 nodes
 CONFIG3_10K_ROUNDS = 64
 # config 8's seeds in the "config8_sweep" phase: config 8 runs seeds 0-7;
-# seeds 0-3 (16 lanes) keep the script inside its time budget
-CONFIG8_SMOKE_SEEDS = 4
+# seed 0 (4 lanes) keeps the script inside its time budget
+CONFIG8_SMOKE_SEEDS = 1
 # config 6's kernel arm against its scatter arm: nodes and rounds; the
 # row count is pinned to 2048 (config 6's formula gives 2046 at 256
 # nodes) so that the 4096-cell space lets the kernel run
@@ -380,9 +389,9 @@ def config8_sweep_phase(emit, seeds: int) -> tuple:
 
 
 def config8_compact_phase(emit) -> int:
-    """Phase ``config8_compact``: config 8's four scenarios at seeds 0-1
-    (8 lanes) through the fleet scheduler (``compact=True``,
-    ``width=4``, ``pipeline=True``), every lane held to ``SWEEP_PINS``;
+    """Phase ``config8_compact``: config 8's four scenarios at seed 0
+    (4 lanes) through the fleet scheduler (``compact=True``,
+    ``width=2``, ``pipeline=True``), every lane held to ``SWEEP_PINS``;
     prints the occupancy curve with its refills. Returns the launches."""
     from corro_sim_torch.profile_slice import (
         config8_plan,
@@ -390,12 +399,12 @@ def config8_compact_phase(emit) -> int:
         sweep_lane_record,
     )
 
-    plan = config8_plan(range(2))
-    res, launches, wall = _sweep(plan, compact=True, width=4,
+    plan = config8_plan(range(1))
+    res, launches, wall = _sweep(plan, compact=True, width=2,
                                        pipeline=True)
     lanes = [sweep_lane_record(lr) for lr in res.lanes]
-    emit({"phase": "config8_compact", "nodes": 256, "seeds": 2,
-          "width": 4, **sweep_books(res, wall), "launches": launches,
+    emit({"phase": "config8_compact", "nodes": 256, "seeds": 1,
+          "width": 2, **sweep_books(res, wall), "launches": launches,
           "lanes_match": sum(r["match"] for r in lanes),
           "lane_records": lanes})
     bad = [r["lane"] for r in lanes if not r["match"]]
@@ -410,12 +419,12 @@ def config8_compact_phase(emit) -> int:
 def config8_1024_phase(emit) -> int:
     """Phase ``config8_1024``: config 8's lane base at 1024 nodes (its
     rule gives 256 rows and a SWIM view of 64: windowed SWIM inside the
-    lanes) under the four scenarios at seed 0, lockstep. Every lane must
-    converge with no row lost and the invariant verdict of the JAX
-    package's run (``CONFIG8_1024_VIOLATIONS``: none, but for the churn
-    lane's SWIM false-DOWNs), and the lossy and crash-amnesia lanes equal
-    their serial twins run on the card. Returns the launches of the
-    sweep and of the twins."""
+    lanes) under two of its scenarios at seed 0, lockstep: lossy, and
+    churn, whose lane carries the JAX package's SWIM false-DOWNs. Every
+    lane must converge with no row lost and the invariant verdict of the
+    JAX package's run (``CONFIG8_1024_VIOLATIONS``), and the lossy lane
+    equal its serial twin run on the card. Returns the launches of the
+    sweep and of the twin."""
     import torch
 
     from corro_sim_torch.core import merge_kernel as mk
@@ -425,13 +434,18 @@ def config8_1024_phase(emit) -> int:
     from corro_sim_torch.profile_slice import (
         CONFIG8_1024_CHURN,
         CONFIG8_1024_VIOLATIONS,
+        CONFIG8_SCENARIOS,
         CONFIG8_SWEEP_ARGS,
         config8_plan,
         sweep_books,
         twin_match,
     )
 
-    plan = config8_plan([0], n=1024)
+    plan = config8_plan([0], n=1024, scenarios=CONFIG8_SCENARIOS[:2])
+    if [lane.spec.split(":")[0] for lane in plan.lanes] != ["lossy",
+                                                            "churn"]:
+        raise AssertionError("config8_1024 expects the lossy and churn "
+                             "lanes")
     res, launches, wall = _sweep(plan)
     books = sweep_books(res, wall)
     lanes = {}
@@ -451,7 +465,7 @@ def config8_1024_phase(emit) -> int:
             d["verdict_match"] &= all(d[k] == v for k, v in
                                       CONFIG8_1024_CHURN.items())
     twins = {}
-    for li in (0, 2):
+    for li in (0,):
         lane = plan.lanes[li]
         torch.cuda.empty_cache()
         mk.reset_launch_counts()
@@ -620,6 +634,314 @@ def checkpoint_phase(emit, soak_ref) -> int:
     if not rec["jax_token"]["match"]:
         raise AssertionError("the JAX package's token resumed on the card "
                              "misses its pin")
+    return launches
+
+
+def _forecast(tok, emit_kw: dict, grid: dict) -> dict:
+    """``run_forecast`` of the twin ``grid`` (``TWIN_FORECAST`` or its
+    10k form) from ``tok`` on the card, the merge launches counted into
+    ``emit_kw``."""
+    import torch
+
+    from corro_sim_torch.core import merge_kernel as mk
+    from corro_sim_torch.engine.twin import run_forecast
+    from corro_sim_torch.profile_slice import TWIN_THRESHOLDS
+
+    kw = dict(grid)
+    scenarios, seeds = kw.pop("scenarios"), kw.pop("seeds")
+    mk.reset_launch_counts()
+    fc = run_forecast(tok, scenarios, seeds, thresholds=TWIN_THRESHOLDS,
+                      device="cuda", **kw)
+    torch.cuda.synchronize()
+    sweep = fc["sweep"]
+    emit_kw.update(
+        forecast_launches=mk.LAUNCHES["grouped_merge"],
+        forecast_ok=fc["ok"], forecast_lanes=fc["lanes"],
+        forecast_wall_s=sweep.wall_seconds,
+        clusters_per_second_per_device=(
+            sweep.clusters_per_second_per_device),
+        lanes_detail=[dict({k: d[k] for k in (
+            "scenario", "seed", "converged_round", "rounds_run",
+            "recovery_rounds", "rows_lost", "invariants_ok")},
+            violations=sorted({v["invariant"] for v in (
+                lr.invariants or {}).get("violations", [])}))
+            for d, lr in zip(fc["lanes_detail"], sweep.lanes)])
+    return fc
+
+
+def twin_digest_phase(emit) -> int:
+    """Phase ``twin_digests``: a seeded Consul-schema feed
+    (``TWIN_DIGEST_FEED``: 64 actors, 16 versions, hostile lines)
+    shadowed at 256 nodes with a cursor token every chunk, killed after
+    chunk 1 (the token of chunk 0's boundary on disk) and resumed from
+    that token; the resumed shadow equals the JAX package's uninterrupted
+    one (``TWIN_PINS["twin_digests"]["shadow"]``: state, metrics,
+    headlines, report). Then the forecast grid from the fork of the
+    shadow: the frontier, the trend and each lane equal the JAX
+    package's. Returns the merge launches."""
+    import os
+
+    import torch
+
+    from corro_sim_torch.convert import state_to_numpy
+    from corro_sim_torch.core import merge_kernel as mk
+    from corro_sim_torch.engine.twin import fork_twin, run_twin
+    from corro_sim_torch.io.checkpoint import load_sim_checkpoint
+    from corro_sim_torch.profile_slice import (
+        TWIN_DIGEST_CHUNK,
+        TWIN_DIGEST_FEED,
+        TWIN_DIGEST_NODES,
+        TWIN_FORECAST,
+        TWIN_PINS,
+        feed_config,
+        twin_feed,
+        twin_forecast_record,
+        twin_shadow_record,
+    )
+
+    pins = TWIN_PINS["twin_digests"]
+    os.makedirs("bench_out", exist_ok=True)
+    ckpt = os.path.join("bench_out", "twin_digests.npz")
+    feed = twin_feed(**TWIN_DIGEST_FEED)
+    cfg = feed_config(feed.lines, TWIN_DIGEST_NODES, TWIN_DIGEST_CHUNK)
+
+    def bomb(headline):
+        if headline["chunk"] >= 1:
+            raise _Kill
+
+    torch.cuda.empty_cache()
+    mk.reset_launch_counts()
+    try:
+        run_twin(cfg=cfg, lines=feed.lines, seed=0, checkpoint_path=ckpt,
+                 on_chunk=bomb, device="cuda")
+        raise AssertionError("the checkpointed shadow was not killed")
+    except _Kill:
+        pass
+    tok = load_sim_checkpoint(ckpt)
+    resumed = run_twin(cfg=cfg, lines=feed.lines, seed=0, resume=tok,
+                       device="cuda")
+    launches = mk.LAUNCHES["grouped_merge"]
+    got = twin_shadow_record(state_to_numpy(resumed.state), resumed)
+    rec = {"nodes": cfg.num_nodes, "actors": resumed.universe.num_actors,
+           "cells": cfg.num_rows * cfg.num_cols,
+           "lines": len(feed.lines), "resumed_at_round": tok.rounds,
+           "resumed_at_chunk": tok.meta["twin"]["chunk_index"],
+           "bad_by_reason": resumed.report["bad_by_reason"],
+           "late_clears": resumed.report["late_clears"],
+           "late_applied": resumed.report["late_applied"],
+           "shadow_launches": launches,
+           "shadow_wall_s": resumed.wall_seconds,
+           "host_reads": resumed.host_reads,
+           "shadow": dict(got, match=(got == pins["shadow"]))}
+    path = os.path.join("bench_out", "twin_digests.fork.npz")
+    fork = fork_twin(resumed, path, chunk=TWIN_FORECAST["chunk"])
+    del resumed
+    fc = _forecast(fork, rec, TWIN_FORECAST)
+    got = twin_forecast_record(fc, fork.path, [
+        (lr.spec, lr.seed, state_to_numpy(lr.state), lr.metrics)
+        for lr in fc["sweep"].lanes])
+    rec.update(frontier_match=got["frontier"] == pins["frontier"],
+               trend_match=got["trend"] == pins["trend"],
+               lanes_match={k: v == pins["lanes"].get(k)
+                            for k, v in got["lanes"].items()})
+    launches += rec["forecast_launches"]
+    del fc
+    for f in (ckpt, path):
+        os.remove(f)
+    torch.cuda.empty_cache()
+    emit({"phase": "twin_digests", "launches": launches, **rec})
+    if not rec["shadow"]["match"]:
+        raise AssertionError("twin_digests: the resumed shadow differs from "
+                             "the JAX package's")
+    if rec["resumed_at_chunk"] != 1 or not 0 < tok.rounds:
+        raise AssertionError("twin_digests: the token is not the cursor of "
+                             "chunk 0's boundary")
+    if not (rec["frontier_match"] and rec["trend_match"]
+            and len(rec["lanes_match"]) == 4
+            and all(rec["lanes_match"].values())):
+        raise AssertionError("twin_digests: the forecast differs from the "
+                             "JAX package's")
+    if rec["bad_by_reason"] != feed.expected_bad(TWIN_DIGEST_CHUNK):
+        raise AssertionError("twin_digests: the quarantine tallies differ "
+                             "from the feed's hostile lines")
+    return launches
+
+
+def twin_10k_phase(emit) -> int:
+    """Phase ``twin_10k``: the Consul-schema feed ``TWIN_10K_FEED`` (128
+    actors × 24 versions over both tables' 512 rows × 6 columns, Zipf
+    1.1, 1-4 cells, conflicts, EmptySets, deletes and about 0.5 %
+    hostile lines) shadowed at 10 000 nodes with config 3's protocol
+    knobs, chunks of 2048 lines, quarantine on. The shadow must
+    converge with a final gap of 0, quarantine exactly the feed's
+    hostile lines, hold one table on every node, and decode node 0's to
+    the JAX package's table for the same feed (``TWIN_PINS``), with the
+    merge kernel launched. Then the forecast grid from its fork at
+    10 000 nodes (``TWIN_10K_FORECAST``: chunks of 16 rounds), one lane
+    held leaf for leaf to its serial ``run_sim`` resumed from the fork
+    token. Prints the host seconds of the scan,
+    ``probe_feed_heads``, ``validate_feed`` and the per-chunk encode,
+    the wall and host reads per round, the late clears and refreshes,
+    the forecast's clusters per second per device and the peak memory.
+    Returns the merge launches."""
+    import os
+
+    import torch
+
+    from corro_sim_torch.core import merge_kernel as mk
+    from corro_sim_torch.engine.driver import run_sim
+    from corro_sim_torch.engine.replay import read_table
+    from corro_sim_torch.engine.state import init_state
+    from corro_sim_torch.engine.twin import (
+        fork_twin,
+        probe_feed_heads,
+        run_twin,
+        twin_universe,
+    )
+    from corro_sim_torch.faults import InvariantChecker, ResilienceScorecard
+    from corro_sim_torch.io.traces import validate_feed
+    from corro_sim_torch.profile_slice import (
+        TWIN_10K_CHUNK,
+        TWIN_10K_FEED,
+        TWIN_10K_FORECAST,
+        TWIN_PINS,
+        table_digest,
+        twin_config,
+        twin_feed,
+        twin_match,
+        universe_view,
+    )
+
+    pins = TWIN_PINS["twin_10k"]
+    secs = {}
+    t0 = time.perf_counter()
+    feed = twin_feed(**TWIN_10K_FEED)
+    secs["generate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    uni = twin_universe(feed.lines, 0)
+    secs["scan"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    heads = probe_feed_heads(feed.lines, uni)
+    secs["probe_feed_heads"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bad = validate_feed(feed.lines, uni, chunk_lines=TWIN_10K_CHUNK)
+    secs["validate_feed"] = time.perf_counter() - t0
+    cfg = twin_config(uni, heads, 10000, TWIN_10K_CHUNK)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_twin(cfg=cfg, lines=feed.lines, seed=0, universe=uni,
+                   device="cuda")
+    torch.cuda.synchronize()
+    secs["run_twin_call"] = time.perf_counter() - t0
+    launches = mk.LAUNCHES["grouped_merge"]
+    peak = torch.cuda.max_memory_allocated()
+    chunks = res.report["chunks"]
+    t0 = time.perf_counter()
+    table = read_table(res.state, universe_view(res.universe), 0)
+    secs["read_table"] = time.perf_counter() - t0
+    rep = res.report
+    rec = {"nodes": cfg.num_nodes, "actors": uni.num_actors,
+           "rows": cfg.num_rows, "cols": cfg.num_cols,
+           "log_capacity": cfg.log_capacity, "lines": len(feed.lines),
+           "hostile": len(feed.malformed) + len(feed.copies),
+           "empties": feed.empties, "deletes": feed.deletes,
+           "validate_bad": len(bad), "rounds": res.rounds,
+           "feed_rounds": res.feed_rounds,
+           "converged_round": res.converged_round,
+           "final_gap": rep["final_gap"], "chunks": chunks,
+           "bad_by_reason": rep["bad_by_reason"],
+           "late_clears": rep["late_clears"],
+           "late_applied": rep["late_applied"],
+           "changes_applied": rep["changes_applied"],
+           "shadow_delivery": rep["shadow_delivery"],
+           "tables_agree": tables_agree(res.state.table),
+           "live_rows": len(table), "table": table_digest(table),
+           "table_match": table_digest(table) == pins["table"],
+           "shadow_launches": launches,
+           "sync_sweeps": int(res.state.sync_rounds),
+           "host_seconds": dict(secs, **{
+               f"run_{k}": v for k, v in res.seconds.items()}),
+           "encode_s_per_chunk": res.seconds["feed"] / max(chunks, 1),
+           "shadow_wall_s": res.wall_seconds,
+           "wall_per_round_ms": 1000.0 * res.wall_seconds / res.rounds,
+           "host_reads_per_round": res.host_reads / res.rounds,
+           "max_memory_allocated": peak}
+    os.makedirs("bench_out", exist_ok=True)
+    path = os.path.join("bench_out", "twin_10k.fork.npz")
+    t0 = time.perf_counter()
+    tok = fork_twin(res, path, chunk=TWIN_10K_FORECAST["chunk"])
+    rec["fork_s"] = time.perf_counter() - t0
+    del res
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fc = _forecast(tok, rec, TWIN_10K_FORECAST)
+    rec["forecast_call_s"] = time.perf_counter() - t0
+    launches += rec["forecast_launches"]
+    # one lane against its serial run resumed from the fork token
+    plan_lanes = fc["sweep"].lanes
+    lr = next(x for x in plan_lanes if x.spec.startswith("lossy")
+              and x.seed == 0)
+    from corro_sim_torch.config import FaultConfig, NodeFaultConfig
+    from corro_sim_torch.sweep.plan import build_plan
+
+    kw = dict(TWIN_10K_FORECAST)
+    base = dataclasses.replace(
+        tok.cfg, faults=FaultConfig(), node_faults=NodeFaultConfig(),
+        write_rate=0.0).validate()
+    plan = build_plan(base, kw["scenarios"], kw["seeds"],
+                      rounds=kw["rounds"], write_rounds=0, fork=tok)
+    lane = plan.lanes[lr.index]
+    for other in plan_lanes:
+        if other is not lr:
+            other.state = None
+    torch.cuda.empty_cache()
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    serial = run_sim(
+        lane.cfg, init_state(lane.cfg, seed=lane.seed, device="cuda"),
+        lane.scenario.schedule(), max_rounds=kw["max_rounds"],
+        chunk=kw["chunk"], seed=lane.seed, min_rounds=lane.min_rounds,
+        device="cuda",
+        invariants=InvariantChecker(lane.cfg, round_offset=plan.fork_round),
+        scorecard=ResilienceScorecard(lane.cfg, scenario=lane.scenario,
+                                      round_offset=plan.fork_round),
+        resume=tok.refit(lane.cfg, lane.seed, kw["chunk"]))
+    torch.cuda.synchronize()
+    rec["serial_call_s"] = time.perf_counter() - t0
+    launches += mk.LAUNCHES["grouped_merge"]
+    rec["serial_lane"] = dict(twin_match(lr, serial),
+                              lane=f"{lane.spec}@{lane.seed}",
+                              sim_s=serial.wall_seconds,
+                              resilience_equal=(serial.resilience
+                                                == lr.resilience))
+    del fc, serial, lr, plan_lanes
+    os.remove(path)
+    torch.cuda.empty_cache()
+    emit({"phase": "twin_10k", "launches": launches, **rec})
+    if (rec["converged_round"] is None or rec["final_gap"] != 0.0
+            or not rec["tables_agree"]):
+        raise AssertionError("twin_10k: the shadow did not converge to one "
+                             "table on every node")
+    if rec["bad_by_reason"] != feed.expected_bad(TWIN_10K_CHUNK):
+        raise AssertionError("twin_10k: the quarantine tallies differ from "
+                             "the feed's hostile lines")
+    if not rec["table_match"] or rec["live_rows"] != pins["live_rows"]:
+        raise AssertionError("twin_10k: node 0's table differs from the JAX "
+                             "package's")
+    if rec["shadow_launches"] == 0 or rec["shadow_launches"] != (
+            rec["sync_sweeps"]):
+        raise AssertionError("twin_10k: expected one merge launch per sync "
+                             "sweep")
+    if not all(d["converged_round"] is not None and d["rows_lost"] == 0
+               for d in rec["lanes_detail"]):
+        raise AssertionError("twin_10k: a forecast lane did not converge "
+                             "or lost a row")
+    if not (rec["serial_lane"]["match"]
+            and rec["serial_lane"]["resilience_equal"]):
+        raise AssertionError("twin_10k: the forecast lane differs from its "
+                             "serial fork resume")
     return launches
 
 
@@ -1711,6 +2033,11 @@ def main() -> int:
     fault_launches["config8_1024"] = config8_1024_phase(emit)
     fault_launches["checkpoint_10k"] = checkpoint_phase(emit, soak_ref)
     del soak_ref
+
+    # ------- the digital twin: a Consul-schema feed shadowed, resumed and
+    # forecast at 256 nodes against the JAX package's pins, then at 10k
+    fault_launches["twin_digests"] = twin_digest_phase(emit)
+    fault_launches["twin_10k"] = twin_10k_phase(emit)
 
     by_path = {label: rec["launches"]["grouped_merge"] for label, rec in (
         ("slice", slice_rec), ("swim_slice", swim_rec), ("config3", c3_rec),

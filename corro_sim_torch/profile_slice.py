@@ -702,8 +702,8 @@ def config8_plan(seeds, n: int = 256, scenarios=CONFIG8_SCENARIOS):
 # (base the SimConfig of config8_lane_config(256)); CONFIG8_FRONTIERS
 # holds, by seed count, the sha256 of json.dumps(build_frontier(
 # res.lanes), sort_keys=True) of that run and of the same run over
-# range(4) (whose lanes equal the first four seeds' here). A lane of a
-# compacted or pipelined run reports the same.
+# range(4), range(2) and range(1) (whose lanes equal the first seeds'
+# here). A lane of a compacted or pipelined run reports the same.
 SWEEP_PINS = {
     "lossy:p=0.1@0": (
         "abb41c681c6dcb9bfda34bc321f47a3bd61424b6603fb229d92966850fa4d094",
@@ -805,6 +805,8 @@ SWEEP_PINS = {
 CONFIG8_FRONTIERS = {
     8: "50881eaf133f93cb90f96652ac544773a0bd1e6f4799b66274d49c2d7a07e55f",
     4: "b3a8a91b2fe62fd612af7314db5a15da1a9ee5372b7192d5e5964c195506856a",
+    2: "a0e9ff1309dd8434524a7af3030b9c1e86f7f92526743795cf684bae2dc611ed",
+    1: "3ad5e0dfb01ba54e529af60b2be6a81f2f493c8456178ab2f3c8892de5ea5a10",
 }
 
 
@@ -914,6 +916,336 @@ def token_case(device=None) -> tuple:
     if device is not None:
         run_kw["device"] = device
     return cfg, sc.schedule(), run_kw
+
+
+# ------------------------------------------------------ the digital twin
+# Consul's two tables (corro_sim_torch.schema.consul_schema_sql()) with
+# their six value columns each, in declaration order, and the pk prefix
+# of each table's ids.
+TWIN_TABLES = (
+    ("consul_services", "svc",
+     ("name", "tags", "meta", "port", "address", "updated_at")),
+    ("consul_checks", "chk",
+     ("service_id", "service_name", "name", "status", "output",
+      "updated_at")),
+)
+_TAGS = ('[]', '["prod"]', '["prod","edge"]', '["canary"]')
+_STATUS = ("passing", "warning", "critical")
+
+
+def _twin_value(table: str, col: int, rng, ts: int):
+    """A Consul-shaped value for column ``col`` of ``table``."""
+    if col == 5:
+        return ts  # updated_at
+    if table == "consul_services":
+        return (f"svc-{rng.integers(32)}",
+                _TAGS[rng.integers(len(_TAGS))],
+                f'{{"app_id": {rng.integers(64)}}}',
+                int(rng.integers(8000, 8064)),
+                f"10.{rng.integers(4)}.{rng.integers(16)}."
+                f"{rng.integers(256)}")[col]
+    return (f"svc-{rng.integers(256)}", f"svc-{rng.integers(32)}",
+            f"check-{rng.integers(16)}", _STATUS[rng.integers(3)],
+            f"HTTP GET: {(200, 500, 503)[rng.integers(3)]}")[col]
+
+
+@dataclasses.dataclass
+class TwinFeed:
+    """A synthetic changeset feed (:func:`twin_feed`) and what it
+    holds."""
+
+    lines: list  # ND-JSON lines, each ending in a newline
+    malformed: list  # indexes of the malformed lines
+    copies: list  # (index, index of the line it repeats) pairs
+    empties: int  # EmptySet lines (overwritten versions cleared)
+    deletes: int  # changesets that delete a row (__crsql_del)
+    rows: int  # primary keys written, both tables
+
+    def expected_bad(self, chunk_lines: int) -> dict:
+        """The quarantine tallies of a shadow that consumes the feed in
+        chunks of ``chunk_lines``: each malformed line; a copy in its
+        original's chunk is a duplicate, in a later chunk a stale
+        version."""
+        dup = sum(i // chunk_lines == j // chunk_lines
+                  for i, j in self.copies)
+        out = {"malformed": len(self.malformed), "duplicate": dup,
+               "stale_version": len(self.copies) - dup}
+        return {k: v for k, v in out.items() if v}
+
+
+def twin_feed(seed: int, actors: int, versions: int, keys: int = 256,
+              zipf: float = 1.1, hostile: float = 0.005,
+              clear_rate: float = 0.05, delete_rate: float = 0.02,
+              conflict_rate: float = 0.1) -> TwinFeed:
+    """A seeded Consul-schema changeset feed in the JAX package's trace
+    format (:func:`corro_sim_torch.io.traces.dump_changeset`; numpy and
+    the standard library only, so the JAX package reads the same text).
+
+    ``actors`` writers emit ``versions`` changesets each, interleaved by
+    version (every actor's version ``v`` in a seeded order, then
+    ``v + 1``). Both Consul tables hold ``keys`` primary keys; every row
+    is first inserted in full by one actor (two changesets of three
+    cells), then updated: rows chosen Zipf(``zipf``) over a seeded
+    order (the skew of config 3), 1-4 cells per changeset. Col versions
+    climb per cell; a ``conflict_rate`` share of writes reuse the cell's
+    current col version (a concurrent write from the same base, settled
+    by the value order), so actors conflict. A ``delete_rate`` share of
+    updates delete their row (``__crsql_del``, the causal length made
+    even; the next write resurrects it). A ``clear_rate`` share of
+    updates overwrite the actor's previous update cell for cell and
+    are followed by an EmptySet of the overwritten version (it lands in
+    the same chunk or later, a late clear). Then a ``hostile`` share of
+    lines is added, in thirds: malformed (a truncated line), duplicates
+    (a Full changeset repeated right after itself) and stale versions
+    (one repeated 4096 lines later, or last)."""
+    from corro_sim_torch.io.traces import dump_changeset
+
+    rng = np.random.default_rng(seed)
+    ids = [f"{a:08x}-7417-4000-8000-{seed:012x}" for a in range(actors)]
+    rows = [(table, (f"node-{k % 32}", f"{prefix}-{k}"), table)
+            for table, prefix, _ in TWIN_TABLES for k in range(keys)]
+    cols = {table: names for table, _, names in TWIN_TABLES}
+    n_rows = len(rows)
+    weights = np.empty(n_rows)
+    weights[rng.permutation(n_rows)] = (
+        1.0 / np.arange(1, n_rows + 1) ** zipf)
+    weights /= weights.sum()
+    cv = np.zeros((n_rows, 6), np.int64)
+    cl = np.zeros(n_rows, np.int64)
+    inserts: dict = {a: [] for a in range(actors)}
+    for r in range(n_rows):
+        inserts[r % actors] += [(r, (0, 1, 2)), (r, (3, 4, 5))]
+    if max(len(v) for v in inserts.values()) > versions:
+        raise ValueError(f"{versions} versions cannot hold the inserts of "
+                         f"{n_rows} rows by {actors} actors")
+    base: list = []  # (line, (actor, version) or None)
+    last_update: dict = {}  # actor -> (version, row, cols)
+    cleared: set = set()
+    deletes = empties = 0
+
+    def cell(r, j, ts, concurrent=True):
+        table, pk, _ = rows[r]
+        c = int(cv[r, j])
+        new = (c if concurrent and c > 0 and rng.random() < conflict_rate
+               else c + 1)
+        cv[r, j] = max(c, new)
+        return (table, pk, cols[table][j], _twin_value(table, j, rng, ts),
+                new, int(cl[r]))
+
+    for v in range(1, versions + 1):
+        for a in (int(x) for x in rng.permutation(actors)):
+            ts = 1000 + len(base)
+            over = None
+            if inserts[a]:
+                r, js = inserts[a].pop(0)
+                cl[r] += 1 - cl[r] % 2  # live (resurrected if deleted)
+                cells = [cell(r, j, ts) for j in js]
+            elif a in last_update and rng.random() < clear_rate:
+                over, r, js = last_update.pop(a)
+                cl[r] += 1 - cl[r] % 2
+                cells = [cell(r, j, ts, concurrent=False) for j in js]
+                last_update[a] = (v, r, js)
+            else:
+                r = int(rng.choice(n_rows, p=weights))
+                if cl[r] % 2 == 1 and rng.random() < delete_rate:
+                    cl[r] += 1
+                    table, pk, _ = rows[r]
+                    cells = [(table, pk, "__crsql_del", None, 1,
+                              int(cl[r]))]
+                    deletes += 1
+                    last_update.pop(a, None)
+                else:
+                    cl[r] += 1 - cl[r] % 2
+                    js = tuple(sorted(rng.choice(
+                        6, int(rng.integers(1, 5)), replace=False)))
+                    cells = [cell(r, int(j), ts) for j in js]
+                    last_update[a] = (v, r, js)
+            base.append((dump_changeset(ids[a], v, ts, cells) + "\n",
+                         (a, v)))
+            if over is not None:
+                cleared.add((a, over))
+                empties += 1
+                base.append((json.dumps({
+                    "actor_id": ids[a], "versions": [over, over],
+                    "ts": 1000 + len(base)}) + "\n", None))
+    # the hostile lines, placed after chosen base lines
+    n_bad = int(round(hostile * len(base)))
+    full = [i for i, (_, key) in enumerate(base)
+            if key is not None and key not in cleared]
+    picks = rng.choice(len(full), size=n_bad, replace=False)
+    after: dict = {}  # base index -> [(line, kind, original index)]
+    for k, p in enumerate(picks):
+        i = full[int(p)]
+        line = base[i][0]
+        if k % 3 == 0:
+            after.setdefault(i, []).append(
+                (line[:len(line) // 2] + "\n", "malformed", None))
+        elif k % 3 == 1:
+            after.setdefault(i, []).append((line, "copy", i))
+        else:
+            at = min(i + 4096, len(base) - 1)
+            after.setdefault(at, []).append((line, "copy", i))
+    lines, malformed, copies, where = [], [], [], {}
+    for i, (line, _) in enumerate(base):
+        where[i] = len(lines)
+        lines.append(line)
+        for bad, kind, orig in after.get(i, ()):
+            if kind == "malformed":
+                malformed.append(len(lines))
+            else:
+                copies.append((len(lines), where[orig]))
+            lines.append(bad)
+    return TwinFeed(lines=lines, malformed=malformed, copies=copies,
+                    empties=empties, deletes=deletes, rows=n_rows)
+
+
+def twin_config(universe, heads, n: int, chunk_lines: int,
+                skip_bad: bool = True, drain_rounds: int = 4096,
+                **overrides) -> SimConfig:
+    """The shadow's configuration for a feed: its universe's shape (the
+    log ring sized by the feed's final horizons ``heads``,
+    ``probe_feed_heads``) at ``n`` nodes, with config 3's protocol knobs
+    (full-view SWIM, a sync sweep every 8 rounds, 16 actors per
+    peer)."""
+    from corro_sim_torch.config import TwinConfig
+
+    cfg = universe.suggest_config(
+        rounds=int(heads.max(initial=0)) + 1, num_nodes=n,
+        swim_enabled=True, sync_interval=8, sync_actor_topk=16,
+        **overrides)
+    return dataclasses.replace(cfg, twin=TwinConfig(
+        enabled=True, chunk_lines=chunk_lines, skip_bad=skip_bad,
+        drain_rounds=drain_rounds)).validate()
+
+
+def feed_config(lines, n: int, chunk_lines: int, **kw) -> SimConfig:
+    """:func:`twin_config` of a whole feed, scanned whole."""
+    from corro_sim_torch.engine.twin import probe_feed_heads, twin_universe
+
+    uni = twin_universe(lines, 0)
+    return twin_config(uni, probe_feed_heads(lines, uni), n, chunk_lines,
+                       **kw)
+
+
+# chip_smoke.py's twin phases. "twin_digests": a feed of 64 actors ×
+# 16 versions over 32 keys of each Consul table (64 rows × 6 columns: a
+# cell space the merge kernel takes) shadowed at 256 nodes in chunks of
+# 256 lines, a cursor token every chunk, then the forecast grid of the
+# JAX package's tests/test_twin.py from the fork. "twin_10k": a feed of
+# 128 actors × 24 versions over 256 keys of each table (512 rows × 6
+# columns) shadowed at 10 000 nodes in chunks of 2048 lines, quarantine
+# on, then the same grid at 10 000 nodes. 128 actors, not 1024: the
+# JAX package's pinned table comes from its shadow at 256 nodes (a
+# shadow holds at most one actor per node), and a wiped node re-syncs
+# every actor's history at 16 actors a sweep, so the forecast's crash
+# lanes take rounds in proportion to the actors (224-232 rounds at 10k
+# with 256 actors), beyond chip_smoke.py's time budget.
+TWIN_DIGEST_FEED = dict(seed=0, actors=64, versions=16, keys=32)
+TWIN_DIGEST_NODES, TWIN_DIGEST_CHUNK = 256, 256
+TWIN_10K_FEED = dict(seed=0, actors=128, versions=24, keys=256)
+TWIN_10K_CHUNK = 2048
+TWIN_PIN_NODES = 256  # where the JAX package ran the 10k feed
+TWIN_FORECAST = dict(scenarios=["lossy:p=0.3",
+                                "crash_amnesia:nodes=2,at=4,down=4"],
+                     seeds=[0, 1], rounds=32, max_rounds=256, chunk=8)
+# the same grid at 10 000 nodes, in chunks of 16 rounds: the checkers
+# read each lane's (N, N) heads and SWIM statuses once a chunk, so at
+# 10k their host seconds follow the chunk count
+TWIN_10K_FORECAST = dict(TWIN_FORECAST, max_rounds=512, chunk=16)
+TWIN_THRESHOLDS = {"twin_forecast": {
+    "default": {"require_converged": True, "rows_lost_max": 0},
+    "scenarios": {"crash_amnesia": {"recovery_rounds_worst_max": 48}},
+}}
+
+
+# What the JAX package's runs on the CPU of chip_smoke.py's twin phases
+# report (tests/test_torch_twin.py::jax_twin_pins holds the recipe,
+# about 90 s): "twin_digests" the shadow's twin_shadow_record and the
+# forecast's twin_forecast_record; "twin_10k" node 0's decoded table
+# after the 10k feed is shadowed at TWIN_PIN_NODES nodes (a converged
+# table depends on the feed, not on the node count), its live rows, the
+# quarantine tallies and the rounds that shadow took there.
+TWIN_PINS = {
+    "twin_digests": {
+        "shadow": {
+            "digest": "47be9bae8faf9f7c4fa9bf1681fa410d4287dd88d33d61dc7602662263919dbf",
+            "headlines": "a3e0920c613587e42364a555bfc5a9b8213a321eec27c7040e19bb6d2f816e2c",
+            "report": "5663e17d618d5ee4017d43fab6f76d2dc01cc9bc0129f2030b2a9032f8be0842",
+            "rounds": 120,
+            "converged_round": 120,
+        },
+        "frontier": "32fc994726626b3d6aa47267eb68275ac3cd9f74ce2f9b87545db3fe9d6a00b9",
+        "trend": "d0a571ec50a629875e6f8422a0bf22e2732ff6eaf204d3ab6346c8db710b22ec",
+        "lanes": {
+            "lossy:p=0.3@0":
+                "dcfbebbe6314a111fc4e19f59e2a369ae7f13db83fc44ced1cf052e2d86cc6b6",
+            "lossy:p=0.3@1":
+                "02b26f5d85cf11ecb1d544b729b7358925428f74192ec8a997bc89cda5b58ba3",
+            "crash_amnesia:at=4,down=4,jump=0,nodes=2@0":
+                "9a83bffee841619a8ab4489e32ec4533d0f2884a023e84180bb4623145430922",
+            "crash_amnesia:at=4,down=4,jump=0,nodes=2@1":
+                "44220d57a9635305abe961648ef9df76d8eb67aad74b8a8671fcd38a3a719498",
+        },
+    },
+    "twin_10k": {
+        "table": "3084a79c9b461d3fb6b8ef5c504bffe258312a3659038f047b80ef1739bcad6c",
+        "live_rows": 507,
+        "bad_by_reason": {"duplicate": 6, "malformed": 6, "stale_version": 4},
+        "rounds_at_256": 328,
+    },
+}
+
+
+def _json_digest(obj) -> str:
+    return hashlib.sha256(
+        json.dumps(obj, sort_keys=True, default=str).encode()).hexdigest()
+
+
+def twin_shadow_record(leaves: dict, result) -> dict:
+    """A shadow's outcome as its pin holds it: the run digest of its
+    state ``leaves`` (flattened as ``run_digest`` reads them) and metric
+    series, the digests of its headlines and of its report (the feed's
+    name left out), its rounds and converged round."""
+    return {
+        "digest": run_digest(leaves, result.metrics),
+        "headlines": _json_digest(result.headlines),
+        "report": _json_digest({k: v for k, v in result.report.items()
+                                if k != "feed"}),
+        "rounds": result.rounds,
+        "converged_round": result.converged_round,
+    }
+
+
+def twin_forecast_record(block: dict, fork_path: str, lanes) -> dict:
+    """A forecast's outcome as its pin holds it: the digests of its
+    frontier and trend (the fork's path made neutral) and each lane's
+    ``run_digest``, from ``lanes``: ``(spec, seed, leaves, metrics)``."""
+    def neutral(obj):
+        return json.loads(json.dumps(obj, sort_keys=True, default=str)
+                          .replace(fork_path, "<fork>"))
+
+    return {
+        "frontier": _json_digest(neutral(block["frontier"])),
+        "trend": _json_digest(neutral(block["trend"])),
+        "lanes": {f"{spec}@{seed}": run_digest(leaves, metrics)
+                  for spec, seed, leaves, metrics in lanes},
+    }
+
+
+def table_digest(table: dict) -> str:
+    """sha256 of a decoded table (``read_table``'s ``{(table, pk):
+    {cid: value}}``) in sorted order."""
+    items = sorted((repr(k), sorted(v.items())) for k, v in table.items())
+    return hashlib.sha256(repr(items).encode()).hexdigest()
+
+
+def universe_view(universe):
+    """What ``read_table`` reads of a trace, from a twin's universe."""
+    import types
+
+    return types.SimpleNamespace(row_keys=universe.row_keys,
+                                 col_keys=universe.col_triples(),
+                                 values=universe.values)
 
 
 # The replay fixtures: (path in the repository, config overrides on the

@@ -3,7 +3,8 @@
 The part of ``corro_sim/utils/metrics.py`` that ``run_sim`` and
 ``run_sweep`` write to: :data:`counters`, :data:`histograms` (the
 reference exporter's ``SECONDS_BUCKETS``), :data:`gauges`, and the names
-of the chunk-pipeline and fleet-sweep series; each
+of the chunk-pipeline, fleet-sweep and digital-twin series (the twin's
+help strings are the JAX package's, word for word); each
 registry keeps its series by ``(name, labels)``, labels in the
 Prometheus text format (``'{reason="converged"}'``).
 """
@@ -65,6 +66,72 @@ SWEEP_RECOVERY_ROUNDS = "corro_sweep_recovery_rounds"
 SWEEP_RECOVERY_ROUNDS_HELP = (
     "per-lane heal -> re-convergence rounds by frontier cell "
     "(scenario spec + knob suffix; corro_sim_torch/sweep/engine.py)"
+)
+
+# ---- corro_twin_*: the digital twin (engine/twin.py, io/feedsource.py):
+#   corro_twin_feed_lines_total        feed lines consumed (good + bad)
+#   corro_twin_bad_lines_total{reason} quarantined hostile feed lines by
+#                                      reason (io/traces.py BAD_REASONS)
+#   corro_twin_chunks_total            feed chunks shadowed
+#   corro_twin_rounds_total            shadow sim rounds (feed + drain)
+#   corro_twin_checkpoints_total       feed-cursor checkpoints written
+#   corro_twin_resumes_total           shadows resumed from a cursor
+#   corro_twin_forecast_lanes_total{scenario}
+#                                      what-if lanes raced from a fork
+#   corro_twin_delivery_rounds         histogram: shadowed delivery p99
+#                                      in rounds (ROUNDS_BUCKETS)
+# and of the live tail and the stale-universe refresh:
+#   corro_twin_tail_polls_total{source}    polls by a live source
+#                                          (file|http)
+#   corro_twin_tail_retries_total{source}  jittered-backoff retries
+#   corro_twin_tail_rotations_total        feed rotations re-bound
+#   corro_twin_tail_source_deaths_total{reason}
+#                                          sources declared dead
+#   corro_twin_tail_lag_lines              gauge: lines buffered ahead of
+#                                          the shadow's cursor
+#   corro_twin_refresh_total{trigger}      closed-world re-freezes
+#   corro_twin_refresh_epoch               gauge: current refresh epoch
+TWIN_BAD_LINES_TOTAL = "corro_twin_bad_lines_total"
+TWIN_BAD_LINES_HELP = (
+    "hostile feed lines quarantined by the twin shadow, by reason "
+    "(corro_sim/io/traces.py)"
+)
+TWIN_FEED_LINES_TOTAL = "corro_twin_feed_lines_total"
+TWIN_DELIVERY_ROUNDS = "corro_twin_delivery_rounds"
+TWIN_FORECAST_LANES_TOTAL = "corro_twin_forecast_lanes_total"
+TWIN_TAIL_POLLS_TOTAL = "corro_twin_tail_polls_total"
+TWIN_TAIL_POLLS_HELP = (
+    "live feed polls issued, by source kind (corro_sim/io/feedsource.py)"
+)
+TWIN_TAIL_RETRIES_TOTAL = "corro_twin_tail_retries_total"
+TWIN_TAIL_RETRIES_HELP = (
+    "jittered exponential-backoff retries against a missing or failing "
+    "live feed source (corro_sim/io/feedsource.py)"
+)
+TWIN_TAIL_ROTATIONS_TOTAL = "corro_twin_tail_rotations_total"
+TWIN_TAIL_ROTATIONS_HELP = (
+    "feed-file rotations the tail re-bound to (inode changed under the "
+    "consumed-prefix sha guard; corro_sim/io/feedsource.py)"
+)
+TWIN_TAIL_SOURCE_DEATHS_TOTAL = "corro_twin_tail_source_deaths_total"
+TWIN_TAIL_SOURCE_DEATHS_HELP = (
+    "live feed sources declared dead, by reason (idle_timeout|"
+    "source_gone|reconnect_budget|truncated; corro_sim/io/feedsource.py)"
+)
+TWIN_TAIL_LAG_LINES = "corro_twin_tail_lag_lines"
+TWIN_TAIL_LAG_LINES_HELP = (
+    "feed lines buffered ahead of the shadow's cursor (bounded by "
+    "twin.max_lag_lines; corro_sim/engine/twin.py)"
+)
+TWIN_REFRESH_TOTAL = "corro_twin_refresh_total"
+TWIN_REFRESH_HELP = (
+    "stale-universe re-freezes (scheduled re-key events), by trigger "
+    "(corro_sim/engine/twin.py)"
+)
+TWIN_REFRESH_EPOCH = "corro_twin_refresh_epoch"
+TWIN_REFRESH_EPOCH_HELP = (
+    "current closed-world refresh epoch of the running twin shadow "
+    "(corro_sim/engine/twin.py)"
 )
 ROUNDS_BUCKETS = (
     0.0, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0, 24.0, 32.0, 48.0,

@@ -15,7 +15,8 @@ write sampler:
 :func:`workload_as_injection` maps a first-write workload schedule into
 the trace form, so "replay a synthesized workload" and "run the
 workload through the step's writes port" are the same path (the parity
-tests pin the final states equal).
+tests pin the final states equal); :func:`trace_workload` folds a live
+feed's encoded chunks back into a workload tape.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ __all__ = [
     "inject_round",
     "pad_trace_cells",
     "trace_round_args",
+    "trace_workload",
     "workload_as_injection",
 ]
 
@@ -153,6 +155,95 @@ def inject_round(
     return dataclasses.replace(
         state, table=table, book=book, log=log, own=own, gossip=gossip,
         cleared_hlc=cleared_hlc,
+    )
+
+
+def trace_workload(chunks, cfg: SimConfig):
+    """The inverse of :func:`workload_as_injection`: fold a live feed's
+    encoded chunks (:class:`~corro_sim_torch.io.traces.StreamChunk`)
+    back into a :class:`~corro_sim_torch.workload.generators.Workload`
+    tape — the
+    coupled-load half of the twin's cadence re-fork loop: the trailing
+    window the shadow just absorbed replays INTO every forecast lane, so
+    recovery is graded under the live traffic, not against a quiet
+    cluster.
+
+    The workload write port is narrower than a raw changeset, so the
+    fold is lossy at the edges — each loss is dropped and COUNTED (the
+    ``trace_window`` event carries the tallies), never silently kept
+    wrong:
+
+    - EmptySets and pure-DELETE changesets carry causal history the
+      port cannot stamp; the changeset is dropped (``dropped_sets``).
+    - a changeset spans several rows but the port writes one row per
+      changeset; cells off the first row are dropped
+      (``dropped_cells``), as are tombstone lanes (``vr == NEG``) mixed
+      into a value changeset.
+
+    Returns ``None`` when the window folds to zero writes (nothing to
+    couple — the caller forecasts uncoupled rather than replaying an
+    empty tape).
+    """
+    from corro_sim_torch.workload.generators import Workload
+
+    n = cfg.num_nodes
+    rows_out: list = []  # per round: (writers, rows, cells[a] lists)
+    dropped_sets = dropped_cells = 0
+    for ch in chunks:
+        a_n = ch.valid.shape[1]
+        for r in range(ch.rounds):
+            writers = np.zeros((n,), bool)
+            rrow = np.zeros((n,), np.int32)
+            cells: dict = {}
+            for a in range(a_n):
+                if not ch.valid[r, a] or ch.empty[r, a]:
+                    dropped_sets += int(bool(ch.valid[r, a]))
+                    continue
+                nc = int(ch.ncells[r, a])
+                keep = [
+                    (int(ch.col[r, a, c]), int(ch.vr[r, a, c]))
+                    for c in range(nc)
+                    if ch.vr[r, a, c] != NEG
+                    and ch.row[r, a, c] == ch.row[r, a, 0]
+                ]
+                dropped_cells += nc - len(keep)
+                if not keep:
+                    dropped_sets += 1
+                    continue
+                writers[a] = True
+                rrow[a] = int(ch.row[r, a, 0])
+                cells[a] = keep
+            if writers.any():
+                rows_out.append((writers, rrow, cells))
+    if not rows_out:
+        return None
+    rounds = len(rows_out)
+    s = max(
+        max(len(c) for _, _, cells in rows_out for c in cells.values()),
+        1,
+    )
+    writers = np.zeros((rounds, n), bool)
+    rows = np.zeros((rounds, n), np.int32)
+    cols = np.zeros((rounds, n, s), np.int32)
+    vals = np.zeros((rounds, n, s), np.int32)
+    ncells = np.zeros((rounds, n), np.int32)
+    for r, (w, rrow, cells) in enumerate(rows_out):
+        writers[r] = w
+        rows[r] = rrow
+        for a, keep in cells.items():
+            ncells[r, a] = len(keep)
+            for c, (col, vr) in enumerate(keep):
+                cols[r, a, c] = col
+                vals[r, a, c] = vr
+    return Workload(
+        name="trace_window",
+        params={"rounds": rounds, "writes": int(writers.sum())},
+        rounds=rounds, n=n, writers=writers, rows=rows, cols=cols,
+        vals=vals, dels=np.zeros((rounds, n), bool), ncells=ncells,
+        events=[(0, "trace_window", {
+            "dropped_sets": dropped_sets,
+            "dropped_cells": dropped_cells,
+        })],
     )
 
 

@@ -47,7 +47,9 @@ def test_port_imports_without_jax():
         " 'corro_sim_torch.obs.probes', 'corro_sim_torch.io.checkpoint',"
         " 'corro_sim_torch.sweep', 'corro_sim_torch.sweep.knobs',"
         " 'corro_sim_torch.sweep.plan', 'corro_sim_torch.sweep.engine',"
-        " 'corro_sim_torch.sweep.frontier', 'corro_sim_torch.obs.lanes')"
+        " 'corro_sim_torch.sweep.frontier', 'corro_sim_torch.obs.lanes',"
+        " 'corro_sim_torch.utils.ranks', 'corro_sim_torch.schema',"
+        " 'corro_sim_torch.io.feedsource', 'corro_sim_torch.engine.twin')"
         " if m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

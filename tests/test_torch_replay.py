@@ -155,8 +155,21 @@ def test_ingest_matches_the_jax_package(name):
 
 
 def test_ingest_refuses_layouts_and_duplicates():
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        p_traces.ingest([], layout=object())
+    """Schema-driven ingest refuses a table the layout does not hold, as
+    the JAX package's does; a duplicated version is refused."""
+    from corro_sim_torch.schema import (
+        SchemaError,
+        TableLayout,
+        parse_and_constrain,
+    )
+
+    lay = TableLayout(parse_and_constrain(
+        "CREATE TABLE t (id INTEGER PRIMARY KEY, v TEXT);"))
+    bad = p_traces.dump_changeset(
+        "00000000-0000-0000-0000-000000000000", 1, 0,
+        [("nope", (1,), "v", "x", 1, 1)])
+    with pytest.raises(SchemaError, match="no such"):
+        p_traces.ingest([bad], layout=lay)
     line = TRACES["flyio_small"].read_text().splitlines()[0]
     with pytest.raises(ValueError, match="duplicate version"):
         p_traces.ingest([line, line])
