@@ -62,8 +62,19 @@ resumed from its cursor token, and forecast from its fork under the
 what-if grid, each held to the JAX package's pins ("twin_digests"); and
 a Consul-schema feed of 128 actors shadowed at 10 000 nodes to one
 converged table, the JAX package's, then forecast from its fork at
-10 000 nodes with one lane held to its serial fork resume
-("twin_10k"). Every phase
+10 000 nodes (seed 0's two lanes) with one lane held to its serial
+fork resume ("twin_10k"). Then the subscription engine
+(``corro_sim_torch.subs``): that feed without its hostile lines replayed
+on the card cut after 8 rounds and to convergence (the merge kernel on
+the sync sweeps), and config 6's live-half population — 64 matchers
+(32 Consul-sync queries on two observers each) and 1024 subscribers
+through ``SubsManager.get_or_insert`` — primed on the cut table and
+stepped on the converged one: at 256 nodes, every initial and step event
+held to the JAX package's digests ("subs_digests"); at 10 000 nodes,
+batched evaluation against single, every plain matcher's mask against
+the host SQL oracle, the observers of each query against each other, and
+the host seconds, group dispatches and device→host reads per step
+("subs_10k"). Every phase
 prints one JSON line with its seconds; any failure raises and exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside the repository, it exits non-zero and
@@ -77,6 +88,7 @@ import dataclasses
 import json
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -942,6 +954,212 @@ def twin_10k_phase(emit) -> int:
             and rec["serial_lane"]["resilience_equal"]):
         raise AssertionError("twin_10k: the forecast lane differs from its "
                              "serial fork resume")
+    return launches
+
+
+def subs_tables(n: int) -> tuple:
+    """The subscription phases' table: ``SUBS_FEED`` without its hostile
+    lines, ingested against the Consul schema and replayed at ``n``
+    nodes on the card, cut after ``SUBS_CUT_ROUNDS`` rounds and to
+    convergence. Returns the layout, the trace, the two replay results
+    (their states cut down to the table), the host seconds and the merge
+    launches of the replays."""
+    import torch
+
+    from corro_sim_torch.core import merge_kernel as mk
+    from corro_sim_torch.engine.replay import replay
+    from corro_sim_torch.io.traces import ingest
+    from corro_sim_torch.profile_slice import (
+        SUBS_CUT_ROUNDS,
+        SUBS_FEED,
+        SUBS_MAX_ROUNDS,
+        subs_capacities,
+        subs_lines,
+        twin_feed,
+    )
+    from corro_sim_torch.schema import (
+        TableLayout,
+        consul_schema_sql,
+        parse_and_constrain,
+    )
+
+    secs = {}
+    t0 = time.perf_counter()
+    lines = subs_lines(twin_feed(**SUBS_FEED))
+    lay = TableLayout(parse_and_constrain(consul_schema_sql()),
+                      capacities=subs_capacities(SUBS_FEED["keys"]))
+    tr = ingest(lines, layout=lay)
+    secs["ingest"] = time.perf_counter() - t0
+    cfg = tr.suggest_config(num_nodes=n)
+    mk.reset_launch_counts()
+    out = []
+    for label, rounds in (("cut", SUBS_CUT_ROUNDS),
+                          ("full", SUBS_MAX_ROUNDS)):
+        t0 = time.perf_counter()
+        res = replay(tr, cfg, max_rounds=rounds, device="cuda")
+        torch.cuda.synchronize()
+        secs[f"replay_{label}"] = time.perf_counter() - t0
+        res.state = types.SimpleNamespace(table=res.state.table,
+                                          sync_rounds=res.state.sync_rounds)
+        torch.cuda.empty_cache()
+        out.append(res)
+    return lay, tr, out[0], out[1], secs, mk.LAUNCHES["grouped_merge"]
+
+
+def subs_digest_phase(emit) -> int:
+    """Phase ``subs_digests``: the subscription population at
+    ``SUBS_PIN_NODES`` nodes — 64 matchers (32 queries × 2 observers)
+    registered by 1024 subscribers through ``SubsManager.get_or_insert``
+    on the cut table, then one step on the converged table — its initial
+    and step events held to the JAX package's (``SUBS_PINS``), with the
+    replays' rounds and the merge kernel launched. Returns the merge
+    launches."""
+    from corro_sim_torch import subs
+    from corro_sim_torch.profile_slice import (
+        SUBS_FEED,
+        SUBS_PIN_NODES,
+        SUBS_PINS,
+        SUBS_SEED,
+        subs_drive,
+        subs_queries,
+        subs_record,
+        subs_subscribers,
+    )
+
+    lay, tr, cut, full, secs, launches = subs_tables(SUBS_PIN_NODES)
+    subscribers = subs_subscribers(
+        subs_queries(SUBS_SEED, SUBS_PIN_NODES, SUBS_FEED["keys"]),
+        SUBS_SEED)
+    run = subs_drive(subs, lay, tr, cut.state.table, full.state.table,
+                     subscribers)
+    got = dict(subs_record(run), cut_rounds=cut.rounds,
+               converged_round=full.converged_round)
+    pins = SUBS_PINS["subs_digests"]
+    rec = {"nodes": SUBS_PIN_NODES, "subscribers": len(subscribers),
+           **got, "match": {k: got[k] == v for k, v in pins.items()
+                            if k in got},
+           "sync_sweeps": int(full.state.sync_rounds),
+           "host_seconds": dict(secs, prime=run["prime_s"],
+                                step=run["step_s"])}
+    emit({"phase": "subs_digests", "launches": launches, **rec})
+    if not all(rec["match"].values()):
+        raise AssertionError("subs_digests: the events differ from the JAX "
+                             "package's")
+    if launches == 0:
+        raise AssertionError("subs_digests: the replays launched no merge")
+    return launches
+
+
+def subs_10k_phase(emit) -> int:
+    """Phase ``subs_10k``: the same population at 10 000 nodes, observers
+    spread over all of them. The replays of the table (cut and to
+    convergence) launch the merge kernel on their sync sweeps. Checks:
+    ``SubsManager(batch=True)`` and ``batch=False`` give identical
+    events; every plain matcher's mask on both tables equals the host
+    SQL oracle (``eval_predicate_py`` over its observer's decoded cells);
+    at convergence the matchers of one query hold the same rows on every
+    observer. Prints the host seconds of the replays, of the prime and of
+    the step, batched and single (a first step, then a repeat on the same
+    table), the group dispatches and the host syncs of the repeat step
+    (its device→host reads and the groups' uploads), the rows matched,
+    the merge launches and the peak memory. Returns the merge
+    launches."""
+    import warnings
+
+    import torch
+
+    from corro_sim_torch import subs
+    from corro_sim_torch.profile_slice import (
+        SUBS_FEED,
+        SUBS_SEED,
+        subs_disagreements,
+        subs_drive,
+        subs_oracle_mismatches,
+        subs_queries,
+        subs_record,
+        subs_subscribers,
+        subs_views,
+    )
+    from corro_sim_torch.utils.metrics import (
+        SUBS_BATCH_GROUPS_TOTAL,
+        counters,
+    )
+
+    n = 10000
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lay, tr, cut, full, secs, launches = subs_tables(n)
+    subscribers = subs_subscribers(
+        subs_queries(SUBS_SEED, n, SUBS_FEED["keys"]), SUBS_SEED)
+    runs, steps = {}, {}
+    for mode, batch in (("batched", True), ("single", False)):
+        runs[mode] = run = subs_drive(subs, lay, tr, cut.state.table,
+                                      full.state.table, subscribers,
+                                      batch=batch)
+        mgr = run["manager"]
+        # a repeat step on the same table (no events): the card's sync
+        # debug mode warns at every host wait — one per device→host read
+        # of an evaluation (one per group, one per single matcher) and
+        # one per group's host→device copy of its inputs
+        groups0 = counters.get(SUBS_BATCH_GROUPS_TOTAL)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                again = mgr.step(full.state.table)
+                repeat_s = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        steps[mode] = {
+            "prime_s": run["prime_s"], "step_s": run["step_s"],
+            "repeat_step_s": repeat_s,
+            "group_dispatches_per_step": (
+                counters.get(SUBS_BATCH_GROUPS_TOTAL) - groups0),
+            "host_syncs_per_step": sum(
+                "synchroniz" in str(w.message) for w in caught),
+            "repeat_events": sum(len(v) for v in again.values()),
+        }
+    b, s = runs["batched"], runs["single"]
+    identical = (subs_record(b) == subs_record(s)
+                 and b["initial"] == s["initial"]
+                 and {k: [vars(e) for e in v] for k, v in b["events"].items()}
+                 == {k: [vars(e) for e in v] for k, v in s["events"].items()})
+    t0 = time.perf_counter()
+    oracle = {"cut": subs_oracle_mismatches(b["manager"], cut.state.table),
+              "full": subs_oracle_mismatches(b["manager"], full.state.table)}
+    oracle_s = time.perf_counter() - t0
+    disagree = subs_disagreements(b)
+    views = subs_views(b)
+    rec = {"nodes": n, "subscribers": len(subscribers),
+           "observers": len({node for _, node in subscribers}),
+           **subs_record(b),
+           "cut_rounds": cut.rounds, "converged_round": full.converged_round,
+           "tables_agree": tables_agree(full.state.table),
+           "sync_sweeps": int(full.state.sync_rounds),
+           "rows_matched_after_step": sum(len(v) for v in views.values()),
+           "batched_equals_single": identical,
+           "oracle_mismatches": oracle, "oracle_s": oracle_s,
+           "disagreeing_queries": disagree, "steps": steps,
+           "host_seconds": secs,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del runs, b, s, cut, full
+    torch.cuda.empty_cache()
+    emit({"phase": "subs_10k", "launches": launches, **rec})
+    if rec["converged_round"] is None or not rec["tables_agree"]:
+        raise AssertionError("subs_10k: the replay did not converge")
+    if not identical:
+        raise AssertionError("subs_10k: batched and single evaluation "
+                             "differ")
+    if oracle["cut"] or oracle["full"]:
+        raise AssertionError("subs_10k: a matcher's mask differs from the "
+                             "host SQL oracle")
+    if disagree:
+        raise AssertionError("subs_10k: observers of one query disagree at "
+                             "convergence")
+    if launches == 0 or rec["matchers"] != 64 or rec["subscribers"] != 1024:
+        raise AssertionError("subs_10k: no merge launch, or not config 6's "
+                             "population")
     return launches
 
 
@@ -2038,6 +2256,12 @@ def main() -> int:
     # forecast at 256 nodes against the JAX package's pins, then at 10k
     fault_launches["twin_digests"] = twin_digest_phase(emit)
     fault_launches["twin_10k"] = twin_10k_phase(emit)
+
+    # ------- the subscription engine: config 6's live-half population of
+    # 64 matchers and 1024 subscribers on a replayed Consul table, at 256
+    # nodes against the JAX package's pins, then at 10k
+    fault_launches["subs_digests"] = subs_digest_phase(emit)
+    fault_launches["subs_10k"] = subs_10k_phase(emit)
 
     by_path = {label: rec["launches"]["grouped_merge"] for label, rec in (
         ("slice", slice_rec), ("swim_slice", swim_rec), ("config3", c3_rec),

@@ -1148,10 +1148,12 @@ TWIN_PIN_NODES = 256  # where the JAX package ran the 10k feed
 TWIN_FORECAST = dict(scenarios=["lossy:p=0.3",
                                 "crash_amnesia:nodes=2,at=4,down=4"],
                      seeds=[0, 1], rounds=32, max_rounds=256, chunk=8)
-# the same grid at 10 000 nodes, in chunks of 16 rounds: the checkers
-# read each lane's (N, N) heads and SWIM statuses once a chunk, so at
-# 10k their host seconds follow the chunk count
-TWIN_10K_FORECAST = dict(TWIN_FORECAST, max_rounds=512, chunk=16)
+# the same grid at 10 000 nodes, seed 0's two lanes (seeds 0-1 until the
+# subscription phases needed the time), in chunks of 16 rounds: the
+# checkers read each lane's (N, N) heads and SWIM statuses once a chunk,
+# so at 10k their host seconds follow the chunk count
+TWIN_10K_FORECAST = dict(TWIN_FORECAST, seeds=[0], max_rounds=512,
+                         chunk=16)
 TWIN_THRESHOLDS = {"twin_forecast": {
     "default": {"require_converged": True, "rows_lost_max": 0},
     "scenarios": {"crash_amnesia": {"recovery_rounds_worst_max": 48}},
@@ -1194,6 +1196,23 @@ TWIN_PINS = {
         "rounds_at_256": 328,
     },
 }
+
+
+# What the JAX package's run on the CPU of chip_smoke.py's "subs_digests"
+# population reports (tests/test_torch_subs.py::jax_subs_pins holds the
+# recipe): subs_record's digests and counts, the cut replay's rounds and
+# the converged round, at SUBS_PIN_NODES nodes.
+SUBS_PINS = {"subs_digests": {
+    "initial":
+        "9195b6d64b8f137e79920c3d57e08b573f0da8cab49eb26dc19358ec8acf594d",
+    "step":
+        "c55f1d563e9bc5fb192842296f222cb23513d9e17c8dc9d2c73ae123e41b7d69",
+    "matchers": 64,
+    "initial_rows": 600,
+    "step_events": 3835,
+    "cut_rounds": 8,
+    "converged_round": 216,
+}}
 
 
 def _json_digest(obj) -> str:
@@ -1246,6 +1265,223 @@ def universe_view(universe):
     return types.SimpleNamespace(row_keys=universe.row_keys,
                                  col_keys=universe.col_triples(),
                                  values=universe.values)
+
+
+# ---------------------------------------------- the subscription engine
+# chip_smoke.py's subscription phases. The table is "twin_10k"'s Consul
+# feed (TWIN_10K_FEED: both tables at 256 keys, 512 rows × 6 columns,
+# 128 actors) with its hostile lines dropped, ingested against the
+# Consul schema and replayed twice: cut after SUBS_CUT_ROUNDS rounds
+# (a third of the versions injected, so observers disagree) and to
+# convergence. SUBS_SQLS distinct queries, each on SUBS_OBSERVERS
+# seeded observer nodes, make config 6's live-half population of 64
+# matchers (corro_sim/benchmarks.py:794-795); SUBS_PER_MATCHER
+# subscribers each (1024 in all) register them through get_or_insert's
+# dedupe, in a seeded order, under SQL spellings that normalize alike.
+SUBS_FEED = TWIN_10K_FEED
+SUBS_CUT_ROUNDS = 8
+SUBS_SEED = 0
+SUBS_OBSERVERS = 2
+SUBS_PER_MATCHER = 16
+SUBS_PIN_NODES = 256  # where the JAX package ran the population
+SUBS_MAX_ROUNDS = 1024
+
+
+def subs_lines(feed: TwinFeed) -> list:
+    """The feed's lines without its hostile ones, as ``validate_feed``
+    finds them under the twin's chunking (the replay ingests in one
+    batch, which refuses a malformed line)."""
+    from corro_sim_torch.engine.twin import twin_universe
+    from corro_sim_torch.io.traces import validate_feed
+
+    bad = validate_feed(feed.lines, twin_universe(feed.lines, 0),
+                        chunk_lines=TWIN_10K_CHUNK)
+    drop = {no - 1 for no, _, _ in bad}  # line numbers count from 1
+    return [ln for i, ln in enumerate(feed.lines) if i not in drop]
+
+
+def subs_capacities(keys: int) -> dict:
+    """Row capacities of the Consul layout: ``keys`` rows per table."""
+    return {"consul_services": keys, "consul_checks": keys}
+
+
+def subs_queries(seed: int, nodes: int, keys: int) -> list:
+    """``(sql, observer)`` of each distinct matcher: what a Consul-sync
+    consumer runs against ``consul_services`` and ``consul_checks``
+    (profile_slice.TWIN_TABLES' values): numeric ranges on ``port``,
+    ``status =`` and ``IN``, a ``LIKE`` prefix on ``name``, a pk term on
+    ``node``, ``corro_json_contains`` on ``tags`` (split to the host),
+    ``IS NULL`` and ``NOT``, two aggregates, a join and an
+    ``IN (SELECT …)``; constants seeded, each query on
+    ``SUBS_OBSERVERS`` distinct seeded observers in ``[0, nodes)``."""
+    rng = np.random.default_rng(seed)
+    sqls = []
+    for lo in rng.choice(56, 10, replace=False):
+        hi = 8000 + int(lo) + int(rng.integers(2, 9))
+        sqls.append("SELECT name, port FROM consul_services WHERE "
+                    f"port >= {8000 + int(lo)} AND port < {hi}")
+    for k in rng.choice(9, 4, replace=False):
+        sqls.append("SELECT name, status, output FROM consul_checks WHERE "
+                    f"status = '{_STATUS[int(k) % 3]}' AND "
+                    f"output = 'HTTP GET: {(200, 500, 503)[int(k) // 3]}'")
+    for k in rng.choice(32, 3, replace=False):
+        a, b = rng.choice(3, 2, replace=False)
+        sqls.append("SELECT id, status FROM consul_checks WHERE status IN "
+                    f"('{_STATUS[int(a)]}', '{_STATUS[int(b)]}') AND "
+                    f"service_name >= 'svc-{int(k)}'")
+    for d in rng.choice(np.arange(1, 10), 4, replace=False):
+        sqls.append("SELECT name, address FROM consul_services WHERE "
+                    f"name LIKE 'svc-{int(d)}%'")
+    for k in rng.choice(min(keys, 32), 3, replace=False):
+        sqls.append("SELECT port, address FROM consul_services WHERE "
+                    f"node = 'node-{int(k)}' AND "
+                    f"port >= {8000 + int(rng.integers(32))}")
+    for tags in ('["prod"]', '["canary"]'):
+        sqls.append("SELECT name, tags FROM consul_services WHERE "
+                    f"corro_json_contains('{tags}', tags) AND "
+                    f"port < {8032 + int(rng.integers(32))}")
+    sqls.append("SELECT name, output FROM consul_checks WHERE "
+                "output IS NOT NULL AND NOT (status = 'passing')")
+    sqls.append("SELECT id, port FROM consul_services WHERE "
+                f"address IS NULL OR NOT (port < {8000 + int(rng.integers(64))})")
+    sqls.append("SELECT status, COUNT(*) FROM consul_checks GROUP BY status")
+    sqls.append("SELECT name, COUNT(*), MAX(port) FROM consul_services "
+                "GROUP BY name")
+    sqls.append("SELECT s.id, s.port, c.id, c.status FROM consul_services s "
+                "JOIN consul_checks c ON s.name = c.service_name "
+                "WHERE c.status = 'critical'")
+    sqls.append("SELECT id, status FROM consul_checks WHERE service_name IN "
+                "(SELECT name FROM consul_services WHERE "
+                f"port < {8008 + int(rng.integers(16))})")
+    return [(sql, int(node)) for sql in sqls
+            for node in rng.choice(nodes, SUBS_OBSERVERS, replace=False)]
+
+
+def _spelling(sql: str, k: int) -> str:
+    """Spelling ``k`` (of 16) of ``sql``: keywords lower-cased by the
+    bits of ``k``; every spelling normalizes to the same query."""
+    for bit, word in enumerate((" FROM ", " WHERE ", " AND ", " JOIN ")):
+        if k >> bit & 1:
+            sql = sql.replace(word, word.lower())
+    return sql
+
+
+def subs_subscribers(queries: list, seed: int,
+                     per: int = SUBS_PER_MATCHER) -> list:
+    """``(sql, observer)`` of every subscriber: ``per`` spellings of
+    each query, in a seeded order."""
+    subs = [(_spelling(sql, k % 16), node) for sql, node in queries
+            for k in range(per)]
+    order = np.random.default_rng(seed + 1).permutation(len(subs))
+    return [subs[int(i)] for i in order]
+
+
+def subs_drive(subs, layout, trace, cut_table, full_table, subscribers,
+               batch: bool = True) -> dict:
+    """Register ``subscribers`` with a ``subs.SubsManager`` over
+    ``layout`` and ``trace``'s universe, primed on ``cut_table``, then
+    one step on ``full_table``. ``subs`` is a subscription package (this
+    port's, or the JAX package's for its pins). Returns the manager,
+    the initial events of each new matcher, the step's events and the
+    host seconds of the prime and the step."""
+    mgr = subs.SubsManager(subs.LayoutAdapter(layout=layout),
+                           subs.TraceUniverse(trace), batch=batch)
+    initial = []
+    t0 = time.perf_counter()
+    for sql, node in subscribers:
+        m, first = mgr.get_or_insert(sql, node, cut_table)
+        if first is not None:
+            initial.append((m.id, first))
+    prime_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    events = mgr.step(full_table)
+    step_s = time.perf_counter() - t0
+    return {"manager": mgr, "initial": initial, "events": events,
+            "prime_s": prime_s, "step_s": step_s}
+
+
+def subs_record(run: dict) -> dict:
+    """A population run's outcome as its pin holds it: the digests of
+    the initial events and of the step's events, their counts, and the
+    rows the initial scans matched."""
+    step = {sid: [[e.kind, e.rowid, e.cells, e.change_id] for e in evs]
+            for sid, evs in sorted(run["events"].items())}
+    return {
+        "initial": _json_digest(run["initial"]),
+        "step": _json_digest(step),
+        "matchers": len(run["manager"]),
+        "initial_rows": sum(sum("row" in e for e in ev)
+                            for _, ev in run["initial"]),
+        "step_events": sum(len(v) for v in step.values()),
+    }
+
+
+def subs_views(run: dict) -> dict:
+    """Each matcher's rows after the step, rebuilt from what it emitted
+    alone (its initial rows, then the step's inserts, updates and
+    deletes): ``{sub_id: sorted cells}``."""
+    views = {}
+    for sid, first in run["initial"]:
+        rows = {e["row"][0]: e["row"][1] for e in first if "row" in e}
+        for e in run["events"].get(sid, ()):
+            if e.kind == "delete":
+                rows.pop(e.rowid, None)
+            else:
+                rows[e.rowid] = e.cells
+        views[sid] = sorted(rows.values(), key=repr)
+    return views
+
+
+def subs_disagreements(run: dict) -> list:
+    """The queries whose matchers on different observers hold different
+    rows after the step (at convergence every node holds one table, so
+    there should be none)."""
+    by_sql: dict = {}
+    mgr = run["manager"]
+    for sid, rows in subs_views(run).items():
+        sql = mgr.get(sid).select.normalized()
+        by_sql.setdefault(sql, []).append(rows)
+    return sorted(sql for sql, views in by_sql.items()
+                  if any(v != views[0] for v in views[1:]))
+
+
+def subs_oracle_mismatches(mgr, table) -> int:
+    """Rows where a plain matcher's mask on ``table`` differs from
+    ``eval_predicate_py`` (the host SQL oracle, independent of the rank
+    compile) over its observer's decoded cells: live rows (odd causal
+    length); a never-written cell reads as NULL, or as its column's
+    default where the universe interns online (a closed trace universe
+    holds no rank for a default, so the matcher bakes none)."""
+    from corro_sim_torch.core.crdt import NEG
+    from corro_sim_torch.subs.manager import Matcher
+    from corro_sim_torch.subs.query import eval_predicate_py
+
+    lay, uni = mgr.layout, mgr.universe
+    bad = 0
+    for m in list(mgr._by_id.values()):
+        if type(m) is not Matcher:
+            continue
+        match, _ = m._evaluate(table)
+        t = m.select.table
+        rows = slice(m._start, m._start + m._cap)
+        vr = table.vr[m.node, rows].cpu().numpy()
+        cl = table.cl[m.node, rows].cpu().numpy()
+        cols = {c: lay.col_index(t, c) for c in lay.table_columns(t)}
+        want = np.zeros(m._cap, bool)
+        for s in np.nonzero(cl % 2 == 1)[0]:
+            key = lay.row_key(m._start + int(s))
+            env = dict(zip(lay.pk_columns(t), key[1] if key else ()))
+            for c, ci in cols.items():
+                r = int(vr[s, ci])
+                if r != NEG:
+                    env[c] = uni.decode(r)
+                else:
+                    env[c] = (lay.column_default(t, c)
+                              if hasattr(uni, "rank") else None)
+            want[s] = (m.select.where is None
+                       or eval_predicate_py(m.select.where, env.get))
+        bad += int((want != match).sum())
+    return bad
 
 
 # The replay fixtures: (path in the repository, config overrides on the

@@ -3,9 +3,9 @@
 The part of ``corro_sim/utils/metrics.py`` that ``run_sim`` and
 ``run_sweep`` write to: :data:`counters`, :data:`histograms` (the
 reference exporter's ``SECONDS_BUCKETS``), :data:`gauges`, and the names
-of the chunk-pipeline, fleet-sweep and digital-twin series (the twin's
-help strings are the JAX package's, word for word); each
-registry keeps its series by ``(name, labels)``, labels in the
+of the chunk-pipeline, fleet-sweep, subscription and digital-twin
+series (the twin's help strings are the JAX package's, word for word);
+each registry keeps its series by ``(name, labels)``, labels in the
 Prometheus text format (``'{reason="converged"}'``).
 """
 
@@ -133,6 +133,14 @@ TWIN_REFRESH_EPOCH_HELP = (
     "current closed-world refresh epoch of the running twin shadow "
     "(corro_sim/engine/twin.py)"
 )
+# Subscription evaluation (subs/manager.py): plain single-table matchers
+# whose device predicates share a structure skeleton evaluate as ONE
+# group per step (SubsManager._batched_precompute):
+#   corro_subs_matcher_evals_total{mode="batched"|"single"}  matcher
+#       evaluations by dispatch mode (batched = rode a group evaluation)
+#   corro_subs_batch_groups_total    batched group dispatches
+SUBS_MATCHER_EVALS_TOTAL = "corro_subs_matcher_evals_total"
+SUBS_BATCH_GROUPS_TOTAL = "corro_subs_batch_groups_total"
 ROUNDS_BUCKETS = (
     0.0, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0, 24.0, 32.0, 48.0,
     64.0, 96.0, 128.0,

@@ -49,7 +49,12 @@ def test_port_imports_without_jax():
         " 'corro_sim_torch.sweep.plan', 'corro_sim_torch.sweep.engine',"
         " 'corro_sim_torch.sweep.frontier', 'corro_sim_torch.obs.lanes',"
         " 'corro_sim_torch.utils.ranks', 'corro_sim_torch.schema',"
-        " 'corro_sim_torch.io.feedsource', 'corro_sim_torch.engine.twin')"
+        " 'corro_sim_torch.io.feedsource', 'corro_sim_torch.engine.twin',"
+        " 'corro_sim_torch.functions', 'corro_sim_torch.subs',"
+        " 'corro_sim_torch.subs.query', 'corro_sim_torch.subs.manager',"
+        " 'corro_sim_torch.api', 'corro_sim_torch.api.exprs',"
+        " 'corro_sim_torch.api.statements', 'corro_sim_torch.api.sql_state',"
+        " 'corro_sim_torch.api.wire')"
         " if m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
