@@ -74,7 +74,28 @@ held to the JAX package's digests ("subs_digests"); at 10 000 nodes,
 batched evaluation against single, every plain matcher's mask against
 the host SQL oracle, the observers of each query against each other, and
 the host seconds, group dispatches and device→host reads per step
-("subs_10k"). Every phase
+("subs_10k"). Then the live cluster
+(``corro_sim_torch.harness.cluster.LiveCluster``): the JAX package's
+config 1 through ``corro_sim_torch.benchmarks`` (1000 INSERTs through the
+live write path to convergence) at 3 agents and at the 64 of the
+north-star bench's devcluster leg, each held to the JAX package's round
+and final-state digest, with no merge launch (its 1016 cells are not a
+multiple of 128) and its wall, inserts per second and ms per insert
+("config1"); a Consul-schema LiveCluster at 256 nodes with config 0's
+SWIM and sync knobs driven only through its public API — seeded SQL
+transactions from 64 writer nodes in waves, config 6's 1024 subscribers
+attached with ``subscribe_attached``, a lossy scenario armed and
+cleared, 4 nodes down and rejoined, ``reconcile_gaps``,
+``run_until_converged``, then a checkpoint saved, warm-booted and
+ticked — held bit for bit to the JAX package's run of the same script
+("live_digests"); and the same at 10 000 nodes, 1024 transactions from
+128 writers, 8 nodes down for 16 rounds, every tick a single round with
+its notify: the tables agree, two queries equal the host SQL oracle,
+every plain matcher's mask does too, each subscriber's folded events
+equal its query's rows, one merge launch per sync sweep, with the
+rounds, ms per round, the host seconds of ``execute`` and of the notify,
+stage timings, host syncs per tick, peak memory and the checkpoint's
+bytes and seconds ("live_10k"). Every phase
 prints one JSON line with its seconds; any failure raises and exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside the repository, it exits non-zero and
@@ -86,6 +107,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import sys
 import time
 import types
@@ -1160,6 +1182,269 @@ def subs_10k_phase(emit) -> int:
     if launches == 0 or rec["matchers"] != 64 or rec["subscribers"] != 1024:
         raise AssertionError("subs_10k: no merge launch, or not config 6's "
                              "population")
+    return launches
+
+
+def config1_phase(emit) -> int:
+    """Phase ``config1``: the JAX package's config 1 through
+    ``corro_sim_torch.benchmarks`` (1000 INSERTs through the live write
+    path to convergence) at 3 agents and at the 64 of the north-star
+    bench's devcluster leg, each held to the JAX package's converged
+    round and final-state digest (``CONFIG1_PINS``). Its layout is 1016
+    rows x 1 column: 1016 cells are not a multiple of 128, so every
+    merge takes the scatter arm and the kernel must not launch. Prints
+    the wall, inserts per second and ms per insert of each. Returns the
+    merge launches (0)."""
+    import torch
+
+    from corro_sim_torch.benchmarks import config1_report, config1_run
+    from corro_sim_torch.convert import state_to_numpy
+    from corro_sim_torch.core import merge_kernel as mk
+    from corro_sim_torch.harness.cluster import LiveCluster
+    from corro_sim_torch.profile_slice import (
+        CONFIG1_INSERTS,
+        CONFIG1_PINS,
+        run_digest,
+    )
+
+    runs, launches = {}, 0
+    for nodes in sorted(CONFIG1_PINS):
+        mk.reset_launch_counts()
+        run = config1_run(LiveCluster, CONFIG1_INSERTS, nodes,
+                          device="cuda")
+        launched = mk.LAUNCHES["grouped_merge"]
+        launches += launched
+        cfg = run["cluster"].cfg
+        got = (run["converged_round"],
+               run_digest(state_to_numpy(run["cluster"].state), {}))
+        runs[nodes] = {
+            **config1_report(run, CONFIG1_INSERTS, nodes),
+            "digest": got[1], "match": got == CONFIG1_PINS[nodes],
+            "want_round": CONFIG1_PINS[nodes][0],
+            "cells": cfg.num_rows * cfg.num_cols,
+            "kernel_supported": mk.kernel_supported(cfg, "sync", "cuda"),
+            "launches": launched,
+            "stage_timings": run["cluster"].stage_timings(),
+        }
+        del run
+        torch.cuda.empty_cache()
+    emit({"phase": "config1", "runs": runs, "launches": launches,
+          "no_launch_reason": "1016 rows x 1 column = 1016 cells, not a "
+                              "multiple of 128: kernel_supported sends "
+                              "every merge to the scatter arm"})
+    for nodes, rec in runs.items():
+        if not rec["match"]:
+            raise AssertionError(f"config1 at {nodes} agents: differs from "
+                                 "the JAX package's round or final state")
+    if launches or any(r["kernel_supported"] for r in runs.values()):
+        raise AssertionError("config1: the merge kernel launched on a "
+                             "1016-cell space")
+    return launches
+
+
+def _live_backend():
+    import types
+
+    from corro_sim_torch.harness.cluster import LiveCluster
+    from corro_sim_torch.io.checkpoint import load_checkpoint, save_checkpoint
+
+    return types.SimpleNamespace(LiveCluster=LiveCluster,
+                                 save_checkpoint=save_checkpoint,
+                                 load_checkpoint=load_checkpoint)
+
+
+class _SyncCount:
+    """Counts the card's host waits (``set_sync_debug_mode`` warnings)
+    inside a ``with``."""
+
+    def __init__(self):
+        self.count = 0
+
+    def __call__(self):
+        import contextlib
+        import warnings
+
+        import torch
+
+        @contextlib.contextmanager
+        def counting():
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    yield
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            self.count += sum("synchroniz" in str(w.message)
+                              for w in caught)
+
+        return counting()
+
+
+def _live_run(n: int, run_kw: dict, ckpt_dir: str) -> tuple:
+    """One live run on the card: the run, the merge launches it made,
+    the sync sweeps it ran, the host syncs per tick after convergence
+    and the peak memory."""
+    import torch
+
+    from corro_sim_torch.core import merge_kernel as mk
+    from corro_sim_torch.profile_slice import (
+        LIVE_KEYS,
+        LIVE_SEED,
+        LIVE_TAIL_TICKS,
+        live_drive,
+        subs_queries,
+        subs_subscribers,
+    )
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    subscribers = subs_subscribers(subs_queries(LIVE_SEED, n, LIVE_KEYS),
+                                   LIVE_SEED)
+    syncs = _SyncCount()
+    mk.reset_launch_counts()
+    path = os.path.join(ckpt_dir, f"live_{n}.npz")
+    run = live_drive(_live_backend(), n, subscribers=subscribers,
+                     ckpt_path=path, wrap_ticks=syncs, device="cuda",
+                     **run_kw)
+    launches = mk.LAUNCHES["grouped_merge"]
+    os.remove(path)
+    # the warm-booted cluster continues the saved one's sweep counter
+    sweeps = int(run["warm"].state.sync_rounds)
+    return (run, launches, sweeps, syncs.count / LIVE_TAIL_TICKS,
+            torch.cuda.max_memory_allocated())
+
+
+def _live_stats(run: dict) -> dict:
+    c = run["cluster"]
+    secs = run["host_seconds"]
+    notify = c.histograms.get(
+        "corro_subs_changes_processing_duration_seconds")
+    return {
+        "converged_round": run["converged_round"],
+        "rounds": c._rounds_ticked,
+        "converge_rounds": secs["converge_rounds"],
+        "ms_per_round_converging": (
+            1000.0 * secs["converge"] / max(secs["converge_rounds"], 1)),
+        "execute_s_per_transaction": (
+            secs["execute"] / max(secs["transactions"], 1)),
+        "notify_s_per_tick": notify.sum / max(notify.count, 1),
+        "notify_ticks": notify.count,
+        "host_seconds": secs,
+        "stage_timings": c.stage_timings(),
+        "checkpoint_bytes": run["checkpoint_bytes"],
+        "subscribers": len(run["queues"]),
+        "events": sum(len(q) for q in run["queues"]),
+    }
+
+
+def live_digests_phase(emit, ckpt_dir: str) -> int:
+    """Phase ``live_digests``: a LiveCluster over the Consul schema (512
+    rows x 6 columns, so every sync sweep's merge runs the kernel) at
+    256 nodes with config 0's SWIM and sync knobs, driven through its
+    public API by ``profile_slice.live_drive``: seeded SQL transactions
+    (INSERT, UPDATE, DELETE on both tables, Zipf 1.1 keys, LWW conflicts)
+    from 64 writer nodes in waves, config 6's 1024 subscribers attached
+    with ``subscribe_attached``, a lossy scenario armed and cleared, 4
+    nodes down and rejoined, ``reconcile_gaps``, ``run_until_converged``,
+    then a checkpoint saved, warm-booted and ticked. Held bit for bit to
+    the JAX package's run of the same script (``LIVE_PINS``). Returns
+    the merge launches."""
+    from corro_sim_torch.convert import state_to_numpy
+    from corro_sim_torch.profile_slice import (
+        LIVE_DIGESTS_RUN,
+        LIVE_PIN_NODES,
+        LIVE_PINS,
+        live_folded_mismatches,
+        live_record,
+    )
+
+    run, launches, sweeps, syncs, peak = _live_run(
+        LIVE_PIN_NODES, LIVE_DIGESTS_RUN, ckpt_dir)
+    rec = live_record(run, state_to_numpy(run["cluster"].state),
+                      state_to_numpy(run["warm"].state))
+    match = {k: rec[k] == v for k, v in LIVE_PINS.items()}
+    folded = live_folded_mismatches(run)
+    emit({"phase": "live_digests", "nodes": LIVE_PIN_NODES,
+          "match": match, "launches": launches, "sync_sweeps": sweeps,
+          "host_syncs_per_tick": syncs, "max_memory_allocated": peak,
+          "folded_mismatches": len(folded), **_live_stats(run)})
+    if not all(match.values()):
+        raise AssertionError("live_digests: differs from LIVE_PINS in "
+                             f"{sorted(k for k, v in match.items() if not v)}")
+    if folded or launches == 0 or launches != sweeps:
+        raise AssertionError("live_digests: a subscriber's folded events "
+                             "differ from its query, or not one merge "
+                             "launch per sync sweep")
+    return launches
+
+
+def live_10k_phase(emit, ckpt_dir: str) -> int:
+    """Phase ``live_10k``: the same schema, knobs and population at
+    10 000 nodes with the observers spread over all of them: 1024
+    transactions from 128 writer nodes (8 each), 8 nodes down for 16
+    rounds then rejoined, ``run_until_converged`` with the subscribers
+    attached (every tick a single round with its notify), then the
+    checkpoint. No JAX run exists at this size; checks: every node's
+    table agrees, ``query`` on two observers equals the host SQL oracle
+    (``eval_predicate_py`` over the decoded table), every plain
+    matcher's mask equals the oracle, each subscriber's initial rows
+    folded with its events equal its query's final rows, one merge
+    launch per sync sweep. Prints the rounds, ms per round, the host
+    seconds of ``execute`` per transaction and of the notify per tick,
+    ``stage_timings()``, host syncs per tick, peak memory and the
+    checkpoint's bytes and seconds. Returns the merge launches."""
+    from corro_sim_torch.profile_slice import (
+        LIVE_10K_RUN,
+        live_folded_mismatches,
+        live_oracle_rows,
+        subs_oracle_mismatches,
+    )
+    from corro_sim_torch.subs.manager import Matcher
+    from corro_sim_torch.subs.query import parse_query
+
+    n = 10000
+    run, launches, sweeps, syncs, peak = _live_run(n, LIVE_10K_RUN,
+                                                   ckpt_dir)
+    c = run["cluster"]
+    t0 = time.perf_counter()
+    folded = live_folded_mismatches(run)
+    # two plain queries on two observers, against the host SQL oracle
+    checked = []
+    for sql, node in run["subscribers"]:
+        if len(checked) == 2:
+            break
+        if node in {nd for _, nd in checked}:
+            continue
+        if type(c._matcher_for(parse_query(sql).base(), node)) is Matcher:
+            checked.append((sql, node))
+    oracle_diff = [
+        sql for sql, node in checked
+        if sorted(c.query_rows(sql, node)[1], key=repr)
+        != sorted(live_oracle_rows(c, sql, node), key=repr)]
+    mask_diff = subs_oracle_mismatches(c.subs, c.state.table)
+    check_s = time.perf_counter() - t0
+    rec = {"nodes": n, "launches": launches, "sync_sweeps": sweeps,
+           "tables_agree": tables_agree(c.state.table),
+           "oracle_queries": checked, "oracle_mismatches": oracle_diff,
+           "mask_mismatches": mask_diff,
+           "folded_mismatches": len(folded), "check_s": check_s,
+           "host_syncs_per_tick": syncs, "max_memory_allocated": peak,
+           **_live_stats(run)}
+    del run, c
+    import torch
+
+    torch.cuda.empty_cache()
+    emit({"phase": "live_10k", **rec})
+    if rec["converged_round"] is None or not rec["tables_agree"]:
+        raise AssertionError("live_10k: did not converge to one table")
+    if oracle_diff or mask_diff or folded or len(checked) != 2:
+        raise AssertionError("live_10k: a query, a matcher's mask or a "
+                             "subscriber's folded events differ from the "
+                             "host SQL oracle")
+    if launches == 0 or launches != sweeps:
+        raise AssertionError("live_10k: not one merge launch per sync "
+                             "sweep")
     return launches
 
 
@@ -2263,6 +2548,14 @@ def main() -> int:
     fault_launches["subs_digests"] = subs_digest_phase(emit)
     fault_launches["subs_10k"] = subs_10k_phase(emit)
 
+    # ------- the live cluster: config 1 (no kernel: 1016 cells), then the
+    # Consul-schema LiveCluster driven through its API at 256 nodes
+    # against the JAX package's pins, and at 10k
+    os.makedirs("bench_out", exist_ok=True)
+    fault_launches["config1"] = config1_phase(emit)
+    fault_launches["live_digests"] = live_digests_phase(emit, "bench_out")
+    fault_launches["live_10k"] = live_10k_phase(emit, "bench_out")
+
     by_path = {label: rec["launches"]["grouped_merge"] for label, rec in (
         ("slice", slice_rec), ("swim_slice", swim_rec), ("config3", c3_rec),
         ("config3_10k", c3k_rec), ("config6_1000", c6_rec),
@@ -2279,6 +2572,13 @@ def main() -> int:
         "replaces": "corro_sim/core/merge_kernel.py:184",
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
+        "no_launch_paths": {
+            "config1": "1016 rows x 1 column = 1016 cells, not a multiple "
+                       "of 128: every merge takes the scatter arm",
+            "config6_1000": "2046 rows x 2 columns = 4092 cells, not a "
+                            "multiple of 128: every merge takes the "
+                            "scatter arm",
+        },
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

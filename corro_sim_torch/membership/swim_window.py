@@ -63,6 +63,12 @@ class SwimWindowState:
         return (self.belief & swim_layout(self.belief.dtype).since_mask).to(
             torch.int32)
 
+    @property
+    def self_inc(self) -> torch.Tensor:
+        """(N,) each node's own incarnation (slot 0 = self)."""
+        return (self.belief[:, 0] >> swim_layout(self.belief.dtype)
+                .inc_shift).to(torch.int32)
+
 
 def make_swim_window_state(num_nodes: int, view_size: int, seed: int,
                            enabled: bool, narrow: bool,

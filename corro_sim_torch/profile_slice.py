@@ -1484,6 +1484,324 @@ def subs_oracle_mismatches(mgr, table) -> int:
     return bad
 
 
+# ------------------------------------------------ the live cluster
+# chip_smoke.py's live phases. "config1" is the JAX package's config 1
+# (corro_sim_torch.benchmarks.config1_run): CONFIG1_PINS holds the JAX
+# package's converged round and the run_digest of its final state
+# (leaves only) from the same recipe on the CPU, at 3 agents and at the
+# 64 of the north-star bench's devcluster leg, 1000 INSERTs each
+# (tests/test_torch_cluster.py::jax_config1_pins holds the recipe).
+CONFIG1_INSERTS = 1000
+CONFIG1_PINS = {
+    3: (52,
+        "5fb420ad14d8e412d4b4cd34ce260dd66d41f012392e8383dd9d647965ab6d34"),
+    64: (20,
+         "e44c5a08b75524ee45326302624c4b7ea5919bdf4bca66fb44b8edfcba98e076"),
+}
+
+# "live_digests" and "live_10k": a LiveCluster over the Consul schema at
+# LIVE_KEYS row slots per table (subs_capacities: 512 rows x 6 columns,
+# 3 072 cells, so the sync sweep's merge runs the kernel on the card)
+# with config 0's SWIM and sync knobs (slice_config(swim=True)), driven
+# through its public API only: seeded SQL transactions from the writer
+# nodes in waves, config 6's live-half population of 1024 subscribers
+# (subs_queries / subs_subscribers) attached after the first wave,
+# nodes down and rejoined, a scenario armed and cleared at 256 nodes,
+# reconcile_gaps, run_until_converged, a few more ticks, then a
+# checkpoint saved and warm-booted and ticked again.
+LIVE_SEED = 0
+LIVE_KEYS = 256
+LIVE_PIN_NODES = 256  # where the JAX package ran "live_digests"
+LIVE_WAVE_TICKS = 2  # rounds ticked after each wave of transactions
+LIVE_TAIL_TICKS = 4  # rounds ticked after convergence, and after the boot
+LIVE_MAX_ROUNDS = 1024
+LIVE_OVERRIDES = dict(
+    log_capacity=256, pend_slots=8, fanout=2, sync_interval=8,
+    sync_adaptive=True, sync_floor_rounds=1, sync_actor_topk=128,
+    sync_cap_per_actor=1, sync_req_actors=128, sync_need_sample=64,
+    sync_deal_probes=0, swim_enabled=True, swim_suspect_rounds=6,
+    swim_interval=4, narrow_state=True,
+)
+# the phases' shapes: writers x transactions per writer, nodes taken
+# down (never writers) at wave `down_at` for at least `down_rounds`
+# rounds, and the waves a lossy scenario stays armed
+LIVE_DIGESTS_RUN = dict(writers=64, per_writer=8, down=4, down_at=4,
+                        down_rounds=8, scenario=(1, 3))
+LIVE_10K_RUN = dict(writers=128, per_writer=8, down=8, down_at=2,
+                    down_rounds=16, scenario=None)
+
+# What the JAX package's run on the CPU of chip_smoke.py's "live_digests"
+# reports (tests/test_torch_cluster.py::jax_live_pins holds the recipe):
+# live_record at LIVE_PIN_NODES nodes.
+LIVE_PINS = {
+    'converged_round': 38,
+    'rounds': 58,
+    'state':
+        '8a8ad95ac58e77dad787bd28bf1726a4652caa219c1e6435d7ecc53127158252',
+    'warm_state':
+        'a6c23803480e0200fa16896f175a941a703d971c38d5e2dcd9ac276ec3a32e6e',
+    'initial':
+        'a7bdbe08878b8570acd9360d2b3bae1a6a2bf75eea7acbba05598096b1311656',
+    'events':
+        'ff655fc96bd129c4a68a2c67e3210393157fe6e5136bc4c9c75fc2349252064a',
+    'event_count': 27584,
+    'outcomes':
+        'cf1a39fb63f800f3b17d0881a012d190f6ee677ae871c211446903d9b233ace5',
+    'totals':
+        '28bc26d18803d48245bdf0008464f1bd872cf0e8b768bb3e3a139ed18311d7c8',
+    'flight':
+        '446d97c649e79b6ae8c12ac2ecf8673f9f6cde81d8e8c919ddaa0774d489dcf3',
+    'rejoined': [
+        {'node': 31, 'alive': True, 'incarnation': 1},
+        {'node': 66, 'alive': True, 'incarnation': 1},
+        {'node': 75, 'alive': True, 'incarnation': 1},
+        {'node': 211, 'alive': True, 'incarnation': 1},
+    ],
+    'reconciled': {'entries_reconciled': 0, 'actors_reconciled': 0},
+}
+
+
+def _live_statement(rng, keys: int, p: np.ndarray) -> str:
+    """One write statement on a Zipf(1.1) key of either Consul table:
+    INSERT (a whole row), UPDATE by pk (plain values, or an expression),
+    a predicate UPDATE, or DELETE by pk."""
+    k = int(rng.choice(keys, p=p))
+    node = f"node-{k % 32}"
+    ts = int(rng.integers(1_000_000))
+    kind = rng.choice(5, p=[0.5, 0.2, 0.1, 0.05, 0.15])
+    if rng.random() < 0.5:
+        where = f"node = '{node}' AND id = 'svc-{k}'"
+        if kind == 0:
+            tags = _TAGS[int(rng.integers(len(_TAGS)))]
+            return (
+                "INSERT INTO consul_services (node, id, name, tags, meta, "
+                f"port, address, updated_at) VALUES ('{node}', 'svc-{k}', "
+                f"'svc-{int(rng.integers(10))}{k % 7}', '{tags}', "
+                f"'{{\"app_id\": {int(rng.integers(100))}}}', "
+                f"{8000 + int(rng.integers(64))}, '10.0.{k // 8}.{k % 8}', "
+                f"{ts})")
+        if kind == 1:
+            return (f"UPDATE consul_services SET port = "
+                    f"{8000 + int(rng.integers(64))}, updated_at = {ts} "
+                    f"WHERE {where}")
+        if kind == 2:
+            return f"UPDATE consul_services SET port = port + 1 WHERE {where}"
+        if kind == 3:
+            return (f"UPDATE consul_services SET updated_at = {ts} WHERE "
+                    f"port >= {8000 + int(rng.integers(64))} AND "
+                    f"name LIKE 'svc-{int(rng.integers(10))}%'")
+        return f"DELETE FROM consul_services WHERE {where}"
+    where = f"node = '{node}' AND id = 'chk-{k}'"
+    status = _STATUS[int(rng.integers(3))]
+    code = (200, 500, 503)[int(rng.integers(3))]
+    if kind == 0:
+        return (
+            "INSERT INTO consul_checks (node, id, service_id, service_name, "
+            f"name, status, output, updated_at) VALUES ('{node}', 'chk-{k}', "
+            f"'svc-{k}', 'svc-{int(rng.integers(32))}', 'serfHealth', "
+            f"'{status}', 'HTTP GET: {code}', {ts})")
+    if kind in (1, 2):
+        return (f"UPDATE consul_checks SET status = '{status}', output = "
+                f"'HTTP GET: {code}' WHERE {where}")
+    if kind == 3:
+        return ("UPDATE consul_checks SET output = 'HTTP GET: 503' WHERE "
+                f"status = 'critical' AND service_name = "
+                f"'svc-{int(rng.integers(32))}'")
+    return f"DELETE FROM consul_checks WHERE {where}"
+
+
+def live_transactions(seed: int, n: int, writers: int, per_writer: int,
+                      keys: int = LIVE_KEYS) -> tuple:
+    """The seeded transaction stream: ``(writer nodes, waves)``, each
+    wave a list of ``(node, statements)`` holding each writer's next
+    transaction of 1-4 statements. Hot keys are written by several
+    nodes (LWW conflicts)."""
+    rng = np.random.default_rng(seed)
+    nodes = sorted(int(x) for x in rng.choice(n, writers, replace=False))
+    p = 1.0 / np.power(np.arange(1, keys + 1, dtype=np.float64), 1.1)
+    p /= p.sum()
+    waves = [[(node, [_live_statement(rng, keys, p)
+                      for _ in range(int(rng.integers(1, 5)))])
+              for node in nodes] for _ in range(per_writer)]
+    return nodes, waves
+
+
+def live_down_nodes(seed: int, n: int, writers, count: int) -> list:
+    """``count`` seeded nodes outside the writers, to take down."""
+    rng = np.random.default_rng(seed + 2)
+    free = np.setdiff1d(np.arange(n), np.asarray(writers))
+    return sorted(int(x) for x in rng.choice(free, count, replace=False))
+
+
+def live_event_record(ev) -> list:
+    """A subscription event as its pin holds it."""
+    return [ev.kind, ev.rowid, ev.cells, ev.change_id, ev.round]
+
+
+def live_drive(backend, n: int, *, writers: int, per_writer: int,
+               down: int, down_at: int, down_rounds: int, scenario,
+               subscribers: list, ckpt_path: str, wrap_ticks=None,
+               **cluster_kw) -> dict:
+    """One live run on ``backend`` (a namespace holding ``LiveCluster``,
+    ``save_checkpoint`` and ``load_checkpoint``: this port's, or the JAX
+    package's for its pins). ``wrap_ticks``: a context manager factory
+    wrapped around the ticks after convergence (chip_smoke.py counts
+    the host syncs there). Returns the cluster, the warm-booted one,
+    the subscribers' initial events and queues, each statement's
+    outcome and the host seconds of the run's parts."""
+    from corro_sim_torch.schema import consul_schema_sql
+
+    secs = defaultdict(float)
+    t0 = time.perf_counter()
+    c = backend.LiveCluster(
+        consul_schema_sql(), num_nodes=n, seed=LIVE_SEED,
+        capacities=subs_capacities(LIVE_KEYS),
+        cfg_overrides=dict(LIVE_OVERRIDES), **cluster_kw)
+    secs["build"] = time.perf_counter() - t0
+    wnodes, waves = live_transactions(LIVE_SEED, n, writers, per_writer)
+    gone = live_down_nodes(LIVE_SEED, n, wnodes, down)
+    outcomes, initial, queues, rejoined = [], [], [], []
+    down_round = None
+
+    def submit(wave):
+        for node, stmts in wave:
+            t = time.perf_counter()
+            try:
+                res = c.execute(stmts, node=node, wait=False)
+                outcomes.append([r["rows_affected"] for r in res["results"]])
+            except ValueError as e:  # ExecError in both packages
+                outcomes.append([type(e).__name__, str(e)])
+            secs["execute"] += time.perf_counter() - t
+            secs["transactions"] += 1
+
+    for w, wave in enumerate(waves):
+        if scenario is not None and w == scenario[0]:
+            c.load_scenario("lossy", rounds=64)
+        if scenario is not None and w == scenario[1]:
+            c.clear_scenario()
+        if w == down_at:
+            for node in gone:
+                c.set_alive(node, False)
+            down_round = c._rounds_ticked
+        submit(wave)
+        t = time.perf_counter()
+        c.tick(LIVE_WAVE_TICKS)
+        secs["wave_ticks"] += time.perf_counter() - t
+        if w == 0:
+            t = time.perf_counter()
+            for sql, node in subscribers:
+                sid, first, q = c.subscribe_attached(sql, node)
+                initial.append((sid, first))
+                queues.append(q)
+            secs["subscribe"] = time.perf_counter() - t
+    if down_round is not None:
+        left = down_rounds - (c._rounds_ticked - down_round)
+        if left > 0:
+            c.tick(left)
+        rejoined = [c.rejoin(node) for node in gone]
+    reconciled = c.reconcile_gaps()
+    t = time.perf_counter()
+    r0 = c._rounds_ticked
+    converged = c.run_until_converged(max_rounds=LIVE_MAX_ROUNDS)
+    secs["converge"] = time.perf_counter() - t
+    secs["converge_rounds"] = c._rounds_ticked - r0
+    t = time.perf_counter()
+    with (wrap_ticks() if wrap_ticks is not None
+          else contextlib.nullcontext()):
+        c.tick(LIVE_TAIL_TICKS)
+    secs["tail_ticks"] = time.perf_counter() - t
+    t = time.perf_counter()
+    backend.save_checkpoint(c, ckpt_path)
+    secs["save_checkpoint"] = time.perf_counter() - t
+    t = time.perf_counter()
+    warm = backend.load_checkpoint(ckpt_path, **cluster_kw)
+    secs["load_checkpoint"] = time.perf_counter() - t
+    warm.tick(LIVE_TAIL_TICKS)
+    return {"cluster": c, "warm": warm, "initial": initial,
+            "queues": queues, "subscribers": subscribers,
+            "outcomes": outcomes, "rejoined": rejoined,
+            "reconciled": reconciled, "converged_round": converged,
+            "down_nodes": gone, "writers": wnodes,
+            "checkpoint_bytes": os.path.getsize(ckpt_path),
+            "host_seconds": dict(secs)}
+
+
+def live_record(run: dict, leaves, warm_leaves) -> dict:
+    """A live run's outcome as its pin holds it: the converged round,
+    the run_digest of the final state's ``leaves`` and of the
+    warm-booted cluster's after its ticks, the digests of every
+    subscriber's initial events and event stream, of the statements'
+    outcomes, of ``metrics_totals()``, of the flight record, and the
+    admin calls' results."""
+    c = run["cluster"]
+    return {
+        "converged_round": run["converged_round"],
+        "rounds": c._rounds_ticked,
+        "state": run_digest(leaves, {}),
+        "warm_state": run_digest(warm_leaves, {}),
+        "initial": _json_digest(run["initial"]),
+        "events": _json_digest([[live_event_record(e) for e in q]
+                                for q in run["queues"]]),
+        "event_count": sum(len(q) for q in run["queues"]),
+        "outcomes": _json_digest(run["outcomes"]),
+        "totals": _json_digest(c.metrics_totals()),
+        "flight": hashlib.sha256(
+            c.flight.to_ndjson().encode()).hexdigest(),
+        "rejoined": run["rejoined"],
+        "reconciled": run["reconciled"],
+    }
+
+
+def live_folded_mismatches(run: dict) -> list:
+    """The subscribers whose initial rows, folded with their events on
+    the host, differ from their query's rows on the cluster now."""
+    c = run["cluster"]
+    bad = []
+    for (sid, first), q, (sql, node) in zip(run["initial"], run["queues"],
+                                          run["subscribers"]):
+        rows = {e["row"][0]: e["row"][1] for e in first if "row" in e}
+        for e in q:
+            if e.kind == "delete":
+                rows.pop(e.rowid, None)
+            else:
+                rows[e.rowid] = e.cells
+        _, want = c.query_rows(sql, node)
+        if sorted(rows.values(), key=repr) != sorted(want, key=repr):
+            bad.append(sid)
+    return bad
+
+
+def live_oracle_rows(cluster, sql: str, node: int) -> list:
+    """A plain single-table query's rows on ``node`` by the host SQL
+    oracle: the node's live rows decoded cell by cell (a never-written
+    cell reads as its column's default), filtered by
+    ``eval_predicate_py`` and projected as ``query_rows`` projects (pk
+    columns first)."""
+    from corro_sim_torch.core.crdt import NEG
+    from corro_sim_torch.subs.query import eval_predicate_py, parse_query
+
+    sel = parse_query(sql)
+    lay, uni = cluster.layout, cluster.universe
+    t = lay.schema.tables[sel.table]
+    start, _cap = lay._range(sel.table)
+    used = lay._used[sel.table]
+    vr = cluster.state.table.vr[node, start:start + used].cpu().numpy()
+    cl = cluster.state.table.cl[node, start:start + used].cpu().numpy()
+    cols = [c.name for c in t.value_columns]
+    rows = []
+    for s in np.nonzero(cl % 2 == 1)[0]:
+        key = lay.key_of(start + int(s))
+        env = dict(zip(t.pk, key[1]))
+        for c in t.value_columns:
+            r = int(vr[s, lay.col_index(sel.table, c.name)])
+            env[c.name] = uni.decode(r) if r != NEG else c.default_value
+        if sel.where is None or eval_predicate_py(sel.where, env.get):
+            out = [env[p] for p in t.pk]
+            out += [env[c] for c in (sel.columns or cols) if c not in t.pk]
+            rows.append(out)
+    return rows
+
+
 # The replay fixtures: (path in the repository, config overrides on the
 # trace's suggest_config()); replayed with max_rounds=256. The first is
 # the JAX package's tests/test_replay_parity.py case.

@@ -1,8 +1,10 @@
 """Process-wide counters and histograms of the run loop.
 
-The part of ``corro_sim/utils/metrics.py`` that ``run_sim`` and
-``run_sweep`` write to: :data:`counters`, :data:`histograms` (the
-reference exporter's ``SECONDS_BUCKETS``), :data:`gauges`, and the names
+The part of ``corro_sim/utils/metrics.py`` that ``run_sim``, ``run_sweep``
+and ``LiveCluster`` write to: :data:`counters`, :data:`histograms` (the
+reference exporter's ``SECONDS_BUCKETS``, and ``CHUNK_SIZE_BUCKETS`` for
+the changes-per-round histogram), :data:`gauges`, the per-queue
+:class:`ChannelMetrics`, and the names
 of the chunk-pipeline, fleet-sweep, subscription and digital-twin
 series (the twin's help strings are the JAX package's, word for word);
 each registry keeps its series by ``(name, labels)``, labels in the
@@ -19,6 +21,7 @@ SECONDS_BUCKETS = (
     0.001, 0.005, 0.025, 0.050, 0.100, 0.200,
     1.0, 2.0, 3.0, 4.0, 5.0, 10.0, 30.0, 60.0,
 )
+CHUNK_SIZE_BUCKETS = (1.0, 10.0, 75.0, 250.0, 375.0, 500.0, 650.0)
 
 # ---- corro_pipeline_*: chunk-pipeline observability ------------------
 # The host wall spent BLOCKED resolving a chunk's metric stacks, by
@@ -185,6 +188,21 @@ class HistogramRegistry:
                     self._help.setdefault(name, help_)
             h.observe(value)
 
+    def observe_many(self, name: str, values, labels: str = "",
+                     help_: str = "", buckets=SECONDS_BUCKETS) -> None:
+        """Many samples under one lock acquisition (a whole drain's or
+        dispatch's worth)."""
+        if not values:
+            return
+        with self._lock:
+            h = self._h.get((name, labels))
+            if h is None:
+                h = self._h[(name, labels)] = Histogram(buckets)
+                if help_:
+                    self._help.setdefault(name, help_)
+            for v in values:
+                h.observe(v)
+
     def get(self, name: str, labels: str = "") -> Histogram | None:
         with self._lock:
             return self._h.get((name, labels))
@@ -235,3 +253,68 @@ class GaugeRegistry:
 
 
 gauges = GaugeRegistry()
+
+
+class ChannelMetrics:
+    """Per-queue health counters, the ``corro.runtime.channel.*`` series
+    (``corro-types/src/channel.rs:16-184``): send, recv and failed-send
+    counts, depth and capacity gauges, and a send-delay EWMA per named
+    channel. The host-side queues (the write queue, the subscription
+    event queues) count at their touch points. ``histograms``: where
+    the send-delay histogram lands (the owning cluster's registry)."""
+
+    def __init__(self, histograms: HistogramRegistry | None = None):
+        self._ch: dict[str, dict] = {}
+        self._labels: dict[str, str] = {}
+        self.histograms = histograms
+        self._lock = threading.Lock()  # touch points span threads
+
+    def _c(self, name: str) -> dict:
+        return self._ch.setdefault(
+            name, {"send": 0, "recv": 0, "failed": 0, "depth": 0,
+                   "capacity": 0, "send_delay_ewma_ms": 0.0,
+                   "delay_samples": 0})
+
+    def set_capacity(self, name: str, capacity: int) -> None:
+        with self._lock:
+            self._c(name)["capacity"] = int(capacity)
+
+    def set_depth(self, name: str, depth: int) -> None:
+        with self._lock:
+            self._c(name)["depth"] = int(depth)
+
+    def on_send(self, name: str, n: int = 1,
+                delay_s: float | None = None) -> None:
+        with self._lock:
+            c = self._c(name)
+            c["send"] += n
+            c["depth"] += n
+            if delay_s is not None:
+                ms = delay_s * 1000.0
+                c["send_delay_ewma_ms"] += 0.2 * (
+                    ms - c["send_delay_ewma_ms"])
+                c["delay_samples"] += 1
+        if delay_s is not None:
+            lbl = self._labels.get(name)
+            if lbl is None:
+                lbl = self._labels[name] = f'{{channel_name="{name}"}}'
+            (self.histograms or histograms).observe(
+                "corro_runtime_channel_send_delay_seconds", delay_s,
+                labels=lbl,
+                help_="send delay per channel "
+                      "(corro.runtime.channel.send_delay)",
+            )
+
+    def on_recv(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            c = self._c(name)
+            c["recv"] += n
+            c["depth"] = max(0, c["depth"] - n)
+
+    def on_failed(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self._c(name)["failed"] += n
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {k: dict(v) for k, v in self._ch.items()}

@@ -54,7 +54,8 @@ def test_port_imports_without_jax():
         " 'corro_sim_torch.subs.query', 'corro_sim_torch.subs.manager',"
         " 'corro_sim_torch.api', 'corro_sim_torch.api.exprs',"
         " 'corro_sim_torch.api.statements', 'corro_sim_torch.api.sql_state',"
-        " 'corro_sim_torch.api.wire')"
+        " 'corro_sim_torch.api.wire', 'corro_sim_torch.harness',"
+        " 'corro_sim_torch.harness.cluster', 'corro_sim_torch.benchmarks')"
         " if m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -103,6 +104,34 @@ def test_entry_points_refuse_without_cuda():
     state = init_state(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         run_sim(cfg, state, max_rounds=4, chunk=4)
+
+
+def test_live_cluster_refuses_without_cuda(tmp_path):
+    """LiveCluster, config 1 and the LiveCluster checkpoint loaders run
+    on CUDA unless given ``device="cpu"``."""
+    from corro_sim_torch.benchmarks import run_config_1
+    from corro_sim_torch.harness.cluster import LiveCluster
+    from corro_sim_torch.io.checkpoint import (
+        load_checkpoint,
+        restore,
+        save_checkpoint,
+    )
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is usable")
+    schema = "CREATE TABLE t (id INTEGER PRIMARY KEY, v TEXT);"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LiveCluster(schema, num_nodes=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_config_1(inserts=4, nodes=2)
+    c = LiveCluster(schema, num_nodes=2, device="cpu")
+    assert c.state.table.vr.device.type == "cpu"
+    path = tmp_path / "c.npz"
+    save_checkpoint(c, path)
+    for load in (load_checkpoint, restore):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            load(path)
+        assert load(path, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("change", [

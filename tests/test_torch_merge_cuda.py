@@ -260,3 +260,40 @@ def test_cuda_kernel_on_a_crash_amnesia_catch_up_mailbox(dev, monkeypatch):
     state, box, cap = captured[0]
     assert state.cv.shape == (n, 256, 4)
     _check(state, box, cap, 4)
+
+
+@pytest.mark.cuda
+def test_live_cluster_on_the_card_equals_the_cpu(dev, tmp_path):
+    """A Consul-schema LiveCluster (512 rows x 6 columns: the sync
+    sweep's merge takes the kernel on the card, the scatter arm on the
+    CPU) driven through its API with writers, subscribers, a node down
+    and rejoined, to convergence: the card's run equals the CPU's leaf
+    for leaf, in its events and metric totals, and launched the kernel."""
+    import types
+
+    from corro_sim_torch import profile_slice as ps
+    from corro_sim_torch.convert import state_to_numpy
+    from corro_sim_torch.harness.cluster import LiveCluster
+    from corro_sim_torch.io.checkpoint import load_checkpoint, save_checkpoint
+
+    n = 48
+    subscribers = ps.subs_subscribers(
+        ps.subs_queries(ps.LIVE_SEED, n, ps.LIVE_KEYS), ps.LIVE_SEED,
+        per=2)
+    backend = types.SimpleNamespace(LiveCluster=LiveCluster,
+                                    save_checkpoint=save_checkpoint,
+                                    load_checkpoint=load_checkpoint)
+    runs = {}
+    for d in ("cpu", "cuda"):
+        mk.reset_launch_counts()
+        run = ps.live_drive(backend, n, subscribers=subscribers,
+                            ckpt_path=str(tmp_path / f"{d}.npz"),
+                            device=d, **dict(ps.LIVE_DIGESTS_RUN,
+                                             writers=12, per_writer=4,
+                                             down_at=2))
+        runs[d] = (run, ps.live_record(run, state_to_numpy(
+            run["cluster"].state), state_to_numpy(run["warm"].state)),
+            mk.LAUNCHES["grouped_merge"])
+    assert runs["cuda"][1] == runs["cpu"][1]
+    assert runs["cpu"][2] == 0 and runs["cuda"][2] > 0
+    assert ps.live_folded_mismatches(runs["cuda"][0]) == []
