@@ -34,8 +34,8 @@ faults: config 8's chaos lanes run as their serial twins (its lane base
 at 256 nodes under each soak scenario, through the JAX package's serial
 soak loop with the invariant checker armed), held to the digests,
 rounds, invariant reports and resilience blocks of the JAX package's
-runs; and config 0's 10 000-node cluster soaked under config 8's four
-scenarios, each to re-convergence with a final gap of 0. Then the rest
+runs; and config 0's 10 000-node cluster soaked under three of config
+8's scenarios, each to re-convergence with a final gap of 0. Then the rest
 of the step: config 0's 10 000-node cluster across four latency regions
 with the in-flight ring, RTT rings and 8 probes, to convergence, its
 probe trees held to the BFS oracle and its RTT plane to the link delays
@@ -48,10 +48,10 @@ kernel at config 8's lane shape; config 8's grid through
 ``corro_sim_torch.sweep.engine.run_sweep`` in lockstep (seeds 0-3 of its
 eight), every lane held to the JAX package's lane digests and the
 frontier to its digest, beside the four seed-0 lanes' serial twins
-("config8_sweep"); its four seed-0 lanes through the compact fleet
-scheduler at width 2, pipelined ("config8_compact"); its lane base at
-1024 nodes (windowed SWIM in the lanes), the lossy and churn lanes, the
-lossy one against its serial twin ("config8_1024"); and config 0 at
+("config8_sweep"); two of its seed-0 lanes through the compact fleet
+scheduler at width 1, pipelined ("config8_compact"); its lane base at
+1024 nodes (windowed SWIM in the lanes), the lossy and churn lanes to
+the JAX package's verdicts ("config8_1024"); and config 0 at
 10 000 nodes under crash_amnesia checkpointed every chunk, killed after
 chunk 1 and resumed from its token to the uninterrupted run of
 "soak_10k", then the JAX package's committed token resumed to its pin
@@ -62,7 +62,7 @@ resumed from its cursor token, and forecast from its fork under the
 what-if grid, each held to the JAX package's pins ("twin_digests"); and
 a Consul-schema feed of 128 actors shadowed at 10 000 nodes to one
 converged table, the JAX package's, then forecast from its fork at
-10 000 nodes (seed 0's two lanes) with one lane held to its serial
+10 000 nodes (seed 0's lossy lane) with the lane held to its serial
 fork resume ("twin_10k"). Then the subscription engine
 (``corro_sim_torch.subs``): that feed without its hostile lines replayed
 on the card cut after 8 rounds and to convergence (the merge kernel on
@@ -95,8 +95,21 @@ every plain matcher's mask does too, each subscriber's folded events
 equal its query's rows, one merge launch per sync sweep, with the
 rounds, ms per round, the host seconds of ``execute`` and of the notify,
 stage timings, host syncs per tick, peak memory and the checkpoint's
-bytes and seconds ("live_10k"). Every phase
-prints one JSON line with its seconds; any failure raises and exits
+bytes and seconds ("live_10k"). Then the serving surfaces: config 6's
+live half exactly as the JAX package defines it
+(``corro_sim_torch.benchmarks.config6_live_run``: the Zipf + churn-storm
+schedule as SQL through ``workload.harness.run_live_load`` at 256 nodes,
+64 matchers, 1024 subscribers), held to the JAX package's run, with the
+sub-delivery quantiles in rounds and seconds ("config6_live"); the same
+schedule with the one-shot queries rotating over the direct, HTTP
+(``api.http.ApiServer``) and pgwire (``api.pg.PgServer``) surfaces on
+2048 row slots, so the merge kernel runs on every sync sweep, held to
+the JAX package's run ("serve_256"); and both servers over the
+"live_10k" cluster: one HTTP transaction, the same rows over HTTP,
+pgwire and directly, the write's event on an HTTP subscription, the
+members and table-stats routes, and one ``/metrics`` scrape that
+validates, with its seconds, bytes and host syncs ("serve_10k"). Every
+phase prints one JSON line with its seconds; any failure raises and exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.
@@ -239,8 +252,9 @@ def fault_digest_phase(emit) -> int:
 
 
 def soak_phase(emit) -> tuple:
-    """Phase ``soak_10k``: config 0's cluster at 10 000 nodes under
-    config 8's four scenarios with the soak CLI's arguments, the
+    """Phase ``soak_10k``: config 0's cluster at 10 000 nodes under three
+    of config 8's scenarios (lossy, churn, crash_amnesia; clock_skew is
+    left out for the time budget) with the soak CLI's arguments, the
     scorecard and the invariant checker armed on each, each run
     sequential so that its wall is the simulation's alone (the checkers'
     host seconds apart). Each must re-converge with a final gap of 0 and
@@ -259,7 +273,7 @@ def soak_phase(emit) -> tuple:
     launches = {"soak_10k": 0}
     soaks = {}
     kept = None
-    for spec in CONFIG8_SCENARIOS:
+    for spec in CONFIG8_SCENARIOS[:3]:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         mk.reset_launch_counts()
@@ -423,22 +437,30 @@ def config8_sweep_phase(emit, seeds: int) -> tuple:
 
 
 def config8_compact_phase(emit) -> int:
-    """Phase ``config8_compact``: config 8's four scenarios at seed 0
-    (4 lanes) through the fleet scheduler (``compact=True``,
-    ``width=2``, ``pipeline=True``), every lane held to ``SWEEP_PINS``;
-    prints the occupancy curve with its refills. Returns the launches."""
+    """Phase ``config8_compact``: two of config 8's scenarios at seed 0
+    (the lossy and crash-amnesia lanes, 64 rounds each) through the fleet
+    scheduler (``compact=True``, ``width=1``, ``pipeline=True``: the
+    second lane refills the slot the first frees); prints the occupancy
+    curve with its refills. The two-lane plan arms fewer sweep
+    dimensions than the four-lane one, so its lanes are held to the JAX
+    package's run of the same plan (``CONFIG8_COMPACT_PINS``). The
+    other two lanes are left out for the time budget; "config8_sweep"
+    runs all four. Returns the launches."""
     from corro_sim_torch.profile_slice import (
+        CONFIG8_COMPACT_PINS,
+        CONFIG8_COMPACT_SCENARIOS,
         config8_plan,
         sweep_books,
         sweep_lane_record,
     )
 
-    plan = config8_plan(range(1))
-    res, launches, wall = _sweep(plan, compact=True, width=2,
+    plan = config8_plan(range(1), scenarios=CONFIG8_COMPACT_SCENARIOS)
+    res, launches, wall = _sweep(plan, compact=True, width=1,
                                        pipeline=True)
-    lanes = [sweep_lane_record(lr) for lr in res.lanes]
+    lanes = [sweep_lane_record(lr, CONFIG8_COMPACT_PINS)
+             for lr in res.lanes]
     emit({"phase": "config8_compact", "nodes": 256, "seeds": 1,
-          "width": 2, **sweep_books(res, wall), "launches": launches,
+          "width": 1, **sweep_books(res, wall), "launches": launches,
           "lanes_match": sum(r["match"] for r in lanes),
           "lane_records": lanes})
     bad = [r["lane"] for r in lanes if not r["match"]]
@@ -456,23 +478,17 @@ def config8_1024_phase(emit) -> int:
     lanes) under two of its scenarios at seed 0, lockstep: lossy, and
     churn, whose lane carries the JAX package's SWIM false-DOWNs. Every
     lane must converge with no row lost and the invariant verdict of the
-    JAX package's run (``CONFIG8_1024_VIOLATIONS``), and the lossy lane
-    equal its serial twin run on the card. Returns the launches of the
-    sweep and of the twin."""
+    JAX package's run (``CONFIG8_1024_VIOLATIONS``). Lanes are held to
+    their serial twins in "config8_sweep", so none runs here. Returns
+    the launches."""
     import torch
 
-    from corro_sim_torch.core import merge_kernel as mk
-    from corro_sim_torch.engine.driver import run_sim
-    from corro_sim_torch.engine.state import init_state
-    from corro_sim_torch.faults import InvariantChecker, ResilienceScorecard
     from corro_sim_torch.profile_slice import (
         CONFIG8_1024_CHURN,
         CONFIG8_1024_VIOLATIONS,
         CONFIG8_SCENARIOS,
-        CONFIG8_SWEEP_ARGS,
         config8_plan,
         sweep_books,
-        twin_match,
     )
 
     plan = config8_plan([0], n=1024, scenarios=CONFIG8_SCENARIOS[:2])
@@ -498,40 +514,16 @@ def config8_1024_phase(emit) -> int:
         if base == "churn":
             d["verdict_match"] &= all(d[k] == v for k, v in
                                       CONFIG8_1024_CHURN.items())
-    twins = {}
-    for li in (0,):
-        lane = plan.lanes[li]
-        torch.cuda.empty_cache()
-        mk.reset_launch_counts()
-        serial = run_sim(
-            lane.cfg, init_state(lane.cfg, seed=lane.seed, device="cuda"),
-            lane.scenario.schedule(), seed=lane.seed,
-            min_rounds=lane.min_rounds, device="cuda",
-            invariants=InvariantChecker(lane.cfg),
-            scorecard=ResilienceScorecard(lane.cfg, scenario=lane.scenario),
-            **CONFIG8_SWEEP_ARGS,
-        )
-        torch.cuda.synchronize()
-        twins[lane.cell] = dict(twin_match(res.lanes[li], serial),
-                                sim_s=serial.wall_seconds,
-                                launches=mk.LAUNCHES["grouped_merge"])
-        launches += twins[lane.cell]["launches"]
-        del serial
     emit({"phase": "config8_1024", "nodes": 1024,
           "swim_view_size": plan.union_cfg.swim_view_size,
           "rows": plan.union_cfg.num_rows,
-          **books, "launches": launches, "lanes_detail": lanes,
-          "twins": twins})
+          **books, "launches": launches, "lanes_detail": lanes})
     for cell, d in lanes.items():
         if (d["converged_round"] is None or d["rows_lost"] != 0
                 or not d["verdict_match"]):
             raise AssertionError(f"config 8 at 1024 nodes: {cell} did not "
                                  "converge, lost rows or differs from the "
                                  "JAX package's verdict")
-    for cell, d in twins.items():
-        if not d["match"]:
-            raise AssertionError(f"config 8 at 1024 nodes: {cell} differs "
-                                 "from its serial twin")
     del res
     torch.cuda.empty_cache()
     return launches
@@ -810,10 +802,10 @@ def twin_10k_phase(emit) -> int:
     converge with a final gap of 0, quarantine exactly the feed's
     hostile lines, hold one table on every node, and decode node 0's to
     the JAX package's table for the same feed (``TWIN_PINS``), with the
-    merge kernel launched. Then the forecast grid from its fork at
-    10 000 nodes (``TWIN_10K_FORECAST``: chunks of 16 rounds), one lane
-    held leaf for leaf to its serial ``run_sim`` resumed from the fork
-    token. Prints the host seconds of the scan,
+    merge kernel launched. Then the forecast from its fork at 10 000
+    nodes (``TWIN_10K_FORECAST``: seed 0's lossy lane, chunks of 16
+    rounds), the lane held leaf for leaf to its serial ``run_sim``
+    resumed from the fork token. Prints the host seconds of the scan,
     ``probe_feed_heads``, ``validate_feed`` and the per-chunk encode,
     the wall and host reads per round, the late clears and refreshes,
     the forecast's clusters per second per device and the peak memory.
@@ -1431,7 +1423,7 @@ def live_10k_phase(emit, ckpt_dir: str) -> int:
            "folded_mismatches": len(folded), "check_s": check_s,
            "host_syncs_per_tick": syncs, "max_memory_allocated": peak,
            **_live_stats(run)}
-    del run, c
+    del run
     import torch
 
     torch.cuda.empty_cache()
@@ -1444,6 +1436,206 @@ def live_10k_phase(emit, ckpt_dir: str) -> int:
                              "host SQL oracle")
     if launches == 0 or launches != sweeps:
         raise AssertionError("live_10k: not one merge launch per sync "
+                             "sweep")
+    return launches, c
+
+
+def _timed_cluster_cls():
+    """The port's LiveCluster on the card, timing ``execute`` on the
+    host (``exec_s``, ``exec_n``)."""
+    import functools
+
+    from corro_sim_torch.harness.cluster import LiveCluster
+
+    class TimedCluster(LiveCluster):
+        exec_s = 0.0
+        exec_n = 0
+
+        def execute(self, *a, **kw):
+            t = time.perf_counter()
+            try:
+                return super().execute(*a, **kw)
+            finally:
+                self.exec_s += time.perf_counter() - t
+                self.exec_n += 1
+
+    return functools.partial(TimedCluster, device="cuda")
+
+
+@contextlib.contextmanager
+def _surface_timers():
+    """Host seconds and counts of the load harness's one-shot HTTP and
+    pgwire queries (client side: request to last row), while entered."""
+    from corro_sim_torch.api.pg import SimplePgClient
+    from corro_sim_torch.client import ApiClient
+
+    secs = {"http": [0.0, 0], "pg": [0.0, 0]}
+    saved = (ApiClient.query_rows, SimplePgClient.query)
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                secs[key][0] += time.perf_counter() - t
+                secs[key][1] += 1
+        return call
+
+    ApiClient.query_rows = timed(saved[0], "http")
+    SimplePgClient.query = timed(saved[1], "pg")
+    try:
+        yield secs
+    finally:
+        ApiClient.query_rows, SimplePgClient.query = saved
+
+
+def _live_load_phase(emit, name: str, pins: dict, extra: dict) -> tuple:
+    """One run of config 6's live half on the card
+    (``benchmarks.config6_live_run`` with ``extra``), held to ``pins``.
+    Returns the phase's record, the merge launches and the sync sweeps."""
+    import torch
+
+    from corro_sim_torch.benchmarks import config6_live_run
+    from corro_sim_torch.convert import state_to_numpy
+    from corro_sim_torch.core import merge_kernel as mk
+    from corro_sim_torch.profile_slice import (
+        CONFIG6_LIVE_NODES,
+        live_load_record,
+    )
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mk.reset_launch_counts()
+    with _surface_timers() as surf:
+        t0 = time.perf_counter()
+        report, c = config6_live_run(
+            CONFIG6_LIVE_NODES, cluster_cls=_timed_cluster_cls(), **extra)
+        wall = time.perf_counter() - t0
+    launches = mk.LAUNCHES["grouped_merge"]
+    rep = report.as_json()
+    got = live_load_record(rep, state_to_numpy(c.state))
+    match = {k: got[k] == v for k, v in pins.items()}
+    rounds = c._rounds_ticked
+    rec = {
+        "phase": name, "nodes": CONFIG6_LIVE_NODES, "match": match,
+        "record": got, "latency_rounds": rep["latency_rounds"],
+        "latency_seconds": rep["latency_seconds"],
+        "harness_wall_s": rep["wall_seconds"], "wall_s": wall,
+        "rounds": rounds, "ms_per_round": 1000.0 * wall / max(rounds, 1),
+        "execute_s_per_transaction": c.exec_s / max(c.exec_n, 1),
+        "transactions": c.exec_n, "queries": rep["queries"],
+        "universe_respaces": c.universe.version,
+        "http_s_per_query": surf["http"][0] / max(surf["http"][1], 1),
+        "pg_s_per_query": surf["pg"][0] / max(surf["pg"][1], 1),
+        "cells": c.cfg.num_rows * c.cfg.num_cols,
+        "kernel_supported": mk.kernel_supported(c.cfg, "sync", "cuda"),
+        "launches": launches, "sync_sweeps": int(c.state.sync_rounds),
+        "stage_timings": c.stage_timings(),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    }
+    c.tripwire.trip()
+    del c
+    torch.cuda.empty_cache()
+    emit(rec)
+    if not all(match.values()):
+        raise AssertionError(f"{name}: differs from the JAX package's run "
+                             f"in {sorted(k for k, v in match.items() if not v)}")
+    return rec
+
+
+def config6_live_phase(emit) -> int:
+    """Phase ``config6_live``: config 6's live half exactly as the JAX
+    package defines it (``benchmarks.config6_live_run``: the Zipf 1.1 +
+    churn-storm schedule at 256 nodes, 64 matchers, 1024 subscribers, 64
+    latency-tracked, 4 direct queries per round, settle 512), held to the
+    JAX package's run (``CONFIG6_LIVE_PINS``). Its layout is 2046 rows x
+    2 columns = 4 092 cells, not a multiple of 128, so every merge takes
+    the scatter arm and the kernel must not launch. Prints the
+    sub-delivery quantiles in rounds and seconds, the wall and
+    ``execute``'s host seconds per transaction. Returns the merge
+    launches (0)."""
+    from corro_sim_torch.profile_slice import CONFIG6_LIVE_PINS
+
+    rec = _live_load_phase(emit, "config6_live", CONFIG6_LIVE_PINS, {})
+    if rec["launches"] or rec["kernel_supported"]:
+        raise AssertionError("config6_live: the merge kernel launched on a "
+                             "4092-cell space")
+    return rec["launches"]
+
+
+def serve_256_phase(emit) -> int:
+    """Phase ``serve_256``: the same schedule through
+    ``run_live_load(http=True, pg=True)`` on 2048 row slots (4 096 cells:
+    every sync sweep's merge runs the kernel), the one-shot queries
+    rotating over direct, HTTP and pgwire, held to the JAX package's run
+    (``SERVE_256_PINS``). Prints the queries per surface, the HTTP and
+    pgwire seconds per query and the sub-delivery p50/p99 in rounds and
+    seconds. Returns the merge launches."""
+    from corro_sim_torch.profile_slice import SERVE_256_PINS, SERVE_RUN
+
+    rec = _live_load_phase(emit, "serve_256", SERVE_256_PINS, SERVE_RUN)
+    if set(rec["queries"]) != {"direct", "http", "pg"} or not all(
+            rec["queries"].values()):
+        raise AssertionError("serve_256: a surface answered no query")
+    if rec["launches"] == 0 or rec["launches"] != rec["sync_sweeps"]:
+        raise AssertionError("serve_256: not one merge launch per sync "
+                             "sweep")
+    return rec["launches"]
+
+
+def serve_10k_phase(emit, c) -> int:
+    """Phase ``serve_10k``: an ApiServer and a PgServer over the 10 000
+    node cluster "live_10k" leaves behind (``profile_slice.serve_check``):
+    one HTTP transaction acknowledged, the same query answered equal over
+    HTTP, pgwire and directly, the write's event on an HTTP subscription,
+    ``/v1/cluster/members`` and ``/v1/table_stats`` answering, and one
+    ``/metrics`` scrape that passes ``validate_exposition``. Prints the
+    scrape's seconds, bytes and host syncs (the sync debug mode's
+    warnings, as "live_10k" counts them), the surfaces' seconds and the
+    merge launches, one per sync sweep. Returns the launches."""
+    import torch
+
+    from corro_sim_torch.core import merge_kernel as mk
+    from corro_sim_torch.profile_slice import serve_agrees, serve_check
+    from corro_sim_torch.utils.metrics import validate_exposition
+
+    n = c.cfg.num_nodes
+    syncs = _SyncCount()
+    mk.reset_launch_counts()
+    sweeps0 = int(c.state.sync_rounds)
+    rounds0 = c._rounds_ticked
+    out = serve_check(c, writer=7, reader=n - 3, scrape_wrap=syncs)
+    launches = mk.LAUNCHES["grouped_merge"]
+    sweeps = int(c.state.sync_rounds) - sweeps0
+    text = out.pop("metrics")
+    try:
+        validate_exposition(text)
+        valid = True
+    except ValueError as e:
+        valid = str(e)
+    rec = {
+        "phase": "serve_10k", "nodes": n, "agree": serve_agrees(out),
+        "execute": out["execute"], "sub_event": out["sub_event"],
+        "rows": out["direct_rows"], "converged_round": out[
+            "converged_round"], "rounds": c._rounds_ticked - rounds0,
+        "members": len(out["members"]),
+        "table_stats_rows": out["table_stats"]["total_row_count"],
+        "scrape_valid": valid, "scrape_bytes": len(text.encode()),
+        "scrape_lines": text.count("\n"), "scrape_host_syncs": syncs.count,
+        "seconds": out["seconds"], "launches": launches,
+        "sync_sweeps": sweeps,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    }
+    emit(rec)
+    if not rec["agree"] or rec["execute"]["version"] is None:
+        raise AssertionError("serve_10k: the surfaces disagree or the write "
+                             "was not acknowledged")
+    if valid is not True or rec["members"] != n:
+        raise AssertionError("serve_10k: the scrape does not validate or "
+                             "the members route is short")
+    if launches != sweeps:
+        raise AssertionError("serve_10k: not one merge launch per sync "
                              "sweep")
     return launches
 
@@ -2554,7 +2746,18 @@ def main() -> int:
     os.makedirs("bench_out", exist_ok=True)
     fault_launches["config1"] = config1_phase(emit)
     fault_launches["live_digests"] = live_digests_phase(emit, "bench_out")
-    fault_launches["live_10k"] = live_10k_phase(emit, "bench_out")
+    fault_launches["live_10k"], live_cluster = live_10k_phase(
+        emit, "bench_out")
+
+    # ------- the serving surfaces: config 6's live half as the JAX package
+    # defines it (no kernel: 4 092 cells), the same schedule through the
+    # HTTP and pgwire servers, and the servers over the 10k cluster
+    fault_launches["config6_live"] = config6_live_phase(emit)
+    fault_launches["serve_256"] = serve_256_phase(emit)
+    fault_launches["serve_10k"] = serve_10k_phase(emit, live_cluster)
+    live_cluster.tripwire.trip()
+    del live_cluster
+    torch.cuda.empty_cache()
 
     by_path = {label: rec["launches"]["grouped_merge"] for label, rec in (
         ("slice", slice_rec), ("swim_slice", swim_rec), ("config3", c3_rec),
@@ -2576,6 +2779,9 @@ def main() -> int:
             "config1": "1016 rows x 1 column = 1016 cells, not a multiple "
                        "of 128: every merge takes the scatter arm",
             "config6_1000": "2046 rows x 2 columns = 4092 cells, not a "
+                            "multiple of 128: every merge takes the "
+                            "scatter arm",
+            "config6_live": "2046 rows x 2 columns = 4092 cells, not a "
                             "multiple of 128: every merge takes the "
                             "scatter arm",
         },

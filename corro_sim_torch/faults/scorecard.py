@@ -330,7 +330,49 @@ class ResilienceScorecard:
             "sub_delivery": self._sub_delivery(rounds),
             "chunks_checked": self.chunks_checked,
         }
+        export_metrics(block)
         return block
+
+
+def export_metrics(block: dict) -> None:
+    """Land one finalized block in the ``corro_resilience_*`` families
+    (utils/metrics.py registries — rendered by every /metrics scrape)."""
+    from corro_sim_torch.utils.metrics import (
+        ROUNDS_BUCKETS,
+        counters,
+        histograms,
+    )
+
+    sc = block.get("scenario") or "none"
+    label = f'{{scenario="{sc}"}}'
+    counters.inc(
+        "corro_resilience_runs_total", labels=label,
+        help_="scorecard-graded chaos runs by scenario "
+              "(faults/scorecard.py)",
+    )
+    for key, name, help_ in (
+        ("rows_lost", "corro_resilience_rows_lost_total",
+         "cells diverging from the partition reference replica at the "
+         "convergence report"),
+        ("resync_rows", "corro_resilience_resync_rows_total",
+         "version-applications anti-entropy repaid to wiped nodes"),
+        ("swim_false_down", "corro_resilience_swim_false_down_total",
+         "SWIM belief pairs marking a ground-truth-alive node DOWN"),
+        ("swim_flaps", "corro_resilience_swim_flaps_total",
+         "SWIM false-DOWN pairs that recovered and relapsed"),
+    ):
+        v = block.get(key)
+        if v:
+            counters.inc(name, n=int(v), labels=label, help_=help_)
+        else:
+            counters.inc(name, n=0, labels=label, help_=help_)
+    if block.get("recovery_rounds") is not None:
+        histograms.observe(
+            "corro_resilience_recovery_rounds",
+            float(block["recovery_rounds"]), labels=label,
+            help_="rounds from the scheduled heal to re-convergence",
+            buckets=ROUNDS_BUCKETS,
+        )
 
 
 # --------------------------------------------------- threshold gating

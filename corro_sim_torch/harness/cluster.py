@@ -176,6 +176,8 @@ class LiveCluster:
         self._prev_swim: dict[str, float] = {}  # transition-counter state
         self._probe_p99 = None  # worst per-probe p99 delivery lag seen
         self._probe_infected_last = -1.0  # change detector for the check
+        self._api_requests = 0  # served API requests
+        self._api_req_lock = threading.Lock()
         self._chunk_dispatches = 0  # chunked ticks executed
         self._log_poisoned = False  # ring-wrap tripwire latched
         self._partials = 0.0  # last round's buffered-partial gauge
@@ -186,6 +188,9 @@ class LiveCluster:
         # relative to this baseline, so one never leaks into the next
         self._baseline_faults = self.cfg.faults
         self._sub_queues: dict[str, list] = {}  # sub_id -> [deque]
+        # the last load-harness run (workload/harness.py), served at
+        # GET /v1/workload
+        self.workload_report: dict | None = None
         # the per-round telemetry timeline
         self.flight = FlightRecorder(capacity=16384)
         self.flight.set_meta(driver="live_cluster", nodes=num_nodes,
@@ -260,8 +265,10 @@ class LiveCluster:
             for k, rank in cells_ov.items():
                 cells_ov[k] = trans.get(rank, rank)
         self.subs.rebind_all(old, new)
-        for m in self._query_cache.values():
-            m.rebind(old, new)
+        # one-shot query matchers are compiled again on their next use:
+        # rebinding each cached one at every respace cost more than the
+        # queries that reuse them
+        self._query_cache.clear()
 
     # ------------------------------------------------------------ write path
     def execute(self, statements, node: int = 0, wait: bool = True) -> dict:
@@ -637,7 +644,7 @@ class LiveCluster:
 
     # ------------------------------------------------------------ query path
     def _matcher_for(self, select, node: int) -> Matcher:
-        # remaps do not invalidate entries: _on_remap rebinds them
+        # a remap empties the cache (_on_remap)
         key = (select.normalized(), node)
         m = self._query_cache.get(key)
         if m is None:
@@ -1145,46 +1152,73 @@ class LiveCluster:
         ``run_until_converged`` returns None from here on."""
         return self._log_poisoned
 
-    def table_stats(self) -> dict:
-        """GET /v1/table_stats analog (``api/public/mod.rs:535-590``)."""
-        cl = self.state.table.cl.cpu().numpy()
+    def _table_live(self) -> torch.Tensor:
+        """(T, N) live rows per table per node, on the device (tables in
+        schema order)."""
+        cl = self.state.table.cl
+        live = cl % 2 == 1
+        per_table = [live[:, start:start + cap].sum(1)
+                     for start, cap in map(self.layout._range,
+                                           self.layout.schema.tables)]
+        if not per_table:
+            return cl.new_zeros((0, cl.shape[0]), dtype=torch.int64)
+        return torch.stack(per_table)
+
+    def _table_stats_from(self, live: np.ndarray) -> dict:
+        """The ``table_stats`` body from the (T, N) live-row counts."""
         out = {}
-        for name in self.layout.schema.tables:
-            start, cap = self.layout._range(name)
-            live = (cl[:, start:start + cap] % 2 == 1).sum(axis=1)
+        for i, name in enumerate(self.layout.schema.tables):
+            _, cap = self.layout._range(name)
             out[name] = {
                 "allocated_pks": self.layout._used[name],
                 "capacity": cap,
-                "live_rows_per_node": live.tolist(),
+                "live_rows_per_node": live[i].tolist(),
             }
         return out
+
+    def table_stats(self) -> dict:
+        """GET /v1/table_stats analog (``api/public/mod.rs:535-590``):
+        counted on the device, read in one copy."""
+        with self._lock:
+            live = self._table_live().cpu().numpy()
+        return self._table_stats_from(live)
 
     def actor_versions(self, actor: int) -> dict:
         """Admin ``actor version`` analog: bookkeeping for one actor."""
         self._check_node(actor)
-        head = self.state.book.head[:, actor].cpu().numpy()
-        written = int(self.state.log.head[actor])
-        cleared = int(self.state.log.cleared[actor].sum())
+        with self._lock:
+            log = self.state.log
+            # one copy: the applied heads, then written and cleared
+            packed = torch.cat([
+                self.state.book.head[:, actor].to(torch.int64),
+                log.head[actor].reshape(1).to(torch.int64),
+                log.cleared[actor].sum().reshape(1).to(torch.int64),
+            ]).cpu().numpy()
         return {
             "actor": actor,
-            "versions_written": written,
-            "versions_cleared": cleared,
-            "applied_head_per_node": head.tolist(),
+            "versions_written": int(packed[-2]),
+            "versions_cleared": int(packed[-1]),
+            "applied_head_per_node": packed[:-2].tolist(),
         }
+
+    def _self_inc_device(self) -> torch.Tensor:
+        """(N,) each node's own SWIM incarnation, on the device (SWIM
+        on): windowed SWIM keeps self in slot 0, the full plane on the
+        diagonal."""
+        sw = self.state.swim
+        if hasattr(sw, "member"):
+            return sw.self_inc
+        from corro_sim_torch.membership.swim import swim_layout
+
+        shift = swim_layout(sw.p.dtype).inc_shift
+        return (sw.p.diagonal() >> shift).to(torch.int32)
 
     def _self_inc(self) -> np.ndarray | None:
         """(N,) each node's own SWIM incarnation; None with SWIM off."""
         if not self.cfg.swim_enabled:
             return None
-        sw = self.state.swim
-        # windowed SWIM keeps self in slot 0; the full plane on the
-        # diagonal
-        if hasattr(sw, "member"):
-            return sw.self_inc.cpu().numpy()
-        from corro_sim_torch.membership.swim import swim_layout
-
-        shift = swim_layout(sw.p.dtype).inc_shift
-        return (sw.p.diagonal() >> shift).to(torch.int32).cpu().numpy()
+        with self._lock:
+            return self._self_inc_device().cpu().numpy()
 
     def members(self) -> list[dict]:
         """Cluster membership view (admin ``cluster members`` analog)."""
@@ -1207,45 +1241,126 @@ class LiveCluster:
             return None
         from corro_sim_torch.obs.probes import ProbeTrace
 
-        return ProbeTrace.from_state(
-            self.cfg, self.state, driver="live_cluster",
-            rounds=self._rounds_ticked,
-        )
+        with self._lock:
+            return ProbeTrace.from_state(
+                self.cfg, self.state, driver="live_cluster",
+                rounds=self._rounds_ticked,
+            )
+
+    def _belief_device(self) -> torch.Tensor:
+        """(2, N) int64 on the device: how many observers hold each node
+        SUSPECT (row 0) and DOWN (row 1). SWIM on."""
+        n = self.cfg.num_nodes
+        sw = self.state.swim
+        status = sw.status
+        if hasattr(sw, "member"):  # windowed O(N·K) belief state
+            member = sw.member
+            tracked = member >= 0
+            idx = member.clamp_min(0).reshape(-1).long()
+            out = torch.zeros((2, n), dtype=torch.int64,
+                              device=status.device)
+            out[0].scatter_add_(
+                0, idx, (tracked & (status == 1)).reshape(-1).long())
+            out[1].scatter_add_(
+                0, idx, (tracked & (status >= 2)).reshape(-1).long())
+            return out
+        return torch.stack([(status == 1).sum(0), (status >= 2).sum(0)])
 
     def _suspected_by(self) -> np.ndarray:
         """(N,): how many observers currently suspect each node (zeros
         with SWIM off)."""
-        n = self.cfg.num_nodes
-        out = np.zeros(n, np.int64)
         if not self.cfg.swim_enabled:
-            return out
-        sw = self.state.swim
-        status = sw.status.cpu().numpy()
-        if hasattr(sw, "member"):  # windowed O(N·K) belief state
-            member = sw.member.cpu().numpy()
-            tracked = member >= 0
-            np.add.at(out, member[tracked & (status == 1)], 1)
-        else:
-            out += (status == 1).sum(axis=0)
-        return out
+            return np.zeros(self.cfg.num_nodes, np.int64)
+        with self._lock:
+            return self._belief_device()[0].cpu().numpy()
+
+    def _behind_device(self) -> torch.Tensor:
+        """(N,) int64 on the device: versions written cluster-wide that
+        each node has not applied (dead nodes included)."""
+        st = self.state
+        return (st.log.head[None, :] - st.book.head).clamp_min(0).sum(1)
+
+    def _lag_from(self, behind, suspected_by, last_sync,
+                  top_k: int = 8) -> dict:
+        from corro_sim_torch.obs.probes import lag_summary
+
+        return lag_summary(behind, self._alive, self._rounds_ticked,
+                           last_sync=last_sync, suspected_by=suspected_by,
+                           top_k=top_k)
 
     def node_lag(self, top_k: int = 8) -> dict:
         """The per-node lag observatory (``obs.probes``): rows behind,
         last-sync age (probe-tracked), SWIM suspicion and the top-k
-        laggards."""
-        from corro_sim_torch.obs.probes import node_lag_observatory
+        laggards. Reduced on the device, read in one copy."""
+        n = self.cfg.num_nodes
+        with self._lock:
+            parts = [self._behind_device()]
+            if self.cfg.swim_enabled:
+                parts.append(self._belief_device()[0])
+            if self.cfg.probes:
+                parts.append(self.state.probe.last_sync.to(torch.int64))
+            host = torch.cat(parts).cpu().numpy()
+        behind, rest = host[:n], host[n:]
+        if self.cfg.swim_enabled:
+            sus, rest = rest[:n], rest[n:]
+        else:
+            sus = np.zeros(n, np.int64)
+        last_sync = rest if self.cfg.probes else None
+        return self._lag_from(behind, sus, last_sync, top_k=top_k)
 
-        last_sync = (self.state.probe.last_sync.cpu().numpy()
-                     if self.cfg.probes else None)
-        return node_lag_observatory(
-            self.state.log.head.cpu().numpy(),
-            self.state.book.head.cpu().numpy(),
-            self._alive,
-            self._rounds_ticked,
-            last_sync=last_sync,
-            suspected_by=self._suspected_by(),
-            top_k=top_k,
+    def scrape_reads(self) -> dict:
+        """What ``/metrics`` reads of the device state, reduced on the
+        device and read in one copy under the lock (the probe tracer's
+        planes, when probes are on, come in their own copies)::
+
+            head (A,) log heads; behind (N,); live (T, N) rows per table;
+            book_sum, cleared, pend_live, pend_size; and with SWIM on
+            suspected_by, down_by, self_inc (N,); with probes on
+            last_sync (N,) and the ProbeTrace ``probe``.
+        """
+        n, cfg = self.cfg.num_nodes, self.cfg
+        with self._lock:
+            st = self.state
+            live = self._table_live()
+            t = live.shape[0]
+            scalars = torch.stack([
+                st.book.head.sum(dtype=torch.int64),
+                st.log.cleared.sum(dtype=torch.int64),
+                (st.gossip.pend_tx > 0).sum(),
+            ])
+            parts = [st.log.head.to(torch.int64), self._behind_device(),
+                     live.reshape(-1).to(torch.int64), scalars]
+            if cfg.swim_enabled:
+                parts += [self._belief_device().reshape(-1),
+                          self._self_inc_device().to(torch.int64)]
+            if cfg.probes:
+                parts.append(st.probe.last_sync.to(torch.int64))
+            host = torch.cat(parts).cpu().numpy()
+            pend_size = st.gossip.pend_tx.numel()
+            probe = self.probe_trace()
+        a = st.log.head.shape[0]
+        out = {"head": host[:a], "behind": host[a:a + n]}
+        i = a + n
+        out["live"] = host[i:i + t * n].reshape(t, n)
+        i += t * n
+        out["book_sum"], out["cleared"], out["pend_live"] = (
+            int(v) for v in host[i:i + 3])
+        i += 3
+        out["pend_size"] = int(pend_size)
+        if cfg.swim_enabled:
+            out["suspected_by"] = host[i:i + n]
+            out["down_by"] = host[i + n:i + 2 * n]
+            out["self_inc"] = host[i + 2 * n:i + 3 * n]
+            i += 3 * n
+        out["last_sync"] = host[i:i + n] if cfg.probes else None
+        out["probe"] = probe
+        out["table_stats"] = self._table_stats_from(out["live"])
+        out["node_lag"] = self._lag_from(
+            out["behind"],
+            out.get("suspected_by", np.zeros(n, np.int64)),
+            out["last_sync"],
         )
+        return out
 
     def probe_report(self) -> dict:
         """The GET /v1/probes body: per-probe summaries and infection

@@ -42,6 +42,7 @@ __all__ = [
     "ProbeTrace",
     "bfs_hops",
     "ground_truth_adjacency",
+    "lag_summary",
     "node_lag_observatory",
 ]
 
@@ -410,9 +411,24 @@ def node_lag_observatory(
     """
     log_head = np.asarray(log_head)
     book_head = np.asarray(book_head)
-    alive = np.asarray(alive, bool)
     behind = np.maximum(log_head[None, :] - book_head, 0).sum(axis=1)
-    behind = np.where(alive, behind, 0)
+    return lag_summary(behind, alive, current_round, last_sync=last_sync,
+                       suspected_by=suspected_by, top_k=top_k)
+
+
+def lag_summary(
+    behind,
+    alive,
+    current_round: int,
+    last_sync=None,
+    suspected_by=None,
+    top_k: int = 8,
+) -> dict:
+    """:func:`node_lag_observatory` from each node's unapplied-version
+    count ``behind`` (N,), dead nodes included, where the caller reduced
+    the (N, A) heads on the device."""
+    alive = np.asarray(alive, bool)
+    behind = np.where(alive, np.asarray(behind), 0)
     ages = None
     if last_sync is not None:
         ls = np.asarray(last_sync)

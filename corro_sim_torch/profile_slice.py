@@ -829,10 +829,31 @@ CONFIG8_1024_CHURN = {"rounds": 160, "converged_round": 148,
                       "swim_false_down": 87354}
 
 
-def sweep_lane_record(lr) -> dict:
-    """A sweep lane's outcome beside its pin (``SWEEP_PINS``)."""
+# "config8_compact": the lossy and crash-amnesia lanes of seed 0 as a
+# plan of their own (CONFIG8_COMPACT_SCENARIOS). Its union config arms
+# fewer sweep dimensions than the four-scenario plan, so the lanes' knob
+# leaf, and with it their digests, differ from SWEEP_PINS; their rounds,
+# verdicts and resilience blocks do not. Made on the CPU with
+#   build_plan(base, CONFIG8_COMPACT_SCENARIOS, [0], rounds=96,
+#              write_rounds=16)
+#   run_sweep(plan, max_rounds=1024, chunk=16)
+# recorded as SWEEP_PINS are (about 20 s).
+CONFIG8_COMPACT_SCENARIOS = CONFIG8_SCENARIOS[0::2]
+CONFIG8_COMPACT_PINS = {
+    "lossy:p=0.1@0": (
+        "1f5c36ecb8c821118ca5fa8ad330fc871e51b8687d7a4a52d4ab1da8c30292f4",
+        64, 60, [], (None, None, 0, 0, 0, 0, 0, 0, 4)),
+    "crash_amnesia:at=8,down=4,jump=0,nodes=3@0": (
+        "7a0bc765a54edac194e42d982f946d89cdc5ab9efeeaae8d0258934fbfedb5bb",
+        64, 56, [], (12, 44, 0, 3702, 3, 3, 13, 0, 4)),
+}
+
+
+def sweep_lane_record(lr, pins: dict = SWEEP_PINS) -> dict:
+    """A sweep lane's outcome beside its pin (``SWEEP_PINS``, or the
+    ``pins`` of another plan)."""
     key = f"{lr.spec}@{lr.seed}"
-    want = SWEEP_PINS[key]
+    want = pins[key]
     viol = [(v["round"], v["invariant"])
             for v in (lr.invariants or {}).get("violations", [])]
     got_res = (None if lr.resilience is None else
@@ -1148,12 +1169,13 @@ TWIN_PIN_NODES = 256  # where the JAX package ran the 10k feed
 TWIN_FORECAST = dict(scenarios=["lossy:p=0.3",
                                 "crash_amnesia:nodes=2,at=4,down=4"],
                      seeds=[0, 1], rounds=32, max_rounds=256, chunk=8)
-# the same grid at 10 000 nodes, seed 0's two lanes (seeds 0-1 until the
-# subscription phases needed the time), in chunks of 16 rounds: the
-# checkers read each lane's (N, N) heads and SWIM statuses once a chunk,
-# so at 10k their host seconds follow the chunk count
-TWIN_10K_FORECAST = dict(TWIN_FORECAST, seeds=[0], max_rounds=512,
-                         chunk=16)
+# the same grid at 10 000 nodes cut to seed 0's lossy lane (the other
+# seed and the crash lane are left out for chip_smoke.py's time budget),
+# in chunks of 16 rounds: the checkers read each lane's (N, N) heads and
+# SWIM statuses once a chunk, so at 10k their host seconds follow the
+# chunk count
+TWIN_10K_FORECAST = dict(TWIN_FORECAST, scenarios=TWIN_FORECAST[
+    "scenarios"][:1], seeds=[0], max_rounds=512, chunk=16)
 TWIN_THRESHOLDS = {"twin_forecast": {
     "default": {"require_converged": True, "rows_lost_max": 0},
     "scenarios": {"crash_amnesia": {"recovery_rounds_worst_max": 48}},
@@ -1801,6 +1823,136 @@ def live_oracle_rows(cluster, sql: str, node: int) -> list:
             rows.append(out)
     return rows
 
+
+# ------------------------------------------------- the serving surfaces
+# chip_smoke.py's serving phases. "config6_live" is config 6's live half
+# exactly as the JAX package defines it (benchmarks.config6_live_run:
+# the Zipf 1.1 + churn-storm schedule at 256 nodes, 64 matchers, 1024
+# subscribers, 64 latency-tracked, 4 direct queries per round, settle
+# 512; the schedule touches 2046 keys, 4 092 cells, so its merges take
+# the scatter arm). "serve_256" is the same schedule with the one-shot
+# queries rotating over direct, HTTP and pgwire (SERVE_RUN) on 2048 row
+# slots (4 096 cells: the merge kernel runs on the card). The pins are
+# the JAX package's CPU runs of the same recipe
+# (tests/test_torch_live_load.py::jax_config6_live_pins holds it),
+# recorded by live_load_record.
+CONFIG6_LIVE_NODES = 256
+SERVE_RUN = dict(http=True, pg=True, default_capacity=2048)
+LIVE_LOAD_FIELDS = ("writes", "deletes", "observed", "coalesced",
+                    "settle_rounds", "drained", "matchers", "subscriptions",
+                    "queries")
+LIVE_LOAD_QUANTILES = ("p50", "p90", "p99", "max", "count")
+
+
+def live_load_record(report: dict, leaves: dict) -> dict:
+    """A live-load run's deterministic outcome, as its pin holds it: the
+    report's counts, its sub-delivery quantiles in rounds, and the
+    run_digest of the final table planes (``leaves`` named as
+    ``convert.state_to_numpy`` names them; only ``table.*`` is read)."""
+    rec = {k: report[k] for k in LIVE_LOAD_FIELDS}
+    rec["latency_rounds"] = {k: report["latency_rounds"][k]
+                             for k in LIVE_LOAD_QUANTILES}
+    rec["table"] = run_digest(
+        {k: v for k, v in leaves.items() if k.startswith("table.")}, {})
+    return rec
+
+
+CONFIG6_LIVE_PINS = {
+    'writes': 5668, 'deletes': 383, 'observed': 87472,
+    'coalesced': 250768, 'settle_rounds': 207, 'drained': True,
+    'matchers': 64, 'subscriptions': 1024, 'queries': {'direct': 256},
+    'latency_rounds': {'p50': 8.0, 'p90': 202.0, 'p99': 202.0,
+                       'max': 202.0, 'count': 87472},
+    'table':
+        '6d061a1c0412c3905555d4f711b30d527335a2fa10ee3150473117f461e7a294',
+}
+# "serve_256": the same schedule and outcome, the one-shot queries spread
+# over the three surfaces, and the table planes at 2048 row slots
+SERVE_256_PINS = dict(
+    CONFIG6_LIVE_PINS,
+    queries={'direct': 86, 'http': 85, 'pg': 85},
+    table='58ce4179f6412d997fac8ef5dda7081cc55e95a302d2792860de764fdad9d00c',
+)
+
+
+# "serve_10k" (and the card test over 48 nodes): one transaction, one
+# query on three surfaces and one subscription event through the real
+# servers of a Consul-schema LiveCluster
+SERVE_QUERY = ("SELECT node, id, port FROM consul_services "
+               "WHERE id = 'svc-serve'")
+SERVE_WRITE = ("INSERT INTO consul_services (node, id, name, tags, meta, "
+               "port, address, updated_at) VALUES ('node-serve', "
+               "'svc-serve', 'serve', '', '', 8443, '10.9.9.9', 1)")
+
+
+def serve_check(cluster, writer: int, reader: int, *, scrape_wrap=None,
+                max_rounds: int = 4096) -> dict:
+    """Serve ``cluster`` over HTTP and pgwire and drive one write through
+    it: an HTTP subscription to :data:`SERVE_QUERY` on ``reader``, the
+    :data:`SERVE_WRITE` transaction over HTTP on ``writer``,
+    ``run_until_converged``, the subscription's event, the query over
+    HTTP, over pgwire and directly on ``reader``, ``/v1/cluster/members``,
+    ``/v1/table_stats`` and one ``/metrics`` scrape (inside
+    ``scrape_wrap()``, a context manager factory, when given). Returns
+    what each surface answered and the host seconds of each part."""
+    import urllib.request
+
+    from corro_sim_torch.api.http import ApiServer
+    from corro_sim_torch.api.pg import PgServer, SimplePgClient
+    from corro_sim_torch.client import ApiClient
+
+    out, secs = {}, {}
+    with ApiServer(cluster) as api, PgServer(cluster) as pg:
+        client = ApiClient(api.addr, timeout=600.0)
+        sub = client.subscribe(SERVE_QUERY, node=reader)
+        out["sub_initial"] = sub.events(2)
+        t = time.perf_counter()
+        resp = client.execute([SERVE_WRITE], node=writer)
+        secs["http_execute"] = time.perf_counter() - t
+        out["execute"] = {
+            "version": resp["version"],
+            "results": [{k: v for k, v in r.items() if k != "time"}
+                        for r in resp["results"]]}
+        t = time.perf_counter()
+        out["converged_round"] = cluster.run_until_converged(
+            max_rounds=max_rounds)
+        secs["converge"] = time.perf_counter() - t
+        out["sub_event"] = sub.events(1)[0]
+        sub.close()
+        t = time.perf_counter()
+        out["http_rows"] = list(client.query_rows(SERVE_QUERY, node=reader))
+        secs["http_query"] = time.perf_counter() - t
+        pgc = SimplePgClient(*pg.addr, database=f"node{reader}")
+        t = time.perf_counter()
+        fields, rows, _tags, errors = pgc.query(SERVE_QUERY)
+        secs["pg_query"] = time.perf_counter() - t
+        pgc.close()
+        out["pg_rows"] = [[f for f, _ in fields], rows, errors]
+        t = time.perf_counter()
+        out["direct_rows"] = list(cluster.query_rows(SERVE_QUERY, reader))
+        secs["direct_query"] = time.perf_counter() - t
+        out["members"] = client.members()
+        out["table_stats"] = client.table_stats()
+        wrap = scrape_wrap() if scrape_wrap else contextlib.nullcontext()
+        with wrap:
+            t = time.perf_counter()
+            with urllib.request.urlopen(f"{api.url}/metrics",
+                                        timeout=600) as r:
+                out["metrics"] = r.read().decode()
+            secs["scrape"] = time.perf_counter() - t
+    out["seconds"] = secs
+    return out
+
+
+def serve_agrees(out: dict) -> bool:
+    """The three surfaces gave the same rows, and the one row is the
+    write; the subscriber saw it as an insert."""
+    cols, rows = out["direct_rows"]
+    return (out["http_rows"] == [cols, rows] and out["pg_rows"][2] == []
+            and out["pg_rows"][:2] == [cols, rows]
+            and rows == [["node-serve", "svc-serve", 8443]]
+            and out["sub_event"]["change"][0] == "insert"
+            and out["sub_event"]["change"][2] == rows[0])
 
 # The replay fixtures: (path in the repository, config overrides on the
 # trace's suggest_config()); replayed with max_rounds=256. The first is

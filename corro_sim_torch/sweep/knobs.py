@@ -37,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from corro_sim_torch.device import resolve_device
 from corro_sim_torch.engine.features import FeatureLeaf, register_feature
 
 __all__ = [
@@ -95,11 +96,11 @@ def knob_tensors(knobs: dict, device) -> dict:
             for k, v in knobs.items()}
 
 
-def neutral_knobs(cfg, seed: int = 0, device="cpu") -> dict:
+def neutral_knobs(cfg, seed: int = 0, device=None) -> dict:
     """The value-neutral leaf for ``cfg``'s armed sweep dimensions, on
-    ``device``: the feature's build function (the sweep engine swaps in
-    each lane's own values)."""
-    return knob_tensors(_host_neutral(cfg), device)
+    ``device`` (CUDA unless the caller asks for the CPU): the feature's
+    build function (the sweep engine swaps in each lane's own values)."""
+    return knob_tensors(_host_neutral(cfg), resolve_device(device))
 
 
 register_feature(FeatureLeaf(

@@ -47,6 +47,7 @@ from corro_sim_torch.profile_slice import (
     run_digest,
     token_case,
 )
+from test_torch_cluster import one_torch_thread  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG_KW = dict(num_nodes=12, num_rows=16, num_cols=2, log_capacity=64,

@@ -53,6 +53,7 @@ from corro_sim_torch.profile_slice import (
 )
 from corro_sim_torch.sync import sync as p_sync
 from corro_sim_torch.utils import bits as p_bits
+from test_torch_cluster import one_torch_thread  # noqa: E402,F401
 
 N = 32
 S = 4

@@ -31,6 +31,7 @@ from corro_sim_torch.convert import state_to_numpy
 from corro_sim_torch.engine.driver import Schedule
 from corro_sim_torch.engine.driver import run_sim
 from corro_sim_torch.engine.state import init_state
+from test_torch_cluster import one_torch_thread  # noqa: E402,F401
 
 HOT = dict(sync_hot_actors=16)
 

@@ -33,6 +33,7 @@ from corro_sim_torch.engine.driver import Schedule, run_sim
 from corro_sim_torch.engine.state import init_state
 from corro_sim_torch.faults import InvariantChecker, inject
 from corro_sim_torch.faults.masks import pairs_to_mask
+from test_torch_cluster import one_torch_thread  # noqa: E402,F401
 
 # a fault config's whole run: the north-star shape at 24 nodes, SWIM on
 # (narrow, a tick every 2 rounds), a partition in rounds 4-9

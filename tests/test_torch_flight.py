@@ -26,6 +26,7 @@ from corro_sim_torch.config import sim_config_from_dict
 from corro_sim_torch.engine.driver import Schedule, run_sim
 from corro_sim_torch.engine.state import init_state
 from corro_sim_torch.obs import FlightRecorder
+from test_torch_cluster import one_torch_thread  # noqa: E402,F401
 
 
 def _synthetic(cls=FlightRecorder):

@@ -55,7 +55,11 @@ def test_port_imports_without_jax():
         " 'corro_sim_torch.api', 'corro_sim_torch.api.exprs',"
         " 'corro_sim_torch.api.statements', 'corro_sim_torch.api.sql_state',"
         " 'corro_sim_torch.api.wire', 'corro_sim_torch.harness',"
-        " 'corro_sim_torch.harness.cluster', 'corro_sim_torch.benchmarks')"
+        " 'corro_sim_torch.harness.cluster', 'corro_sim_torch.benchmarks',"
+        " 'corro_sim_torch.api.http', 'corro_sim_torch.api.pg',"
+        " 'corro_sim_torch.client', 'corro_sim_torch.admin',"
+        " 'corro_sim_torch.workload.harness',"
+        " 'corro_sim_torch.engine.sharding')"
         " if m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -134,6 +138,28 @@ def test_live_cluster_refuses_without_cuda(tmp_path):
         assert load(path, device="cpu").device.type == "cpu"
 
 
+def test_serving_entry_points_refuse_without_cuda():
+    """The load harness, config 6 and the sweep's neutral knob leaf run
+    on CUDA unless given ``device="cpu"``."""
+    from corro_sim_torch.benchmarks import config6_live_run, run_config_6
+    from corro_sim_torch.sweep.knobs import neutral_knobs
+    from corro_sim_torch.workload import make_workload
+    from corro_sim_torch.workload.harness import load_cluster, run_live_load
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is usable")
+    wl = make_workload("zipf:alpha=1.0,rate=0.5,keys=8", 2, rounds=2)
+    for call in (lambda: run_live_load(wl, subs=1, settle_rounds=4),
+                 lambda: load_cluster(wl),
+                 lambda: config6_live_run(2, 2, subs=2, sub_queries=1),
+                 lambda: run_config_6(nodes=2, subs=2, rounds=2),
+                 lambda: neutral_knobs(_small_cfg())):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    rep = run_live_load(wl, subs=1, settle_rounds=8, device="cpu")
+    assert rep.nodes == 2
+
+
 @pytest.mark.parametrize("change", [
     dict(sweep=pconfig.SweepConfig(lanes=2)),
 ])
@@ -150,6 +176,28 @@ def test_unported_features_are_refused(change):
                       write_rounds=4)
     with pytest.raises(NotImplementedError, match="ROADMAP|queue 1"):
         run_sweep(plan, mesh=object(), device="cpu")
+
+
+def test_serving_entry_points_refuse_without_cuda():
+    """The load harness, config 6 and the sweep's neutral knob leaf run
+    on CUDA unless given ``device="cpu"``."""
+    from corro_sim_torch.benchmarks import config6_live_run, run_config_6
+    from corro_sim_torch.sweep.knobs import neutral_knobs
+    from corro_sim_torch.workload import make_workload
+    from corro_sim_torch.workload.harness import load_cluster, run_live_load
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is usable")
+    wl = make_workload("zipf:alpha=1.0,rate=0.5,keys=8", 2, rounds=2)
+    for call in (lambda: run_live_load(wl, subs=1, settle_rounds=4),
+                 lambda: load_cluster(wl),
+                 lambda: config6_live_run(2, 2, subs=2, sub_queries=1),
+                 lambda: run_config_6(nodes=2, subs=2, rounds=2),
+                 lambda: neutral_knobs(_small_cfg())):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    rep = run_live_load(wl, subs=1, settle_rounds=8, device="cpu")
+    assert rep.nodes == 2
 
 
 @pytest.mark.parametrize("change", [
@@ -226,6 +274,28 @@ def test_emit_slots_cap_and_legacy_schedules_are_admitted():
     for emit in (0, 8, 12):
         ok = dataclasses.replace(cfg, emit_slots=emit)
         assert pconfig.validate_torch_slice(ok) is ok
+
+
+def test_serving_entry_points_refuse_without_cuda():
+    """The load harness, config 6 and the sweep's neutral knob leaf run
+    on CUDA unless given ``device="cpu"``."""
+    from corro_sim_torch.benchmarks import config6_live_run, run_config_6
+    from corro_sim_torch.sweep.knobs import neutral_knobs
+    from corro_sim_torch.workload import make_workload
+    from corro_sim_torch.workload.harness import load_cluster, run_live_load
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is usable")
+    wl = make_workload("zipf:alpha=1.0,rate=0.5,keys=8", 2, rounds=2)
+    for call in (lambda: run_live_load(wl, subs=1, settle_rounds=4),
+                 lambda: load_cluster(wl),
+                 lambda: config6_live_run(2, 2, subs=2, sub_queries=1),
+                 lambda: run_config_6(nodes=2, subs=2, rounds=2),
+                 lambda: neutral_knobs(_small_cfg())):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    rep = run_live_load(wl, subs=1, settle_rounds=8, device="cpu")
+    assert rep.nodes == 2
 
 
 @pytest.mark.parametrize("change", [

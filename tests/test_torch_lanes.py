@@ -45,6 +45,7 @@ from test_torch_sweep import (
     _json,
     run_twin,
 )
+from test_torch_cluster import one_torch_thread  # noqa: E402,F401
 
 # an impossible recovery bound: every cell with a recovery number breaches
 IMPOSSIBLE = {"default": {"recovery_rounds_worst_max": -1},

@@ -297,3 +297,36 @@ def test_live_cluster_on_the_card_equals_the_cpu(dev, tmp_path):
     assert runs["cuda"][1] == runs["cpu"][1]
     assert runs["cpu"][2] == 0 and runs["cuda"][2] > 0
     assert ps.live_folded_mismatches(runs["cuda"][0]) == []
+
+
+@pytest.mark.cuda
+def test_api_server_on_the_card_equals_the_cpu(dev):
+    """An ApiServer (and a PgServer) over a 48-node Consul-schema
+    LiveCluster (512 rows x 6 columns: its sync sweeps merge through the
+    kernel on the card): a transaction, a query on three surfaces and a
+    subscription event over HTTP, then 16 more rounds, on the card equal
+    the same on the CPU, leaf for leaf, and the card launched the
+    kernel."""
+    from corro_sim_torch import profile_slice as ps
+    from corro_sim_torch.convert import state_to_numpy
+    from corro_sim_torch.harness.cluster import LiveCluster
+    from corro_sim_torch.schema import consul_schema_sql
+
+    runs = {}
+    for d in ("cpu", "cuda"):
+        c = LiveCluster(consul_schema_sql(), num_nodes=48, seed=0,
+                        capacities=ps.subs_capacities(ps.LIVE_KEYS),
+                        cfg_overrides=dict(ps.LIVE_OVERRIDES), device=d)
+        mk.reset_launch_counts()
+        out = ps.serve_check(c, writer=5, reader=40)
+        c.tick(16)
+        launches = mk.LAUNCHES["grouped_merge"]
+        out.pop("seconds")
+        out.pop("metrics")
+        assert ps.serve_agrees(out)
+        runs[d] = (out, state_to_numpy(c.state), launches)
+        c.tripwire.trip()
+    assert runs["cuda"][0] == runs["cpu"][0]
+    a, b = runs["cpu"][1], runs["cuda"][1]
+    assert [k for k in a if not np.array_equal(a[k], b[k])] == []
+    assert runs["cpu"][2] == 0 and runs["cuda"][2] > 0

@@ -48,6 +48,7 @@ from corro_sim_torch.sync import sync as p_sync
 from corro_sim_torch.utils import bits as p_bits
 from corro_sim_torch.utils import slots as p_slots
 from corro_sim_torch.utils import sort as p_sort
+from test_torch_cluster import one_torch_thread  # noqa: E402,F401
 
 N = 32
 

@@ -29,6 +29,7 @@ from corro_sim_torch.convert import state_to_numpy
 from corro_sim_torch.engine.driver import Schedule, run_sim
 from corro_sim_torch.engine.state import init_state
 from corro_sim_torch.sync import sync as p_sync
+from test_torch_cluster import one_torch_thread  # noqa: E402,F401
 
 N = 32
 

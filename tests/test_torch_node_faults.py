@@ -42,6 +42,7 @@ from corro_sim_torch.faults import (
 )
 from corro_sim_torch.membership.swim import renew_membership
 from corro_sim_torch.workload.generators import Workload
+from test_torch_cluster import one_torch_thread  # noqa: E402,F401
 
 N = 16
 BASE = SimConfig(

@@ -36,6 +36,7 @@ from corro_sim_torch.utils.metrics import (
     histograms,
 )
 from corro_sim_torch.utils.tracing import tracer
+from test_torch_cluster import one_torch_thread  # noqa: E402,F401
 
 CFG = SimConfig(
     num_nodes=16, num_rows=16, num_cols=2, log_capacity=64,

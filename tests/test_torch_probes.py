@@ -31,6 +31,7 @@ from corro_sim_torch.engine import probe as p_probe
 from corro_sim_torch.engine.driver import Schedule, run_sim
 from corro_sim_torch.engine.state import init_state
 from corro_sim_torch.obs import probes as p_obs
+from test_torch_cluster import one_torch_thread  # noqa: E402,F401
 
 N, K = 32, 4
 

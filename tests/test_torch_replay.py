@@ -40,6 +40,7 @@ from corro_sim_torch.io import values as p_values
 from corro_sim_torch.workload import inject as p_inject
 from test_replay_parity import EXPECTED
 from test_torch_workload import _leaves, _mid_pair
+from test_torch_cluster import one_torch_thread  # noqa: E402,F401
 
 FIXTURES = pathlib.Path(__file__).parent / "fixtures"
 TRACES = {

@@ -40,6 +40,7 @@ from corro_sim_torch.profile_slice import (
     slice8_config,
     slice_schedule,
 )
+from test_torch_cluster import one_torch_thread  # noqa: E402,F401
 
 N = 32
 

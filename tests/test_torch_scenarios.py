@@ -50,6 +50,7 @@ from corro_sim_torch.profile_slice import (
     fault_digest_run,
     run_soak,
 )
+from test_torch_cluster import one_torch_thread  # noqa: E402,F401
 
 CFG = SimConfig(
     num_nodes=24, num_rows=32, num_cols=2, log_capacity=128,

@@ -24,6 +24,7 @@ from corro_sim_torch.convert import state_to_numpy
 from corro_sim_torch.engine.replay import read_table, replay
 from corro_sim_torch.io import traces as p_traces
 from test_torch_workload import _leaves
+from test_torch_cluster import one_torch_thread  # noqa: E402,F401
 
 ARRAYS = ("valid", "empty", "delete", "ncells", "row", "col", "vr", "cv",
           "cl", "ts")

@@ -47,6 +47,7 @@ from corro_sim_torch.io import traces as p_traces
 from corro_sim_torch.io.values import LiveUniverse as PLiveUniverse
 from corro_sim_torch.utils.metrics import SUBS_BATCH_GROUPS_TOTAL, counters
 from corro_sim_torch.utils.ranks import translate_ranks
+from test_torch_cluster import one_torch_thread  # noqa: E402,F401
 
 REF = types.SimpleNamespace(
     key="ref", subs=r_subs, manager=r_manager, query=r_query,

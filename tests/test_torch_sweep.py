@@ -37,6 +37,7 @@ from corro_sim_torch.faults import (
 from corro_sim_torch.sweep import build_plan, knobs, parse_grid
 from corro_sim_torch.sweep.engine import run_sweep
 from corro_sim_torch.sweep.frontier import build_frontier, check_frontier
+from test_torch_cluster import one_torch_thread  # noqa: E402,F401
 
 CHUNK = 8
 MAX_ROUNDS = 256

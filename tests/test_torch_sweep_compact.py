@@ -47,6 +47,7 @@ from test_torch_sweep import (
     ref_leaves,
     run_twin,
 )
+from test_torch_cluster import one_torch_thread  # noqa: E402,F401
 
 
 def _wl_plan(build, base):
@@ -232,3 +233,19 @@ def test_forked_lane_equals_serial_fork_resume(forked, li):
     if lane.spec.startswith("crash"):
         # the wipes fired in the fork's frame
         assert lr.resilience["wipes"] == 2
+
+
+def test_compact_phase_pins_agree_with_the_four_lane_pins():
+    """chip_smoke.py's "config8_compact" races two lanes as a plan of
+    their own: their JAX pins differ from the four-lane plan's only in
+    the digest (the knob leaf), never in rounds, verdicts or
+    resilience."""
+    from corro_sim_torch import profile_slice as ps
+
+    plan = ps.config8_plan(range(1),
+                           scenarios=ps.CONFIG8_COMPACT_SCENARIOS)
+    keys = [f"{lane.spec}@{lane.seed}" for lane in plan.lanes]
+    assert keys == list(ps.CONFIG8_COMPACT_PINS)
+    for key, pin in ps.CONFIG8_COMPACT_PINS.items():
+        assert pin[1:] == ps.SWEEP_PINS[key][1:]
+        assert pin[0] != ps.SWEEP_PINS[key][0]

@@ -43,6 +43,7 @@ from corro_sim_torch.profile_slice import (
     run_digest,
     slice_schedule,
 )
+from test_torch_cluster import one_torch_thread  # noqa: E402,F401
 
 N = 16
 START = 250  # narrow since is mod 2^8: a run of ticks crosses round 256

@@ -59,6 +59,7 @@ from corro_sim_torch.profile_slice import (
     universe_view,
 )
 from test_torch_sweep import assert_twin, ref_leaves
+from test_torch_cluster import one_torch_thread  # noqa: E402,F401
 
 FIXTURE = (pathlib.Path(__file__).parent / "fixtures" / "traces"
            / "flyio_small.ndjson")

@@ -9,7 +9,8 @@ with the JAX package's, on the CPU; the cases of tests/test_twin_live.py.
   both deliver the same lines, stats and death.
 - The HTTP watch source reads the JAX package's ``/v1/changes`` relay
   (``ApiServer`` over ``LiveCluster``) line for line and dies when the
-  endpoint is gone.
+  endpoint is gone; the port's relay serves both packages' sources the
+  same way.
 - A live-tailed shadow equals the file-mode shadow of the same lines,
   also across a rotation, and the JAX package's file-mode run.
 - A stale-universe refresh fires, re-keys the ranks on the state and
@@ -43,6 +44,7 @@ from corro_sim_torch.io.checkpoint import load_sim_checkpoint
 from corro_sim_torch.io.traces import TraceStream
 from corro_sim_torch.workload.inject import trace_workload
 from test_torch_twin import assert_same_shadow
+from test_torch_cluster import one_torch_thread  # noqa: E402,F401
 
 FIXTURE = (pathlib.Path(__file__).parent / "fixtures" / "traces"
            / "flyio_live.ndjson")
@@ -226,6 +228,39 @@ def test_http_watch_source_against_api_relay(tmp_path, live_lines):
     finally:
         cluster.tripwire.trip()
 
+
+@pytest.mark.parametrize("source", ["port", "jax"])
+def test_http_watch_source_against_port_relay(tmp_path, live_lines, source):
+    """The port's ``/v1/changes`` relay (its ``ApiServer`` over its
+    LiveCluster) serves either package's HTTP watch source line for line,
+    and the source dies when the endpoint is gone."""
+    from corro_sim_torch.api.http import ApiServer
+    from corro_sim_torch.harness.cluster import LiveCluster
+
+    fs = SOURCES[source]
+    feed = tmp_path / "feed.ndjson"
+    feed.write_text("".join(live_lines[:8]))
+    cluster = LiveCluster(
+        "CREATE TABLE t (id INTEGER PRIMARY KEY, v INTEGER NOT NULL "
+        "DEFAULT 0);",
+        num_nodes=2, default_capacity=16, device="cpu",
+    )
+    try:
+        with ApiServer(cluster, feed_path=str(feed)) as srv:
+            url = f"{srv.url}/v1/changes"
+            src = fs.HTTPWatchSource(url, **FAST)
+            assert src.wait_lines(8) == live_lines[:8]
+            with open(feed, "a") as f:
+                f.write("".join(live_lines[8:]))
+            assert src.wait_lines(3) == live_lines[8:]
+            assert src.report()["next_offset"] == len(live_lines)
+            src.close()
+        src2 = fs.HTTPWatchSource(url, **FAST)
+        assert src2.wait_lines(1) == []
+        assert src2.dead and src2.death_reason == "reconnect_budget"
+        assert src2.stats["reconnects"] >= 1
+    finally:
+        cluster.tripwire.trip()
 
 # ------------------------------------------ live == file == the JAX run
 

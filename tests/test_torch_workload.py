@@ -47,6 +47,7 @@ from corro_sim_torch.workload.inject import (
     inject_round,
     workload_as_injection,
 )
+from test_torch_cluster import one_torch_thread  # noqa: E402,F401
 
 FIELDS = ("writers", "rows", "cols", "vals", "dels", "ncells")
 
