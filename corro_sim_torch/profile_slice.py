@@ -150,6 +150,32 @@ def slice_config(n: int = 10000, merge_kernel: str = "auto",
     )
 
 
+def sim_toml(cfg: SimConfig) -> str:
+    """``cfg`` as the ``[sim]`` table of a config file that
+    ``io/config_file.py::load_config`` (either package's) reads back to
+    the same config: every scalar field that differs from its default.
+    The nested fault, twin and sweep tables must be at their defaults."""
+    base = SimConfig()
+    for nested in ("faults", "node_faults", "twin", "sweep"):
+        if getattr(cfg, nested) != getattr(base, nested):
+            raise ValueError(f"sim_toml writes no [sim.{nested}] table")
+    lines = ["[sim]"]
+    for f in dataclasses.fields(SimConfig):
+        v = getattr(cfg, f.name)
+        if f.name in ("faults", "node_faults", "twin", "sweep") or (
+                v == getattr(base, f.name)):
+            continue
+        if isinstance(v, bool):
+            lines.append(f"{f.name} = {'true' if v else 'false'}")
+        elif isinstance(v, (int, float)):
+            lines.append(f"{f.name} = {v!r}")
+        elif isinstance(v, str):
+            lines.append(f"{f.name} = {json.dumps(v)}")
+        else:
+            raise ValueError(f"sim_toml cannot write {f.name} = {v!r}")
+    return "\n".join(lines) + "\n"
+
+
 def latency_config(n: int = 10000) -> SimConfig:
     """Config 0 (``slice_config(n, swim=True)``) across four regions: the
     latency model with ``latency_inter`` at its default 4 (a far lane
@@ -827,6 +853,27 @@ CONFIG8_1024_VIOLATIONS = {
 }
 CONFIG8_1024_CHURN = {"rounds": 160, "converged_round": 148,
                       "swim_false_down": 87354}
+
+
+# Config 0's churn soak (SWIM_CHURN_SPEC with SOAK_ARGS, seed 0) at 1024,
+# 2048 and 4096 nodes: what the JAX package's serial soak loop reports on
+# the CPU (tests/test_torch_cli.py::jax_swim_churn_pins holds the recipe)
+# as (rounds run, converged round, the invariant violations as (round,
+# invariant, detail), run_digest of the final state and metrics). 4096
+# is the smallest of the three sizes with a swim_false_down verdict, in
+# both packages; chip_smoke.py's "swim_churn_4096" holds the card to it.
+SWIM_CHURN_SPEC = "churn:rate=0.05"
+SWIM_CHURN_PINS = {
+    1024: (80, 70, [], "51876ddacc81ddb58b3d4e74e108f3bf"
+                       "d122d02f113e8c49436c292a25f2e763"),
+    2048: (80, 70, [], "989c017147f60fe79310800bca952913"
+                       "582d7001a8c96797f6678f57727bf657"),
+    4096: (80, 70, [(79, "swim_false_down",
+                     "observer 81 believes live node 3334 DOWN after 73 "
+                     "rounds of mutual reachability (window 72)")],
+           "3aad8fe3963847ed36d2b8a2393718c4"
+           "ce867d79f2a9fd5e052fdb7ead001c9f"),
+}
 
 
 # "config8_compact": the lossy and crash-amnesia lanes of seed 0 as a
@@ -2417,6 +2464,61 @@ def config8(seeds: int = 8, n: int = 256) -> dict:
     return out
 
 
+def swim_churn(out_dir: str, sizes=tuple(SWIM_CHURN_PINS),
+               device: str = "cuda") -> dict:
+    """Config 0's churn soak (``SWIM_CHURN_SPEC``, ``SOAK_ARGS``, seed 0)
+    on ``device`` at each size: the command line's ``soak --serial``
+    report (its verdict and violations) and ``run_soak``'s rounds,
+    violations and digest, each held to ``SWIM_CHURN_PINS``."""
+    import contextlib
+    import io
+
+    from corro_sim_torch import cli
+    from corro_sim_torch.convert import state_to_numpy
+
+    os.makedirs(out_dir, exist_ok=True)
+    out = {}
+    for n in sizes:
+        conf = os.path.join(out_dir, f"config0_{n}.toml")
+        with open(conf, "w") as f:
+            f.write(sim_toml(soak_config(n)))
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([
+                "--device", device, "soak", "--config", conf, "--serial",
+                "--scenario",
+                SWIM_CHURN_SPEC, "--rounds", str(SOAK_ARGS["rounds"]),
+                "--write-rounds", str(SOAK_ARGS["write_rounds"]),
+                "--chunk", str(SOAK_ARGS["chunk"]),
+                "--max-rounds", str(SOAK_ARGS["max_rounds"]),
+                "--seed", "0"])
+        cli_s = time.perf_counter() - t
+        rep = json.loads(buf.getvalue())["scenarios"][0]
+        t = time.perf_counter()
+        run = run_soak(soak_config(n), SWIM_CHURN_SPEC, device=device,
+                       **SOAK_ARGS)
+        res = run.result
+        got = (res.rounds, res.converged_round,
+               [(v["round"], v["invariant"], v["detail"])
+                for v in run.invariants.report()["violations"]],
+               run_digest(state_to_numpy(res.state), res.metrics))
+        out[n] = {"cli_rc": rc, "cli_s": cli_s,
+                  "cli_invariants": rep["invariants"],
+                  "rounds_run": got[0], "converged_round": got[1],
+                  "violations": got[2], "digest": got[3],
+                  "match": got == SWIM_CHURN_PINS.get(n),
+                  "cli_match": [(v["round"], v["invariant"], v["detail"])
+                                for v in rep["invariants"]["violations"]]
+                  == got[2],
+                  "run_soak_s": time.perf_counter() - t,
+                  "wall_per_round_ms": res.wall_per_round_ms}
+        del run, res
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return {"swim_churn": out}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="bench_out")
@@ -2442,7 +2544,19 @@ def main(argv=None) -> dict:
                       help="the early read of the sweep gate against the "
                            "late read, PAIRS pairs on configs 0 and 6 at "
                            "10 000 nodes")
+    cell.add_argument("--swim-churn", action="store_true",
+                      help="config 0's churn soak at 1024, 2048 and 4096 "
+                           "nodes through `soak --serial` and run_soak, "
+                           "held to SWIM_CHURN_PINS")
     args = ap.parse_args(argv)
+    if args.swim_churn:
+        report = dict(swim_churn(args.out),
+                      card=torch.cuda.get_device_name(0),
+                      nvidia_smi=mp.nvidia_smi())
+        with open(os.path.join(args.out, "swim_churn.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        print(json.dumps(report))
+        return report
     if args.host_read:
         report = dict(host_read(args.host_read),
                       card=torch.cuda.get_device_name(0),

@@ -59,7 +59,12 @@ def test_port_imports_without_jax():
         " 'corro_sim_torch.api.http', 'corro_sim_torch.api.pg',"
         " 'corro_sim_torch.client', 'corro_sim_torch.admin',"
         " 'corro_sim_torch.workload.harness',"
-        " 'corro_sim_torch.engine.sharding')"
+        " 'corro_sim_torch.engine.sharding', 'corro_sim_torch.io.config_file',"
+        " 'corro_sim_torch.membership.bootstrap',"
+        " 'corro_sim_torch.harness.devcluster', 'corro_sim_torch.tls',"
+        " 'corro_sim_torch.tpl', 'corro_sim_torch.integrations',"
+        " 'corro_sim_torch.integrations.consul', 'corro_sim_torch.cli',"
+        " 'corro_sim_torch.__main__', 'corro_sim_torch.workload')"
         " if m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -74,6 +79,50 @@ def test_port_imports_without_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_cli_imports_only_the_standard_library():
+    """``import corro_sim_torch.cli`` pulls in no JAX, nothing of the JAX
+    package, no ``cryptography`` and no torch: ``--help`` and the client
+    commands need neither a card nor the optional packages."""
+    code = (
+        "import sys\n"
+        "import corro_sim_torch.cli\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'corro_sim', 'cryptography', 'torch', 'numpy')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_cli_commands_refuse_without_cuda(tmp_path):
+    """``run``, ``agent`` and the other commands that build tensors run on
+    CUDA unless given ``--device cpu``; without a card they raise
+    ``resolve_device``'s error before any work."""
+    from corro_sim_torch import cli
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is usable")
+    schema = tmp_path / "s.sql"
+    schema.write_text("CREATE TABLE t (id INTEGER PRIMARY KEY);")
+    topo = tmp_path / "topo.txt"
+    topo.write_text("A -> B\n")
+    for argv in (["run", "--nodes", "8"],
+                 ["agent", "--schema", str(schema),
+                  "--admin-path", str(tmp_path / "a.sock")],
+                 ["devcluster", str(topo), "--schema", str(schema)],
+                 ["soak", "--nodes", "8"], ["sweep", "scenario=lossy"],
+                 ["twin", str(schema)], ["load", "zipf"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(argv)
+    assert not (tmp_path / "a.sock").exists()
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)

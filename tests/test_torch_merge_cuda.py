@@ -330,3 +330,38 @@ def test_api_server_on_the_card_equals_the_cpu(dev):
     a, b = runs["cpu"][1], runs["cuda"][1]
     assert [k for k in a if not np.array_equal(a[k], b[k])] == []
     assert runs["cpu"][2] == 0 and runs["cuda"][2] > 0
+
+
+@pytest.mark.cuda
+def test_cli_run_on_the_card_equals_the_cpu(dev, tmp_path):
+    """``python -m corro_sim_torch run`` in a child process at a 1024-cell
+    config (256 rows x 4 columns: the sync sweep's merge takes the kernel
+    on the card) gives the report ``--device cpu`` gives, but for the
+    wall-clock fields: ``wall_per_round_ms``, ``compile_seconds`` and
+    the timing fields of ``pipeline``."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    wall = {"wall_per_round_ms", "compile_seconds"}
+    timing = {"fetch_wait_s", "execute_wall_s", "overlap_ratio"}
+    reports = {}
+    for device in ("cpu", "cuda"):
+        r = subprocess.run(
+            [sys.executable, "-m", "corro_sim_torch", "--device", device,
+             "run", "--nodes", "64", "--rows", "256", "--cols", "4",
+             "--write-rounds", "8", "--chunk", "8", "--seed", "3",
+             "--flight-out", str(tmp_path / "flight.ndjson")],
+            cwd=root, capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, OMP_NUM_THREADS="1"))
+        assert r.returncode == 0, r.stderr
+        rep = {k: v for k, v in json.loads(r.stdout).items()
+               if k not in wall}
+        rep["pipeline"] = {k: v for k, v in rep["pipeline"].items()
+                           if k not in timing}
+        reports[device] = rep
+    assert reports["cuda"] == reports["cpu"]
+    assert reports["cuda"]["converged_round"] is not None
+    assert reports["cuda"]["pipeline"]["sweeps_run"] > 0

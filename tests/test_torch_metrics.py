@@ -60,7 +60,11 @@ PARAMS = cases("test_metrics", WAITING)
 
 @pytest.mark.parametrize("mod_name,name", PARAMS,
                          ids=[f"{m[5:]}::{n[5:]}" for m, n in PARAMS])
-def test_reference_case(mod_name, name, reference_fixtures, request):
+def test_reference_case(mod_name, name, reference_fixtures, request,
+                        fresh_registries):
+    # fresh registries: the reference cases write fixed series into the
+    # process registries, and tests/test_metrics.py, run later by the
+    # same worker, asserts those series' exact values
     run_both(mod_name, name, reference_fixtures, request)
 
 

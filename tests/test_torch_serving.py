@@ -126,8 +126,15 @@ def _recording(method, log: list):
 class Bound:
     """While entered, ``LiveCluster`` is ``B``'s recording factory in the
     reference module and in both packages' ``harness.cluster``; on the
-    port's turn every pair of :data:`PAIRS` is rebound too, in the JAX
-    package's modules and wherever the reference module bound it."""
+    port's turn every pair of :attr:`pairs` (:data:`PAIRS`) is rebound
+    too, in the JAX package's modules and wherever the reference module
+    bound it, and :meth:`port_extra` runs."""
+
+    pairs = PAIRS
+    # each package's run gets its own tmp_path (``<tmp_path>/ref``,
+    # ``<tmp_path>/port``); the logs and replies are compared with the
+    # port's directory read as the JAX package's
+    split_tmp = False
 
     def __init__(self, B, mod, made: list, replies: list):
         self.B, self.mod, self.made, self.replies = B, mod, made, replies
@@ -141,13 +148,14 @@ class Bound:
         mp = self.mp = pytest.MonkeyPatch()
         if self.B is PORT:
             by_id = {}
-            for rm, attr, ref_obj, port_obj in PAIRS:
+            for rm, attr, ref_obj, port_obj in self.pairs:
                 mp.setattr(rm, attr, port_obj)
                 by_id[id(ref_obj)] = port_obj
             for name, obj in list(vars(self.mod).items()):
                 if id(obj) in by_id and not isinstance(obj, _BASIC):
                     mp.setattr(self.mod, name, by_id[id(obj)])
             mp.setattr(p_cluster, "LiveCluster", self.factory)
+            self.port_extra(mp)
         mp.setattr(self.mod, "LiveCluster", self.factory, raising=False)
         mp.setattr(r_cluster, "LiveCluster", self.factory)
         pkg = "corro_sim" if self.B.key == "ref" else "corro_sim_torch"
@@ -157,6 +165,9 @@ class Bound:
             mp.setattr(cls, meth,
                        _recording(getattr(cls, meth), self.replies))
         return self
+
+    def port_extra(self, mp) -> None:
+        """More rebinding on the port's turn (none here)."""
 
     def __exit__(self, *exc):
         self.mp.undo()
@@ -175,16 +186,21 @@ class Fixtures:
         self.made: dict = {"ref": [], "port": []}
         self.replies: dict = {"ref": [], "port": []}
 
-    def value(self, B, name: str, request, case_gens: list):
+    def value(self, B, name: str, request, case_gens: list,
+              split_tmp: bool = False):
         fx = getattr(self.mod, name, None)
         if fx is None or not hasattr(fx, "_fixture_function_marker"):
-            return request.getfixturevalue(name)
+            got = request.getfixturevalue(name)
+            if split_tmp and name == "tmp_path":
+                got = got / B.key
+                got.mkdir(exist_ok=True)
+            return got
         scope = fx._fixture_function_marker.scope
         key = (B.key, name)
         if scope == "module" and key in self.module_values:
             return self.module_values[key]
         fn = fx._get_wrapped_function()
-        args = [self.value(B, p, request, case_gens)
+        args = [self.value(B, p, request, case_gens, split_tmp)
                 for p in inspect.signature(fn).parameters]
         got = fn(*args)
         if inspect.isgenerator(got):
@@ -243,17 +259,40 @@ def _plain(x):
     return plain(x)
 
 
-def call_log(c) -> list:
-    """A recorded cluster's calls, untimed, in a thread-order-free form."""
+def call_log(c, leave_out=ASYNC_CALLS) -> list:
+    """A recorded cluster's calls, untimed, in a thread-order-free form,
+    but those named in ``leave_out``."""
     calls = [y for x in c._calls
-             if x[0] not in ASYNC_CALLS and not x[0].startswith("_")
+             if x[0] not in leave_out and not x[0].startswith("_")
              for y in _expand(x)]
     return sorted(repr(untimed(_plain(x))) for x in calls)
 
 
-def run_both(mod_name: str, name: str, fixtures: dict, request) -> dict:
+def assert_same_rows(rc, pc) -> None:
+    """Both clusters, run to convergence, hold the same rows in every
+    table on every node."""
+    for c in (rc, pc):
+        assert c.run_until_converged() is not None
+    for node in range(rc.cfg.num_nodes):
+        for table in sorted(rc.layout.schema.tables):
+            q = f"SELECT * FROM {table}"
+            got, want = (sorted(repr(plain(r))
+                                for r in c.query_rows(q, node=node)[1])
+                         for c in (pc, rc))
+            assert got == want, (node, table)
+
+
+def run_both(mod_name: str, name: str, fixtures: dict, request,
+             bound=Bound, ticked: bool = False) -> dict:
     """Run reference case ``mod_name::name`` on both packages and hold
-    the port to the JAX package. Returns the two outcomes."""
+    the port to the JAX package. Returns the two outcomes.
+
+    ``bound``: the :class:`Bound` (sub)class that rebinds the names.
+    ``ticked``: the case's clusters are also ticked by a server's
+    background thread, so how often they were ticked depends on the
+    wall clock: their ``tick`` calls are left out of the logs and, in
+    place of the whole state, the clusters are compared by their rows
+    once both are run to convergence."""
     mod = importlib.import_module(mod_name)
     fx = fixtures.setdefault(mod_name, Fixtures(mod))
     fn = getattr(mod, name)
@@ -263,10 +302,11 @@ def run_both(mod_name: str, name: str, fixtures: dict, request) -> dict:
                   if "caplog" in inspect.signature(fn).parameters else None)
         if caplog is not None:
             caplog.clear()
-        with Bound(B, mod, fx.made[B.key], fx.replies[B.key]):
+        with bound(B, mod, fx.made[B.key], fx.replies[B.key]):
             case_gens: list = []
             try:
-                args = [fx.value(B, p, request, case_gens)
+                args = [fx.value(B, p, request, case_gens,
+                                 bound.split_tmp)
                         for p in inspect.signature(fn).parameters]
                 got[B.key] = outcome(fn, *args)
             finally:
@@ -274,13 +314,24 @@ def run_both(mod_name: str, name: str, fixtures: dict, request) -> dict:
     assert got["ref"][0] == "ok", got["ref"]
     assert got["port"] == got["ref"]
     assert len(fx.made["port"]) == len(fx.made["ref"])
-    assert (sorted(repr(_plain(x)) for x in fx.replies["port"])
+    def as_ref(text: str) -> str:
+        if not bound.split_tmp:
+            return text
+        tmp = str(request.getfixturevalue("tmp_path"))
+        return text.replace(f"{tmp}/port", f"{tmp}/ref")
+
+    assert (sorted(as_ref(repr(_plain(x))) for x in fx.replies["port"])
             == sorted(repr(_plain(x)) for x in fx.replies["ref"]))
+    leave_out = ASYNC_CALLS | ({"tick"} if ticked else set())
     for rc, pc in zip(fx.made["ref"], fx.made["port"]):
         assert type(rc._inner) is CLASSES["ref"]
         assert type(pc._inner) is CLASSES["port"]
-        assert call_log(pc) == call_log(rc)
-        assert_same_cluster(rc._inner, pc._inner)
+        assert ([as_ref(x) for x in call_log(pc, leave_out)]
+                == call_log(rc, leave_out))
+        if ticked:
+            assert_same_rows(rc._inner, pc._inner)
+        else:
+            assert_same_cluster(rc._inner, pc._inner)
     return got
 
 
