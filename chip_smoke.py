@@ -457,9 +457,9 @@ def config8_sweep_phase(emit, seeds: int) -> tuple:
     caps = set()
     merge = sync_mod.merge_grouped
 
-    def spy(table, box, cap):
+    def spy(table, box, cap, mesh=None):
         caps.add(cap)
-        return merge(table, box, cap)
+        return merge(table, box, cap, mesh=mesh)
 
     sync_mod.merge_grouped = spy
     try:
@@ -2840,6 +2840,196 @@ def big_memory():
             fcntl.flock(f, fcntl.LOCK_UN)
 
 
+def mesh_1rank_phase(emit) -> int:
+    """"mesh_1rank": the device mesh as one NCCL rank on the card. A
+    one-rank world (``engine/ranks.py::init_single``, a FileStore
+    rendezvous) runs config 0 at 10 000 nodes with the merge kernel
+    forced, once through ``run_sim(mesh=make_mesh())`` — delivery through
+    ``route_merge_sharded``, the sync sweep through
+    ``merge_grouped(mesh=)``, the step's collectives on NCCL — and once
+    without a mesh; the digests and rounds must agree, the sharding block
+    must name one device and no downgrade, and both mesh sites must
+    launch the kernel. Then ``route_merge_sharded`` on one round's real
+    delivery lanes: held to ``grouped_merge_reference``, timed with CUDA
+    events, with its ``all_to_all_single`` timed alone and the same merge
+    through ``route_lanes`` + ``merge_grouped`` without a mesh. Returns
+    the mesh run's merge launches."""
+    import tempfile
+
+    import torch
+
+    from corro_sim_torch.convert import state_to_numpy
+    from corro_sim_torch.core import delivery
+    from corro_sim_torch.core import merge_kernel as mk
+    from corro_sim_torch.core.crdt import TableState
+    from corro_sim_torch.engine.driver import run_sim
+    from corro_sim_torch.engine.ranks import init_single, shutdown
+    from corro_sim_torch.engine.sharding import (
+        gather_state,
+        make_mesh,
+        mesh_shardings,
+        resolve_shard_log,
+    )
+    from corro_sim_torch.engine.state import init_state
+    from corro_sim_torch.merge_probe import nvidia_smi
+    from corro_sim_torch.profile_slice import (
+        RUN_ARGS,
+        run_digest,
+        slice_config,
+        slice_schedule,
+    )
+
+    t_phase = time.perf_counter()
+    os.makedirs("bench_out", exist_ok=True)
+    init_single("cuda", tempfile.mkdtemp(prefix="mesh_", dir="bench_out"))
+    try:
+        mesh = make_mesh()
+        cfg = slice_config(10000, merge_kernel="on", swim=True)
+        runs = {}
+        for label, m in (("mesh", mesh), ("plain", None)):
+            mk.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = run_sim(cfg, init_state(cfg, seed=0, device="cuda",
+                                          mesh=m),
+                          slice_schedule(), device="cuda", mesh=m,
+                          **RUN_ARGS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            # the mesh run's state stays sharded: gathered to the host
+            final = (res.state if m is None else gather_state(
+                res.state, m, mesh_shardings(cfg, m)))
+            runs[label] = {
+                "converged_round": res.converged_round,
+                "final_gap": float(res.metrics["gap"][-1]),
+                "digest": run_digest(state_to_numpy(final), res.metrics),
+                "wall_s": wall,
+                "wall_per_round_ms": res.wall_per_round_ms,
+                "launches": dict(mk.LAUNCHES),
+                "site_launches": dict(mk.MESH_SITE_LAUNCHES),
+                "sweeps_run": res.pipeline["sweeps_run"],
+                "sharding": res.sharding,
+            }
+            del res, final
+        want_sharding = {"devices": 1, "mesh_shape": {"nodes": 1},
+                         "shard_log": ("actor_sharded" if resolve_shard_log(
+                             cfg) else "replicated"),
+                         "merge_kernel": "on", "downgrades": []}
+        mr, pr = runs["mesh"], runs["plain"]
+        sites = mr["site_launches"]
+        bad = []
+        if (mr["digest"], mr["converged_round"]) != (
+                pr["digest"], pr["converged_round"]):
+            bad.append("the mesh run differs from the run without one")
+        if mr["converged_round"] is None or mr["final_gap"] != 0.0:
+            bad.append("the mesh run did not converge")
+        if mr["sharding"] != want_sharding:
+            bad.append(f"sharding {mr['sharding']} != {want_sharding}")
+        if min(sites.values()) == 0:
+            bad.append(f"a mesh site launched no kernel: {sites}")
+        if sum(sites.values()) != mr["launches"]["grouped_merge"]:
+            bad.append("launches outside the two mesh sites")
+        if sites["merge_grouped_mesh"] != mr["sweeps_run"]:
+            bad.append("not one mesh sync launch per sweep run")
+
+        # one round's real delivery lanes: the call with the most cells
+        caught = {}
+        real = delivery.route_merge_sharded
+
+        def capture(state, *args):
+            live = int(args[7].sum())
+            if live > caught.get("live", -1):
+                caught.update(live=live, args=[
+                    a.clone() if torch.is_tensor(a) else a for a in args],
+                    planes=[t.clone() for t in (state.cv, state.vr,
+                                                state.site, state.cl)])
+            return real(state, *args)
+
+        delivery.route_merge_sharded = capture
+        try:
+            run_sim(cfg, init_state(cfg, seed=0, device="cuda", mesh=mesh),
+                    slice_schedule(), device="cuda", mesh=mesh,
+                    **dict(RUN_ARGS, max_rounds=16, min_rounds=16))
+        finally:
+            delivery.route_merge_sharded = real
+        args, planes = caught["args"], caught["planes"]
+        dst, rank, cell, cv, vr, site, cl, valid, cap, _ = args
+        n, r, c = planes[0].shape
+
+        def fresh():
+            return TableState(*(t.clone() for t in planes))
+
+        box = mk.route_lanes(dst, rank, cell, cv, vr, site, cl, valid, n,
+                             cap)
+        flat0 = [t.reshape(n, r * c) for t in planes[:3]] + [planes[3]]
+        ref = mk.grouped_merge_reference(*flat0, box, cap, c)
+        got = mk.route_merge_sharded(fresh(), *args[:8], cap, mesh)
+        max_abs_err = max(
+            int((g.reshape(n, -1).long() - w.long()).abs().max())
+            for g, w in zip((got.cv, got.vr, got.site, got.cl), ref))
+        if max_abs_err:
+            bad.append(f"route_merge_sharded differs from the plain "
+                       f"merge by {max_abs_err}")
+
+        def timed(fn, reps=20):
+            out = []
+            for _ in range(reps):
+                st = fresh()
+                torch.cuda.synchronize()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                fn(st)
+                e1.record()
+                torch.cuda.synchronize()
+                out.append(e0.elapsed_time(e1))
+            return float(np.median(out))
+
+        mk.reset_launch_counts()
+        route_ms = timed(lambda st: mk.route_merge_sharded(
+            st, *args[:8], cap, mesh))
+        plain_path_ms = timed(lambda st: mk.merge_grouped(st, mk.route_lanes(
+            dst, rank, cell, cv, vr, site, cl, valid, n, cap), cap))
+        buckets = torch.zeros((1, dst.shape[0], mk.BUCKET_FIELDS),
+                              dtype=torch.int32, device="cuda")
+        exchange_ms = timed(lambda st: mesh.all_to_all(buckets))
+        # the function's parts apart: bucket sort + exchange, placement
+        # scatter, the kernel on the placed mailbox
+        route_args = (*args[:8], cap, n, mesh)
+        routed = mk.route_to_shards(*route_args)
+        placed = mk.place_lanes(routed, 0, n, cap)
+        parts_ms = {
+            "route_to_shards_ms": timed(
+                lambda st: mk.route_to_shards(*route_args)),
+            "place_lanes_ms": timed(
+                lambda st: mk.place_lanes(routed, 0, n, cap)),
+            "grouped_merge_ms": timed(lambda st: mk.merge_grouped(
+                st, placed, cap)),
+        }
+        reference_ms = timed(lambda st: mk.grouped_merge_reference(
+            *flat0, box, cap, c))
+        work = mk.merge_work(flat0, box, cap, c, ref)
+        exchange_bytes = 32 * dst.shape[0]
+        bound, bound_by = mk.bound_ms((work[0] + exchange_bytes, work[1]))
+        timing = {
+            "lanes": int(dst.shape[0]), "live_cells": caught["live"],
+            "cap": cap, "route_merge_sharded_ms": route_ms,
+            "all_to_all_ms": exchange_ms,
+            "all_to_all_share": exchange_ms / route_ms, **parts_ms,
+            "route_lanes_merge_grouped_ms": plain_path_ms,
+            "plain_ms": reference_ms, "bound_ms": bound,
+            "bound_by": bound_by, "exchange_bytes": exchange_bytes,
+            "max_abs_err": max_abs_err,
+        }
+    finally:
+        shutdown()
+    emit({"phase": "mesh_1rank", "nodes": 10000, "card": nvidia_smi(),
+          "runs": runs, "route_merge_sharded": timing,
+          "phase_s": time.perf_counter() - t_phase})
+    if bad:
+        raise AssertionError("mesh_1rank: " + "; ".join(bad))
+    return mr["launches"]["grouped_merge"]
+
+
 def helper_phases(emit) -> dict:
     """The phases that share no state with the rest: the 256- to
     4000-node runs held to the JAX package's digests, the fleet sweeps,
@@ -2863,6 +3053,7 @@ def helper_phases(emit) -> dict:
     launches["config6_live"] = config6_live_phase(emit)
     launches["serve_256"] = serve_256_phase(emit)
     launches.update(config_digest_phase(emit))
+    launches["mesh_1rank"] = mesh_1rank_phase(emit)
     return launches
 
 

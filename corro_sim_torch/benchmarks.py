@@ -500,6 +500,32 @@ def run_config_4(n: int | None = None, device=None) -> dict:
     return run_headline_bench(n=n, device=device)
 
 
+def _bench_mesh():
+    """The mesh a leg runs on: every rank of the world when the bench
+    runs in a world of more than one rank (``torchrun``, or
+    ``engine/ranks.py::run_ranks``), else None (one device)."""
+    import torch
+
+    if (torch.distributed.is_available()
+            and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1):
+        from corro_sim_torch.engine.sharding import make_mesh
+
+        return make_mesh()
+    return None
+
+
+def _sharding_block(cfg, res) -> dict | None:
+    """The run's placement block (``sharding_report``: devices, mesh
+    shape, log regime, kernel, downgrades and the per-component state
+    bytes), or None off a mesh."""
+    if res.sharding is None:
+        return None
+    from corro_sim_torch.engine.sharding import sharding_report
+
+    return sharding_report(cfg, res.sharding)
+
+
 def config5_cfg(n: int):
     """The config-5 cluster shape at ``n`` nodes
     (``profile_slice.config5_config``)."""
@@ -517,8 +543,10 @@ def run_config_5(nodes: int = 50000, outage_frac: float = 0.3,
     returns at quiesce; convergence then requires sync to repair every
     missed version.
 
-    On one device the run is sized down (``profile_slice.size_config5``):
-    by a compute-time cap (16384: one device pays the whole cluster's
+    On a mesh (:func:`_bench_mesh`) the whole cluster runs sharded
+    (node-axis data parallel, the log actor-sharded at this size). On one
+    device the run is sized down (``profile_slice.size_config5``): by a
+    compute-time cap (16384: one device pays the whole cluster's
     compute) and then by the device's memory, and the result is labeled
     with the real node count and which limit bound it."""
     from corro_sim_torch.device import resolve_device
@@ -527,7 +555,13 @@ def run_config_5(nodes: int = 50000, outage_frac: float = 0.3,
     from corro_sim_torch.profile_slice import size_config5
 
     device = resolve_device(device)
-    nodes, sized_reason = size_config5(_device_memory(device), nodes)
+    mesh = _bench_mesh()
+    sized_reason = None
+    if mesh is None:
+        nodes, sized_reason = size_config5(_device_memory(device), nodes)
+    else:
+        device = mesh.device
+    n_dev = 1 if mesh is None else mesh.size
     cfg = config5_cfg(nodes)
     down = np.arange(nodes) < int(nodes * outage_frac)
 
@@ -548,7 +582,7 @@ def run_config_5(nodes: int = 50000, outage_frac: float = 0.3,
                 "metric": f"config5_{nodes}_node_outage_catchup_rounds",
                 "status": "running",
                 "nodes": nodes,
-                "devices": 1,
+                "devices": n_dev,
                 "rounds_done": info["rounds_done"],
                 "wall_s": info["wall_s"],
                 "compile_s": info["compile_s"],
@@ -557,11 +591,12 @@ def run_config_5(nodes: int = 50000, outage_frac: float = 0.3,
             })
 
     res = run_sim(
-        cfg, init_state(cfg, seed=0, device=device),
+        # on a mesh each rank builds only its shard
+        cfg, init_state(cfg, seed=0, device=device, mesh=mesh),
         Schedule(write_rounds=write_rounds, alive_fn=alive_fn),
         max_rounds=4096, chunk=8, seed=0, min_rounds=write_rounds + 1,
         on_chunk=_flush, flight=_FLIGHT, pipeline=_bench_pipeline(),
-        device=device,
+        device=device, mesh=mesh,
     )
     out = {
         "metric": f"config5_{nodes}_node_outage_catchup_rounds",
@@ -573,17 +608,17 @@ def run_config_5(nodes: int = 50000, outage_frac: float = 0.3,
         "converged": res.converged_round is not None,
         "changes_applied": int(res.metrics["fresh"].sum())
         + int(res.metrics["sync_versions"].sum()),
-        "devices": 1,
+        "devices": n_dev,
         "env": _mesh_env(device),
-        # one device: no mesh placement to report
-        "sharding": None,
+        "sharding": _sharding_block(cfg, res),
         "chunks": chunk_log,
         "pipeline": res.pipeline,
     }
     if sized_reason:
         out["note"] = (
             f"single-device run sized to {nodes} nodes by {sized_reason}; "
-            "the full 50k needs the device mesh (ROADMAP.md queue 1 item 10)"
+            "the full 50k needs the device mesh (a world of several "
+            "ranks, engine/ranks.py)"
         )
     if progress_path:
         _atomic_json_dump(progress_path, dict(out, status="done"))
@@ -790,9 +825,10 @@ def run_config_7(nodes: int | None = None, write_rounds: int = 8,
     memory, with the change log's per-device share actor-sharded against
     replicated (analytic) at the run's size and at the 100k/8 target.
 
-    On one device the leg is sized down (``profile_slice.size_config7``)
-    to one device's share of the target and then by the device's memory,
-    and the artifact says which limit bound it."""
+    On a mesh of D ranks (:func:`_bench_mesh`) the leg runs D eighths of
+    the target, sharded; on one device one eighth. Either way it is then
+    sized by the device's memory (``profile_slice.size_config7``), and
+    the artifact says which limit bound it."""
     from corro_sim_torch.device import resolve_device
     from corro_sim_torch.engine.driver import Schedule, run_sim
     from corro_sim_torch.engine.sharding import state_bytes_breakdown
@@ -803,19 +839,22 @@ def run_config_7(nodes: int | None = None, write_rounds: int = 8,
     target_nodes = nodes or int(
         os.environ.get("CORRO_BENCH_NODES", "100000")
     )
-    n_dev = 1
+    mesh = _bench_mesh()
+    if mesh is not None:
+        device = mesh.device
+    n_dev = 1 if mesh is None else mesh.size
     run_nodes, sized_reason = size_config7(_device_memory(device),
-                                           target_nodes)
+                                           target_nodes, n_dev)
     cfg = config7_cfg(run_nodes)
 
     chunk_log: list[dict] = []
     res = run_sim(
-        cfg, init_state(cfg, seed=0, device=device),
+        cfg, init_state(cfg, seed=0, device=device, mesh=mesh),
         Schedule(write_rounds=write_rounds),
         max_rounds=2048, chunk=8, seed=0,
         min_rounds=write_rounds + 1,
         on_chunk=chunk_log.append, flight=_FLIGHT,
-        pipeline=_bench_pipeline(), device=device,
+        pipeline=_bench_pipeline(), device=device, mesh=mesh,
     )
 
     # the log's per-device share, actor-sharded vs replicated, at BOTH
@@ -844,7 +883,7 @@ def run_config_7(nodes: int | None = None, write_rounds: int = 8,
         "target_nodes": target_nodes,
         "devices": n_dev,
         "env": _mesh_env(device),
-        "sharding": None,
+        "sharding": _sharding_block(cfg, res),
         "log_per_device_bytes": log_share(run_nodes, n_dev),
         "log_per_device_bytes_at_target": log_share(target_nodes, 8),
         "device_hbm": _device_hbm_stats(device),
@@ -856,9 +895,9 @@ def run_config_7(nodes: int | None = None, write_rounds: int = 8,
     }
     if sized_reason:
         out["note"] = (
-            f"single-device run sized to {run_nodes} nodes by "
-            f"{sized_reason}; the full {target_nodes}-node leg needs "
-            "the 8-device mesh (ROADMAP.md queue 1 item 10)"
+            f"{'single-device' if n_dev == 1 else f'{n_dev}-device'} run "
+            f"sized to {run_nodes} nodes by {sized_reason}; the full "
+            f"{target_nodes}-node leg needs the 8-device mesh"
         )
     return out
 

@@ -12,8 +12,10 @@ back to the CPU. The client commands (query, exec and the admin calls)
 take no device.
 
 What the port does not have yet refuses with exit 2 and one line naming
-the missing module: ``lint``, ``audit``, ``run --mesh``, ``sweep --mesh``
-and ``run --transfer-guard`` (:data:`WAITING`). ``bench`` runs
+the missing module: ``lint``, ``audit`` and ``run --transfer-guard``
+(:data:`WAITING`). ``run --mesh`` and ``sweep --mesh`` start one rank
+per visible device (the cards, or ``CORRO_SIM_MESH_RANKS`` CPU ranks
+with ``--device cpu``) through ``engine/ranks.py``. ``bench`` runs
 ``benchmarks.main`` on ``--device``; ``soak``, ``sweep``, ``twin`` and
 ``bench`` append their numbers to the perf ledger (``perf``), and
 ``doctor`` diagnoses their artifacts. What the port compiles is its
@@ -79,8 +81,6 @@ _FLAG_TO_FIELD = {
 WAITING = {
     "lint": ("analysis/lint.py", 12),
     "audit": ("analysis/jaxpr_audit.py", 12),
-    "run --mesh": ("engine/sharding.py's make_mesh", 10),
-    "sweep --mesh": ("engine/sharding.py's make_sweep_mesh", 10),
     "run --transfer-guard": ("run_sim(transfer_guard=)", 12),
 }
 
@@ -104,16 +104,75 @@ def _device(args: argparse.Namespace):
     return resolve_device(getattr(args, "device", None))
 
 
+def _in_world() -> bool:
+    import torch
+
+    return (torch.distributed.is_available()
+            and torch.distributed.is_initialized())
+
+
+def _mesh_launch(args: argparse.Namespace):
+    """``--mesh`` from a plain process: start one rank per visible device
+    (:func:`~corro_sim_torch.engine.sharding.visible_devices`: the cards,
+    or the ``CORRO_SIM_MESH_RANKS`` CPU ranks) and run the command on
+    each; rank 0 prints, and its exit code is the command's. Refuses
+    with exit 2 when one device is visible."""
+    from corro_sim_torch.engine.ranks import run_ranks
+    from corro_sim_torch.engine.sharding import MESH_RANKS_ENV, visible_devices
+
+    device = _device(args)
+    ranks = visible_devices(device)
+    if ranks < 2:
+        print(
+            "error: --mesh needs >1 visible device (force a CPU mesh "
+            f"with {MESH_RANKS_ENV}=8 and --device cpu)",
+            file=sys.stderr,
+        )
+        return 2
+    return run_ranks(_rank_command, ranks, args, device=device.type,
+                     timeout=float("inf"))
+
+
+# the options of `run` and `sweep` that name files the command writes
+_RANK0_FILES = ("flight_out", "probe_out", "profile_dir", "flight_dir",
+                "heatmap", "frontier", "out")
+
+
+def _rank_command(args: argparse.Namespace) -> int:
+    """One rank of a ``--mesh`` command: the command itself. Rank 0
+    prints and writes the command's files; every other rank's output is
+    discarded and its file options are cleared."""
+    import contextlib
+    import io
+
+    import torch
+
+    if torch.distributed.get_rank() == 0:
+        return args.fn(args)
+    args = argparse.Namespace(**vars(args))
+    for name in _RANK0_FILES:
+        if getattr(args, name, None) is not None:
+            setattr(args, name, None)
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        return args.fn(args)
+
+
 def _cmd_run(args: argparse.Namespace) -> int:
     import dataclasses
 
     import numpy as np
 
-    if getattr(args, "mesh", False):
-        return _waiting("run --mesh")
     if getattr(args, "transfer_guard", False):
         return _waiting("run --transfer-guard")
-    device = _device(args)
+    mesh = None
+    if getattr(args, "mesh", False):
+        if not _in_world():
+            return _mesh_launch(args)
+        from corro_sim_torch.engine.sharding import make_mesh
+
+        mesh = make_mesh()
+    device = _device(args) if mesh is None else mesh.device
 
     from corro_sim_torch.engine.driver import Schedule, run_sim
     from corro_sim_torch.engine.state import init_state
@@ -286,12 +345,18 @@ def _cmd_run(args: argparse.Namespace) -> int:
             )
     res = run_sim(
         cfg,
-        init_state(cfg, seed=args.seed, device=device),
+        # under a mesh each rank builds only its shard; a fork token
+        # installs into the whole template on the host, of which each
+        # rank keeps its slice
+        init_state(cfg, seed=args.seed, mesh=mesh,
+                   device=device) if mesh is None or fork_tok is None
+        else init_state(cfg, seed=args.seed, device="cpu"),
         schedule,
         max_rounds=args.max_rounds,
         chunk=args.chunk,
         seed=args.seed,
         device=device,
+        mesh=mesh,
         flight=flight,
         profile_dir=args.profile_dir,
         invariants=invariants,
@@ -334,6 +399,11 @@ def _cmd_run(args: argparse.Namespace) -> int:
         # pipelined-vs-sequential pair is directly comparable
         "pipeline": res.pipeline,
     }
+    if res.sharding is not None:
+        # mesh placement provenance + the per-component state_bytes
+        from corro_sim_torch.engine.sharding import sharding_report
+
+        report["sharding"] = sharding_report(cfg, res.sharding)
     if args.flight_out:
         # a sink that died mid-run (ENOSPC, deleted dir) must not be
         # reported as a written artifact
@@ -979,8 +1049,8 @@ def _cmd_sweep(args: argparse.Namespace) -> int:
     """
     import dataclasses
 
-    if args.mesh:
-        return _waiting("sweep --mesh")
+    if args.mesh and not _in_world():
+        return _mesh_launch(args)
     device = _device(args)
 
     from corro_sim_torch.faults import load_thresholds
@@ -1012,6 +1082,25 @@ def _cmd_sweep(args: argparse.Namespace) -> int:
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    mesh = None
+    if args.mesh:
+        from corro_sim_torch.engine.sharding import (
+            check_compact_mesh,
+            make_sweep_mesh,
+        )
+
+        mesh = make_sweep_mesh(plan.num_lanes)
+        device = mesh.device
+        if args.compact or args.pipeline:
+            try:
+                check_compact_mesh(mesh)
+            except ValueError as e:
+                print(f"error: {e}", file=sys.stderr)
+                return 2
+        print(
+            f"# mesh: {plan.num_lanes} lanes over "
+            f"{dict(mesh.shape)}", file=sys.stderr,
+        )
     print(
         f"# sweeping {plan.num_lanes} lanes "
         f"({len(grid['scenario'])} scenarios x {len(grid['seed'])} seeds"
@@ -1052,8 +1141,10 @@ def _cmd_sweep(args: argparse.Namespace) -> int:
             plan, max_rounds=args.max_rounds, chunk=args.chunk,
             device=device, on_chunk=_on_chunk,
             compact=args.compact, width=args.width,
-            pipeline=bool(args.pipeline),
+            pipeline=bool(args.pipeline), mesh=mesh,
         )
+    if res is None:  # a rank outside the sweep mesh
+        return 0
     frontier = build_frontier(res.lanes)
     thresholds = load_thresholds()
     breaches = (
@@ -1707,8 +1798,29 @@ def _cmd_audit(args: argparse.Namespace) -> int:
 
 
 def _cmd_bench(args: argparse.Namespace) -> int:
+    """`corro-sim bench`. Under ``torchrun`` (``WORLD_SIZE`` > 1) every
+    rank joins the world and configs 5 and 7 run on the mesh; rank 0
+    prints and records, the others' artifacts go to a temporary
+    directory and their ledger appends are off."""
+    import tempfile
+
     from corro_sim_torch.benchmarks import main as bench_main
 
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not _in_world():
+        import contextlib
+        import io
+
+        import torch
+
+        from corro_sim_torch.engine.ranks import init_from_env
+
+        init_from_env(_device(args))
+        if torch.distributed.get_rank() != 0:
+            os.environ["CORRO_BENCH_OUT"] = tempfile.mkdtemp(
+                prefix="bench_rank_")
+            os.environ["CORRO_PERF_LEDGER"] = "0"
+            with contextlib.redirect_stdout(io.StringIO()):
+                return _cmd_bench(args)
     kw = {}
     if args.bench_nodes is not None:
         kw["n" if args.bench_config in (None, 0, 4) else "nodes"] = \

@@ -36,14 +36,16 @@ class ChangeLog:
 
 
 def make_changelog(num_actors: int, capacity: int, seqs: int,
-                   device) -> ChangeLog:
+                   device, rows: int | None = None) -> ChangeLog:
+    """The empty log. ``rows``: make the per-version planes for that
+    many actors only (one rank's actor shard); ``head`` stays whole."""
+    a = num_actors if rows is None else rows
     i32 = dict(dtype=torch.int32, device=device)
     return ChangeLog(
-        cells=torch.zeros((num_actors, capacity, seqs, 5), **i32),
-        ncells=torch.zeros((num_actors, capacity), **i32),
-        live=torch.zeros((num_actors, capacity), **i32),
-        cleared=torch.zeros((num_actors, capacity), dtype=torch.bool,
-                            device=device),
+        cells=torch.zeros((a, capacity, seqs, 5), **i32),
+        ncells=torch.zeros((a, capacity), **i32),
+        live=torch.zeros((a, capacity), **i32),
+        cleared=torch.zeros((a, capacity), dtype=torch.bool, device=device),
         head=torch.zeros((num_actors,), **i32),
     )
 
@@ -58,19 +60,29 @@ def append_changesets(
     cl: torch.Tensor,
     ncells: torch.Tensor,  # (n,) int32
     valid: torch.Tensor,  # (n,) bool
+    actor_lo: int | None = None,
 ):
     """Append one changeset per listed actor; returns ``(log, version)``
-    per lane (1-based versions)."""
+    per lane (1-based versions).
+
+    ``actor_lo``: the log is one rank's actor shard (its per-version
+    planes hold actors ``[actor_lo, actor_lo + A/D)``, its heads every
+    actor): the heads and versions advance for every lane, the planes
+    take the lanes of the shard's own actors."""
     ver = log.head[torch.where(valid, actor, 0).long()] + 1
     slot = (ver - 1) % log.capacity
-    idx = (actor, slot)
+    idx, mine = (actor, slot), valid
+    if actor_lo is not None:
+        local = actor - actor_lo
+        mine = valid & (local >= 0) & (local < log.cells.shape[0])
+        idx = (local, slot)
     packed = torch.stack([row, col, vr, cv, cl], dim=-1)  # (n, S, 5)
     return (
         ChangeLog(
-            cells=scatter_set(log.cells, idx, packed, valid),
-            ncells=scatter_set(log.ncells, idx, ncells, valid),
-            live=scatter_set(log.live, idx, ncells, valid),
-            cleared=scatter_set(log.cleared, idx, False, valid),
+            cells=scatter_set(log.cells, idx, packed, mine),
+            ncells=scatter_set(log.ncells, idx, ncells, mine),
+            live=scatter_set(log.live, idx, ncells, mine),
+            cleared=scatter_set(log.cleared, idx, False, mine),
             head=scatter_add(log.head, (actor,), 1, valid),
         ),
         ver.to(torch.int32),
@@ -87,4 +99,27 @@ def gather_changesets(log: ChangeLog, actor: torch.Tensor,
     return (
         g[..., CELL_ROW], g[..., CELL_COL], g[..., CELL_VR],
         g[..., CELL_CV], g[..., CELL_CL], log.ncells[a, slot],
+    )
+
+
+def fetch_changesets(log: ChangeLog, mesh, actor: torch.Tensor,
+                     ver: torch.Tensor):
+    """:func:`gather_changesets` plus the ``cleared`` flag of each
+    ``(actor, version)`` lane from an actor-sharded log: this rank's
+    ``log`` holds its actors' planes, and the lanes' rows come from their
+    owners in one :meth:`~corro_sim_torch.engine.sharding.Mesh.fetch_rows`.
+    Returns ``(row, col, vr, cv, cl, ncells, cleared)``."""
+    al, cap = log.ncells.shape
+    s = log.seqs
+    plane = torch.cat([
+        log.cells.reshape(al * cap, s * 5), log.ncells.reshape(-1, 1),
+        log.cleared.to(torch.int32).reshape(-1, 1),
+    ], dim=1)
+    slot = ((ver - 1) % cap).long()
+    got = mesh.fetch_rows(plane, actor.long() * cap + slot)
+    g = got[..., :s * 5].reshape(tuple(actor.shape) + (s, 5))
+    return (
+        g[..., CELL_ROW], g[..., CELL_COL], g[..., CELL_VR],
+        g[..., CELL_CV], g[..., CELL_CL], got[..., s * 5],
+        got[..., s * 5 + 1] != 0,
     )

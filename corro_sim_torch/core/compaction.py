@@ -52,13 +52,19 @@ def make_ownership(num_rows: int, num_cols: int, device) -> CellOwnership:
     )
 
 
-def _decrement_live(log: ChangeLog, actor, ver, valid) -> ChangeLog:
+def _decrement_live(log: ChangeLog, actor, ver, valid,
+                    actor_lo: int | None = None) -> ChangeLog:
     """``live[actor, ver] -= 1`` where valid (and the version is still
-    in the ring); versions at zero live cells become cleared."""
+    in the ring); versions at zero live cells become cleared.
+    ``actor_lo``: the log is one rank's actor shard
+    (:func:`update_ownership`)."""
     a = torch.where(valid, actor, 0).long()
     in_ring = valid & (ver > log.head[a] - log.capacity)
     slot = (torch.clamp(ver, min=1) - 1) % log.capacity
-    live = scatter_add(log.live, (actor, slot), -1, in_ring)
+    if actor_lo is not None:
+        a = a - actor_lo
+        in_ring = in_ring & (a >= 0) & (a < log.live.shape[0])
+    live = scatter_add(log.live, (a, slot), -1, in_ring)
     cleared = log.cleared | ((live <= 0) & (log.ncells > 0))
     return dataclasses.replace(log, live=live, cleared=cleared)
 
@@ -85,6 +91,7 @@ def update_ownership(
     cl: torch.Tensor,
     valid: torch.Tensor,  # live cell lanes
     is_delete: torch.Tensor,
+    actor_lo: int | None = None,
 ):
     """Fold one round of freshly written cells into global ownership;
     returns ``(own, log)``. Every losing side of a contested cell — the
@@ -92,7 +99,12 @@ def update_ownership(
     value cell of a row that changed generation — loses one live cell.
 
     Lanes are unique per (row, col) among value lanes and per row among
-    DELETE lanes (one changeset writes a cell at most once)."""
+    DELETE lanes (one changeset writes a cell at most once).
+
+    ``actor_lo``: ``log`` is one rank's actor shard (its per-version
+    planes hold actors ``[actor_lo, actor_lo + A/D)``, its heads every
+    actor). The fold runs on the whole round's lanes on every rank, and
+    each rank applies the decrements of its own actors."""
     num_rows, num_cols = own.cv.shape
     row_c = torch.where(valid, row, 0).long()
 
@@ -104,7 +116,8 @@ def update_ownership(
     # 2) generation wipe: bumped rows lose cells + their owners
     wipe = bumped[:, None] & (own.actor >= 0)
     log = _decrement_live(
-        log, own.actor.reshape(-1), own.ver.reshape(-1), wipe.reshape(-1)
+        log, own.actor.reshape(-1), own.ver.reshape(-1), wipe.reshape(-1),
+        actor_lo=actor_lo,
     )
     bump2 = bumped[:, None]
     cv0 = torch.where(bump2, 0, own.cv)
@@ -115,7 +128,8 @@ def update_ownership(
 
     # 3) tombstone ownership
     old_tomb_lost = bumped & (own.ractor >= 0)
-    log = _decrement_live(log, own.ractor, own.rver, old_tomb_lost)
+    log = _decrement_live(log, own.ractor, own.rver, old_tomb_lost,
+                          actor_lo=actor_lo)
     ractor0 = torch.where(bumped, -1, own.ractor)
     rver0 = torch.where(bumped, 0, own.rver)
     rsite0 = torch.where(bumped, -1, own.rsite)
@@ -134,9 +148,11 @@ def update_ownership(
         & (ractor0[drow_g] >= 0)
         & tomb_changed[drow_g]
     )
-    log = _decrement_live(log, ractor0[drow_g], rver0[drow_g], outbid)
+    log = _decrement_live(log, ractor0[drow_g], rver0[drow_g], outbid,
+                          actor_lo=actor_lo)
     dself_lost = valid & is_delete & ~dwin
-    log = _decrement_live(log, actor, ver, dself_lost)
+    log = _decrement_live(log, actor, ver, dself_lost,
+                          actor_lo=actor_lo)
 
     # 4) value cells: contest at the current generation
     val = valid & (vr != NEG) & (cl == rcl1[row_c])
@@ -159,9 +175,11 @@ def update_ownership(
     cell_key = torch.where(val, row * num_cols + col, 2 ** 30)
     first_cell = _first_per_key(cell_key, val)
     old_lost = first_cell & (oactor[g] >= 0) & changed[g]
-    log = _decrement_live(log, oactor[g], over[g], old_lost)
+    log = _decrement_live(log, oactor[g], over[g], old_lost,
+                          actor_lo=actor_lo)
     self_lost = valid & (vr != NEG) & ~winner
-    log = _decrement_live(log, actor, ver, self_lost)
+    log = _decrement_live(log, actor, ver, self_lost,
+                          actor_lo=actor_lo)
 
     own = CellOwnership(
         cv=cv1, vr=vr1, site=site1, actor=actor1, ver=ver1,

@@ -104,9 +104,14 @@ def local_write(
     is_delete: torch.Tensor,  # (n,) bool
     ncells: torch.Tensor,  # (n,) int32
     valid: torch.Tensor,  # (n,) bool
+    row_lo: int = 0,
 ):
     """Apply one multi-cell changeset per writer; return its change
     records ``(new_state, ch_cv, ch_cl, ch_vr)``, each ``(n, S)``.
+
+    ``row_lo``: ``state`` holds the rows of nodes ``row_lo`` on (one
+    rank's shard under a mesh); ``writer`` stays the global node id,
+    which is also the changes' site.
 
     An UPDATE bumps each touched cell's col_version; a DELETE bumps the
     row's causal length to the next even number and an INSERT after a
@@ -117,7 +122,7 @@ def local_write(
         torch.arange(s, dtype=torch.int32, device=dev)[None, :]
         < ncells[:, None]
     )
-    widx = torch.where(valid, writer, -1).long()[:, None]
+    widx = torch.where(valid, writer - row_lo, -1).long()[:, None]
     row_l, col_l = row.long(), col.long()
     cur_cv = state.cv[widx, row_l, col_l]
     cur_cl = state.cl[widx, row_l]
@@ -136,7 +141,7 @@ def local_write(
 
     new_state = apply_cell_changes(
         state,
-        writer_b.reshape(-1),
+        (writer_b - row_lo).reshape(-1),
         row.reshape(-1),
         col.reshape(-1),
         ch_cv.reshape(-1),

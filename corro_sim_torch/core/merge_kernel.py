@@ -50,6 +50,7 @@ from pathlib import Path
 import torch
 
 from corro_sim_torch.core.crdt import NEG, TableState, apply_cell_changes
+from corro_sim_torch.utils.slots import ranks_within_group_masked
 from corro_sim_torch.utils.compile_cache import (
     NVCC_FLAGS,
     cache_dir,
@@ -71,6 +72,8 @@ INT32_OPS_PER_S = 33.5e12
 # kernel launches by wrapper name; chip_smoke.py zeroes and reads these
 # around the main path to show it went through the kernel
 LAUNCHES = {"grouped_merge": 0}
+# of those launches, the ones each mesh merge site made (on CUDA planes)
+MESH_SITE_LAUNCHES = {"route_merge_sharded": 0, "merge_grouped_mesh": 0}
 
 _lib = None
 BUILD_INFO: dict = {}
@@ -80,6 +83,8 @@ _SMEM_LIMIT: dict = {}  # device index -> dynamic shared memory opted in
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in MESH_SITE_LAUNCHES:
+        MESH_SITE_LAUNCHES[k] = 0
 
 
 def _nvcc() -> str:
@@ -286,15 +291,113 @@ def grouped_merge(cv, vr, site, cl, lanes, cap: int, cols: int):
     return planes
 
 
-def merge_grouped(state: TableState, lanes: torch.Tensor,
-                  cap: int) -> TableState:
+def merge_grouped(state: TableState, lanes: torch.Tensor, cap: int,
+                  mesh=None) -> TableState:
     """:func:`apply_cell_changes` on a dense per-node lane mailbox, via
     :func:`grouped_merge`. Consumes ``state``: its planes are merged in
-    place and the returned :class:`TableState` holds the same storage."""
+    place and the returned :class:`TableState` holds the same storage.
+
+    ``mesh``: the sync sweep's form over a device mesh. ``state`` is
+    this rank's ``(N/D, R, C)`` shard and ``lanes`` its ``(6, N/D *
+    cap)`` slice of the node-major mailbox; the kernel runs on the shard
+    with no collective, because sync lanes are built node-major, each
+    rank's for its own nodes."""
     n, r, c = state.cv.shape
     flat = [t.view(n, r * c) for t in (state.cv, state.vr, state.site)]
     grouped_merge(*flat, state.cl, lanes, cap, c)
+    if mesh is not None and state.cv.device.type == "cuda":
+        MESH_SITE_LAUNCHES["merge_grouped_mesh"] += 1
     return TableState(cv=state.cv, vr=state.vr, site=state.site, cl=state.cl)
+
+
+# the exchange's lane fields: the six mailbox rows, then the global
+# destination node and the lane's rank within it
+BUCKET_FIELDS = LANE_FIELDS + 2
+
+
+def route_to_shards(dst, rank, cell, cv, vr, site, cl, valid, cap: int,
+                    nl: int, mesh) -> torch.Tensor:
+    """Route this rank's slice of flat cell lanes to the shards that own
+    their destinations, with one ``all_to_all_single``; returns the
+    received lanes as ``(D * m, 8)`` int32 rows (the six mailbox fields,
+    then the global ``dst`` and ``rank``), sender by sender.
+
+    Each rank buckets its ``m`` lanes by destination shard (``dst //
+    nl``) with a stable sort plus :func:`ranks_within_group_masked`; the
+    ``(D, m, 8)`` buckets ride one exchange. Bucket capacity is the
+    slice length, so routing drops no lane. Lanes that are invalid or
+    past ``cap`` stay home, masked (the JAX package parks them in a drop
+    row). A sender's lanes keep their order within each bucket, and
+    consecutive ranks hold consecutive slices of the global lane order,
+    so concatenating the received buckets in rank order gives each
+    shard its lanes in the global order."""
+    d = mesh.nodes
+    m = dst.shape[0]
+    dev = dst.device
+    keep = valid & (rank < cap)
+    tgt = torch.where(keep, torch.div(dst, nl, rounding_mode="floor"), d)
+    order = torch.argsort(tgt, stable=True)
+    fields = torch.stack([
+        cell.to(torch.int32), cv.to(torch.int32), vr.to(torch.int32),
+        site.to(torch.int32), cl.to(torch.int32), keep.to(torch.int32),
+        dst.to(torch.int32), rank.to(torch.int32),
+    ], dim=1)[order]  # (m, 8)
+    tgt_s = tgt[order]
+    routed = tgt_s < d
+    pos = ranks_within_group_masked(tgt_s, routed)
+    buckets = torch.zeros((d + 1, m, BUCKET_FIELDS), dtype=torch.int32,
+                          device=dev)
+    # unrouted lanes all land in the scratch bucket d
+    buckets[torch.where(routed, tgt_s, d).long(), pos.long()] = fields
+    return mesh.all_to_all(buckets[:d]).reshape(-1, BUCKET_FIELDS)
+
+
+def route_merge_sharded(state: TableState, dst, rank, cell, cv, vr, site,
+                        cl, valid, cap: int, mesh) -> TableState:
+    """The delivery merge over a device mesh: route cross-shard lanes
+    with one ``all_to_all_single``, then run :func:`grouped_merge` on
+    this rank's shard.
+
+    ``state`` is this rank's ``(N/D, R, C)`` shard, consumed as
+    :func:`merge_grouped` consumes it. The lanes are this rank's slice
+    of the flat cell-lane stream: ``(m,)`` each, ``m`` equal on every
+    rank (the caller pads the global stream to a multiple of D with
+    invalid lanes), ``dst`` global, ``rank`` the lane's mailbox rank
+    within its destination, computed over the global order.
+
+    :func:`route_to_shards` exchanges the lanes; the receiving shard
+    scatters each at its globally computed ``(dst, rank)`` slot of its
+    ``(6, N/D * cap)`` mailbox (:func:`place_lanes`). Valid slots are unique, so the mailbox —
+    and with it the merge — is a pure function of the global lane order,
+    bit for bit the one-device kernel's (:func:`route_lanes` then
+    :func:`grouped_merge`) whichever rank sourced a lane."""
+    nl, r, c = state.cv.shape
+    ex = route_to_shards(dst, rank, cell, cv, vr, site, cl, valid, cap, nl,
+                         mesh)
+    lbox = place_lanes(ex, mesh.index * nl, nl, cap)
+    flat = [t.view(nl, r * c) for t in (state.cv, state.vr, state.site)]
+    grouped_merge(*flat, state.cl, lbox, cap, c)
+    if state.cv.device.type == "cuda":
+        MESH_SITE_LAUNCHES["route_merge_sharded"] += 1
+    return TableState(cv=state.cv, vr=state.vr, site=state.site, cl=state.cl)
+
+
+def place_lanes(ex: torch.Tensor, lo: int, nl: int, cap: int) -> torch.Tensor:
+    """The shard's ``(6, nl * cap)`` mailbox from the received ``(L, 8)``
+    lanes of :func:`route_to_shards`: each valid lane written straight
+    into its field rows at slot ``(dst - lo) * cap + rank`` with one
+    scatter; the masked lanes all land on one scratch word past the
+    mailbox."""
+    slots = nl * cap
+    ok = ex[:, LANE_VALID] != 0
+    slot = (ex[:, 6].long() - lo) * cap + ex[:, 7].long()
+    rows = torch.arange(LANE_FIELDS, device=ex.device)[:, None] * slots
+    idx = torch.where(ok[None, :], rows + slot[None, :],
+                      LANE_FIELDS * slots)
+    buf = torch.zeros(LANE_FIELDS * slots + 1, dtype=torch.int32,
+                      device=ex.device)
+    buf[idx.reshape(-1)] = ex[:, :LANE_FIELDS].T.reshape(-1)
+    return buf[:LANE_FIELDS * slots].view(LANE_FIELDS, slots)
 
 
 def _lane_classes(lanes, cap: int, cols: int, after):
@@ -447,3 +550,27 @@ def kernel_supported(cfg, path: str = "sync", device=None) -> bool:
     if path != "sync":
         return False
     return device is not None and torch.device(device).type == "cuda"
+
+
+def sharded_kernel_downgrade(cfg, n_devices: int, device=None) -> str | None:
+    """Why a mesh run cannot keep its merge kernel, or None.
+
+    A reason means the run takes the scatter merge
+    (``merge_kernel="off"``) and says so: a ``config_downgrade`` flight
+    annotation and ``corro_config_downgrade_total{reason}``.
+    ``merge_kernel="off"`` itself is the operator's choice, not a
+    downgrade. Under ``"auto"`` the mesh keeps the kernel only where the
+    ranks' planes are on CUDA (``sharded_non_cuda`` otherwise; the JAX
+    package's reason is ``sharded_non_tpu``)."""
+    if cfg.merge_kernel == "off":
+        return None
+    cells = cfg.num_rows * cfg.num_cols
+    if not (cells % 128 == 0 and cells <= 8192):
+        return "cell_space_unaligned"
+    if cfg.num_nodes % max(n_devices, 1) != 0:
+        return "uneven_node_shards"
+    if cfg.merge_kernel == "on":
+        return None  # forced: the plain version per shard off the card
+    if device is None or torch.device(device).type != "cuda":
+        return "sharded_non_cuda"
+    return None

@@ -59,7 +59,11 @@ import torch
 from corro_sim_torch import prng
 from corro_sim_torch.config import SimConfig, validate_torch_slice
 from corro_sim_torch.convert import _leaves
-from corro_sim_torch.core.merge_kernel import build_kernel, kernel_supported
+from corro_sim_torch.core.merge_kernel import (
+    build_kernel,
+    kernel_supported,
+    sharded_kernel_downgrade,
+)
 from corro_sim_torch.device import resolve_device
 from corro_sim_torch.engine import step as step_mod
 from corro_sim_torch.engine.state import SimState, clone_state, state_nbytes
@@ -68,6 +72,8 @@ from corro_sim_torch.obs.flight import FlightRecorder
 from corro_sim_torch.obs.probes import PROBE_FIELDS, ProbeTrace
 from corro_sim_torch.utils.compile_cache import CompileCacheProbe
 from corro_sim_torch.utils.metrics import (
+    CONFIG_DOWNGRADE_HELP,
+    CONFIG_DOWNGRADE_TOTAL,
     PIPELINE_FETCH_WAIT,
     PIPELINE_FETCH_WAIT_HELP,
     PIPELINE_OVERLAP_SECONDS,
@@ -242,6 +248,9 @@ class RunResult:
     compile_cache: dict | None = None  # the kernel-library lookups of
     # the setup, hit or miss (utils/compile_cache.py
     # CompileCacheProbe.summary()); nothing counted on the CPU
+    sharding: dict | None = None  # mesh placement provenance: devices,
+    # mesh shape, change-log regime, the merge kernel in effect and the
+    # explicit downgrades; None off a mesh
 
     @property
     def wall_per_round_ms(self) -> float:
@@ -301,6 +310,18 @@ def _boundary_view(fetch: AsyncFetch) -> types.SimpleNamespace:
                                  swim=swim)
 
 
+# the leaves the checkers read (per chunk, at convergence and at the
+# end) and the probe extraction's
+_CHECK_KEYS = ("table.", "book.head", "swim.", "features['node_snapshot']")
+_PROBE_KEYS = ("probe.",)
+
+
+def _read_keys(checks: bool, probes) -> tuple:
+    """The leaf-key prefixes the host readers need of a mesh run's
+    state."""
+    return (_CHECK_KEYS if checks else ()) + (_PROBE_KEYS if probes else ())
+
+
 def _probe_fetch(cfg: SimConfig, state: SimState) -> AsyncFetch | None:
     """Start copying the probe tracer's planes to the host, for the
     per-chunk extraction; None with probes off."""
@@ -333,6 +354,8 @@ class _InFlight:
     cut: bool = False  # speculative and stopped early: to be discarded
     snapshot: AsyncFetch | None = None  # every leaf of state_out, when
     # the chunk's commit writes a checkpoint
+    whole: SimState | None = None  # under a mesh, the host readers'
+    # leaves of state_out on rank 0's host (checkers, probes, checkpoints)
 
 
 def run_sim(
@@ -357,6 +380,7 @@ def run_sim(
     checkpoint_path: str | None = None,
     checkpoint_every: int = 0,
     checkpoint_meta: dict | None = None,
+    mesh=None,
 ) -> RunResult:
     """Run ``state`` forward in chunks of ``chunk`` rounds until
     convergence (or ``max_rounds``) — the JAX package's ``run_sim``.
@@ -417,10 +441,28 @@ def run_sim(
     ``checkpoint_path``/``checkpoint_every``: write a resume token to
     ``checkpoint_path`` after every ``checkpoint_every``-th committed
     chunk that does not end the run (write-then-rename), after
-    ``on_chunk``; ``checkpoint_meta`` rides the token verbatim."""
+    ``on_chunk``; ``checkpoint_meta`` rides the token verbatim.
+
+    ``mesh``: a :class:`~corro_sim_torch.engine.sharding.Mesh`; call
+    ``run_sim`` on every rank with the same arguments and either this
+    rank's shard (``init_state(cfg, mesh=mesh)``, which never makes the
+    whole) or the whole ``state``, of which each rank keeps its slice
+    (``shard_state``); ``resume`` takes the whole template. The ranks
+    run the sharded step, read the same metrics and take the same
+    decisions. A kernel the mesh cannot keep is downgraded explicitly
+    (:func:`~corro_sim_torch.core.merge_kernel.sharded_kernel_downgrade`:
+    a ``config_downgrade`` flight annotation and
+    ``corro_config_downgrade_total``). The host readers — checkers,
+    probes, checkpoints — run on rank 0, on the leaves they read
+    gathered onto its host one part at a time (``gather_state``); rank
+    0 writes the token. The result's state stays each rank's shard, as
+    the JAX package's stays sharded: ``gather_state(res.state, mesh,
+    mesh_shardings(cfg, mesh))`` makes it whole on rank 0's host. Only
+    rank 0's result carries ``probe`` and ``resilience``.
+    ``RunResult.sharding`` records the placement."""
     validate_torch_slice(cfg)
     want = resolve_device(device)
-    if state.hlc.device.type != want.type:
+    if mesh is None and state.hlc.device.type != want.type:
         raise ValueError(
             f"state lives on {state.hlc.device}, asked to run on {want}"
         )
@@ -464,6 +506,9 @@ def run_sim(
                 "(the schedule cursor is not checkpointed)"
             )
         resume.check_compatible(cfg, seed=seed, chunk=chunk)
+        if mesh is not None and state.hlc.shape[0] != n:
+            raise ValueError("resume under a mesh installs into the whole "
+                             "template: pass init_state(cfg) without mesh=")
         state = resume.install_state(state)
         rounds = resume.rounds
         start_ci = resume.next_chunk
@@ -485,6 +530,60 @@ def run_sim(
         )
         if checkpoint_meta is None:
             checkpoint_meta = resume.meta
+
+    specs = sharding_info = None
+    if mesh is not None:
+        from corro_sim_torch.engine.sharding import (
+            mesh_shardings,
+            resolve_shard_log,
+            shard_state,
+        )
+
+        if n % mesh.nodes:
+            raise ValueError(f"{n} nodes do not split over {mesh.nodes} "
+                             "shards")
+        specs = mesh_shardings(cfg, mesh)
+        if state.hlc.shape[0] == n:  # the whole state: keep this slice
+            state = shard_state(state, mesh, n, shard_log=cfg.shard_log)
+        elif state.hlc.device != mesh.device:
+            raise ValueError(f"the shard lives on {state.hlc.device}, the "
+                             f"rank on {mesh.device}")
+        dev = mesh.device
+        downgrades: list = []
+        reason = sharded_kernel_downgrade(cfg, mesh.size, dev)
+        if reason is not None:
+            # the mesh cannot keep the merge kernel here: the scatter
+            # merge, said out loud
+            cfg = dataclasses.replace(cfg, merge_kernel="off")
+            downgrades.append({"field": "merge_kernel", "value": "off",
+                               "reason": reason})
+            flight.annotate(0, "config_downgrade", field="merge_kernel",
+                            value="off", reason=reason)
+            counters.inc(
+                CONFIG_DOWNGRADE_TOTAL,
+                labels=f'{{field="merge_kernel",reason="{reason}"}}',
+                help_=CONFIG_DOWNGRADE_HELP,
+            )
+        sharding_info = {
+            "devices": int(mesh.size),
+            "mesh_shape": {str(k): int(v) for k, v in mesh.shape.items()},
+            "shard_log": ("actor_sharded" if resolve_shard_log(
+                num_actors=cfg.num_actors, shard_log=cfg.shard_log)
+                else "replicated"),
+            "merge_kernel": cfg.merge_kernel,
+            "downgrades": downgrades,
+        }
+        flight.set_meta(sharding=sharding_info)
+
+    def host_view(st, keys=None):
+        """``st`` for the host readers: itself off a mesh; under one, its
+        ``keys`` leaves (every leaf when None) gathered whole onto rank
+        0's host, one part at a time, and None on the other ranks."""
+        if mesh is None:
+            return st
+        from corro_sim_torch.engine.sharding import gather_state
+
+        return gather_state(st, mesh, specs, keys=keys)
 
     t0 = time.perf_counter()
     cache_probe = CompileCacheProbe()
@@ -571,7 +670,7 @@ def run_sim(
         with tracer.span("chunk dispatch", ci=ci, slow_warn=False,
                          runner="repair" if use_repair else "full"):
             for r in range(chunk):
-                if behind is not None and behind.fetch.ready():
+                if behind is not None and landed(behind):
                     if doomed(behind, we, use_repair):
                         return _InFlight(
                             ci=ci, base=base, state_out=st, fetch=None,
@@ -585,24 +684,37 @@ def run_sim(
                     round0 + base + r, repair=use_repair,
                     writes=None if staged is None else tuple(
                         x[r] for x in staged),
-                    quiesced=quiesced[r], knobs=knobs,
+                    quiesced=quiesced[r], knobs=knobs, mesh=mesh,
                 )
                 per_round.append(m)
             i_s, f_s, ikeys = pack_metrics(per_round)
             fetch = start_async_fetch(i_s, f_s)
             # the checkers' and the probe extraction's reads, queued
             # before any chunk that follows
-            boundary = _boundary_fetch(cfg, st) if armed else None
-            probe = _probe_fetch(cfg, st)
+            due = checkpoint_due(ci)
+            full = (host_view(st, None if due else _read_keys(
+                armed, cfg.probes)) if armed or cfg.probes or due
+                else None)
+            boundary = (_boundary_fetch(cfg, full)
+                        if armed and full is not None else None)
+            probe = _probe_fetch(cfg, full) if full is not None else None
             # a checkpoint holds this committed state: copy it before a
             # later chunk is queued behind it
-            snapshot = (start_async_fetch(*(t for _, t in _leaves(st)))
-                        if checkpoint_due(ci) else None)
+            snapshot = (start_async_fetch(*(t for _, t in _leaves(full)))
+                        if due and full is not None else None)
         return _InFlight(ci=ci, base=base, state_out=st, fetch=fetch,
                          boundary=boundary, probe=probe, ikeys=ikeys,
                          use_repair=use_repair,
                          speculative=speculative, alive=alive, part=part,
-                         we=we, snapshot=snapshot)
+                         we=we, snapshot=snapshot,
+                         whole=full if mesh is not None else None)
+
+    def landed(pending: _InFlight) -> bool:
+        """Whether ``pending``'s metrics are on the host. Under a mesh
+        the ranks agree (every rank's copy landed), since each rank's
+        timing is its own and every rank must queue the same rounds."""
+        ready = pending.fetch.ready()
+        return ready if mesh is None else mesh.agree(ready)
 
     def doomed(pending: _InFlight, we, use_repair) -> bool:
         """Whether ``pending``'s metrics (landed) show that the chunk
@@ -704,7 +816,7 @@ def run_sim(
                 delta = int(np.asarray(m[mk]).sum())
                 if delta:
                     counters.inc(cname, n=delta, help_=chelp)
-        if armed:
+        if inflight.boundary is not None:
             view = _boundary_view(inflight.boundary)
             if scorecard is not None:
                 t = time.perf_counter()
@@ -723,7 +835,7 @@ def run_sim(
         prev_writes = bool(we.any())
         last_pend_live = int(m["pend_live"][-1])
         rounds = base + chunk
-        if cfg.probes:
+        if inflight.probe is not None:
             # a probe whose p99 delivery lag worsened this chunk (a late
             # straggler stretched the tail) annotates the flight record
             planes = dict(zip(PROBE_FIELDS, inflight.probe.resolve()))
@@ -767,15 +879,16 @@ def run_sim(
                 # the convergence report is checked on the committed
                 # state, which no queued chunk consumes
                 alive_now, part_now = inflight.alive[-1], inflight.part[-1]
-                if scorecard is not None:
+                done = (inflight.state_out if mesh is None
+                        else inflight.whole)
+                if scorecard is not None and done is not None:
                     t = time.perf_counter()
-                    scorecard.on_converged(inflight.state_out, alive_now,
-                                           part_now)
+                    scorecard.on_converged(done, alive_now, part_now)
                     check_seconds["scorecard"] += time.perf_counter() - t
-                if invariants is not None:
+                if invariants is not None and done is not None:
                     t = time.perf_counter()
                     found = list(invariants.on_converged(
-                        inflight.state_out, alive_now, part_now))
+                        done, alive_now, part_now))
                     check_seconds["invariants"] += time.perf_counter() - t
                     violations_found(found, converged_round)
                 return False
@@ -792,8 +905,11 @@ def run_sim(
             state_flat,
         )
 
+        if inflight.snapshot is None:
+            return  # under a mesh rank 0 writes the token
         t = time.perf_counter()
-        flat = state_flat(inflight.state_out, inflight.snapshot.resolve())
+        flat = state_flat(inflight.whole or inflight.state_out,
+                          inflight.snapshot.resolve())
         save_sim_checkpoint(
             checkpoint_path, cfg=cfg, state=flat, seed=seed, chunk=chunk,
             rounds=rounds, next_chunk=ci + 1,
@@ -987,12 +1103,16 @@ def run_sim(
         k: np.concatenate([c[k] for c in metrics_chunks])
         for k in metrics_chunks[0]
     }
+    # the final readers' leaves (the state itself off a mesh)
+    final = (host_view(state, _read_keys(scorecard is not None,
+                                         cfg.probes))
+             if scorecard is not None or cfg.probes else None)
     resilience = None
-    if scorecard is not None:
+    if scorecard is not None and final is not None:
         t = time.perf_counter()
         resilience = scorecard.finalize(
             converged_round=None if poisoned else converged_round,
-            rounds=rounds, final_state=state,
+            rounds=rounds, final_state=final,
         )
         check_seconds["scorecard"] += time.perf_counter() - t
         flight.annotate(
@@ -1015,8 +1135,9 @@ def run_sim(
         pipeline=pipeline_stats,
         resilience=resilience,
         check_seconds=check_seconds if armed else None,
-        probe=(ProbeTrace.from_state(cfg, state, driver="run_sim",
+        probe=(ProbeTrace.from_state(cfg, final, driver="run_sim",
                                      seed=seed, rounds=rounds)
-               if cfg.probes else None),
+               if cfg.probes and final is not None else None),
         checkpoint_seconds=checkpoint_seconds,
+        sharding=sharding_info,
     )

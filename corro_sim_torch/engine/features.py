@@ -36,6 +36,8 @@ class FeatureLeaf:
     placeholder: Callable[[Any, Any], Any] | None = None
     field: str | None = None  # the SimState attribute of a field leaf
     volatile: bool = True  # scrubbed from portable backups and restores
+    # a node-major plane whose build takes ``rows=`` (one rank's rows)
+    row_plane: bool = False
 
     def materialize(self, cfg, seed: int, device):
         """The enabled form, or the placeholder of a field leaf."""
@@ -66,14 +68,17 @@ def register_feature(leaf: FeatureLeaf, *,
     return leaf
 
 
-def build_features(cfg, seed: int, device) -> dict:
+def build_features(cfg, seed: int, device, rows: int | None = None) -> dict:
     """The ``SimState.features`` dict for ``cfg``: one entry per enabled
-    dict-style feature, sorted by name."""
-    return {
-        name: _REGISTRY[name].build(cfg, seed, device)
-        for name in sorted(_REGISTRY)
-        if _REGISTRY[name].field is None and _REGISTRY[name].enabled(cfg)
-    }
+    dict-style feature, sorted by name. ``rows``: the row planes get
+    only that many nodes' rows (one rank's shard)."""
+    out = {}
+    for name in sorted(_REGISTRY):
+        leaf = _REGISTRY[name]
+        if leaf.field is None and leaf.enabled(cfg):
+            kw = {"rows": rows} if leaf.row_plane and rows is not None else {}
+            out[name] = leaf.build(cfg, seed, device, **kw)
+    return out
 
 
 def build_field(name: str, cfg, seed: int, device):

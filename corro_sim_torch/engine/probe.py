@@ -142,11 +142,15 @@ def probe_delivery_update(probe: ProbeState, round_, dst, src, actor, ver,
 
 
 def probe_book_update(probe: ProbeState, book_head: torch.Tensor,
-                      round_) -> ProbeState:
+                      round_, mesh=None) -> ProbeState:
     """The anti-entropy merge point: a node whose applied head now covers
     a probe's version without a recorded gossip delivery joined via a
-    sync range transfer (INFECTOR_SYNC, no hop)."""
-    has = book_head[:, probe.actor.long()].T >= probe.ver[:, None]  # (K, N)
+    sync range transfer (INFECTOR_SYNC, no hop). ``mesh``: ``book_head``
+    is this rank's rows; the probes' ``(N/D, K)`` columns are gathered."""
+    cols = book_head[:, probe.actor.long()]
+    if mesh is not None:
+        cols = mesh.gather(cols)
+    has = cols.T >= probe.ver[:, None]  # (K, N)
     newly = has & (probe.first_seen < 0)
     return dataclasses.replace(
         probe,

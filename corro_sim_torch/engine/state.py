@@ -91,17 +91,35 @@ def _ring0(cfg: SimConfig, seed: int) -> np.ndarray:
     return near
 
 
-def init_state(cfg: SimConfig, seed: int = 0, device=None) -> SimState:
-    """The empty cluster for ``cfg`` on ``device`` (default ``cuda``)."""
+def init_state(cfg: SimConfig, seed: int = 0, device=None,
+               mesh=None) -> SimState:
+    """The empty cluster for ``cfg`` on ``device`` (default ``cuda``).
+
+    ``mesh``: a :class:`~corro_sim_torch.engine.sharding.Mesh`; build
+    this rank's shard (what ``sharding.shard_state`` slices from the
+    whole) without making the whole. The row planes start as constant
+    fills, so they are made at the shard's rows; only the O(N·k) leaves
+    are made whole and sliced."""
     validate_torch_slice(cfg)
     dev = resolve_device(device)
     n = cfg.num_nodes
+    rows = log_rows = cleared_rows = None
+    if mesh is not None:
+        from corro_sim_torch.engine.sharding import resolve_shard_log
+
+        lo, hi = mesh.bounds(n)
+        rows = hi - lo
+        lo, hi = mesh.bounds(cfg.num_actors)
+        cleared_rows = hi - lo
+        if resolve_shard_log(cfg) and cfg.num_actors == n:
+            log_rows = cleared_rows
     i32 = dict(dtype=torch.int32, device=dev)
-    return SimState(
-        table=make_table_state(n, cfg.num_rows, cfg.num_cols, dev),
-        book=make_bookkeeping(n, cfg.num_actors, dev),
+    state = SimState(
+        table=make_table_state(rows or n, cfg.num_rows, cfg.num_cols, dev),
+        book=make_bookkeeping(rows or n, cfg.num_actors, dev),
         log=make_changelog(
-            cfg.num_actors, cfg.log_capacity, cfg.seqs_per_version, dev
+            cfg.num_actors, cfg.log_capacity, cfg.seqs_per_version, dev,
+            rows=log_rows,
         ),
         own=make_ownership(cfg.num_rows, cfg.num_cols, dev),
         gossip=make_gossip_state(n, cfg.pend_slots, dev),
@@ -111,7 +129,8 @@ def init_state(cfg: SimConfig, seed: int = 0, device=None) -> SimState:
                 cfg.narrow_state, dev,
             )
             if cfg.swim_view_size > 0
-            else make_swim_state(n, cfg.swim_enabled, cfg.narrow_state, dev)
+            else make_swim_state(n, cfg.swim_enabled, cfg.narrow_state, dev,
+                                 rows=rows)
         ),
         ring0=torch.as_tensor(_ring0(cfg, seed), device=dev),
         row_cdf=torch.as_tensor(_row_cdf(cfg), device=dev),
@@ -119,15 +138,22 @@ def init_state(cfg: SimConfig, seed: int = 0, device=None) -> SimState:
         sync_rounds=torch.zeros((), **i32),
         hlc=torch.zeros((n,), **i32),
         last_cleared=torch.full((n,), -1, **i32),
-        cleared_hlc=torch.full((cfg.num_actors, cfg.log_capacity), -1, **i32),
-        rtt=make_rtt(n, cfg.rtt_rings, dev),
+        cleared_hlc=torch.full((cleared_rows or cfg.num_actors,
+                                cfg.log_capacity), -1, **i32),
+        rtt=make_rtt(n, cfg.rtt_rings, dev, rows=rows),
         inflight=torch.zeros(
             (cfg.inflight_slots, 6, cfg.lanes_per_round)
             if cfg.inflight_slots else (1, 6, 1), **i32),
         probe=build_field("probe", cfg, seed, dev),
         fault_burst=build_field("fault_burst", cfg, seed, dev),
-        features=build_features(cfg, seed, dev),
+        features=build_features(cfg, seed, dev, rows=rows),
     )
+    if mesh is None:
+        return state
+    from corro_sim_torch.engine.sharding import mesh_shardings, slice_small
+
+    # the row planes are the shard already; slice the rest
+    return slice_small(state, mesh, mesh_shardings(cfg, mesh))
 
 
 def _map_tensors(obj, fn):

@@ -45,6 +45,19 @@ computed, before the round's gossip and delivery are queued, and reads
 it when the sweep is due, so the host rarely waits for it. The SWIM
 cadence and its announce gate depend on the round number only, which
 the caller passes on the host.
+
+Under a device mesh (``mesh=``, ``engine/sharding.py``) each rank holds
+its slice of the node-sharded leaves. The round gathers the O(N·k) ones
+whole when it starts and slices them again when it ends; the row planes
+(table, bookkeeping, the full-view SWIM plane, ``rtt``, the cleared
+stamps and, under ``shard_log``, the log's planes) stay sliced, and each
+stage works on its own rows: writes at the writers' shards, deliveries
+and the merge at the destinations' shards (lanes routed by one
+``all_to_all_single``), SWIM and sync on each rank's nodes with the
+peers' rows fetched. Draws keep their global shapes, so each rank's
+share is the one-device draw's. Counts are reduced over the ranks in
+int32 or int64, so the metrics are the one-device values, and the sweep
+gate's device predicate is reduced before any rank reads it.
 """
 
 from __future__ import annotations
@@ -145,6 +158,49 @@ def _reachable_fn(alive: torch.Tensor, part: torch.Tensor):
 def _pairwise_mask(alive: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
     """(N, N) ground-truth reachability for sync peer choice."""
     return alive[:, None] & alive[None, :] & (part[:, None] == part[None, :])
+
+
+class _Shards:
+    """One round's view of a device mesh: this rank's node rows ``[r0,
+    r1)``, its actor rows when the log is actor-sharded (``log_lo``
+    None when it is replicated) and the reductions the step's counts
+    take. Off the mesh every rank is the whole cluster and every
+    reduction is the identity."""
+
+    def __init__(self, cfg, mesh, log=None):
+        self.mesh = mesh
+        n = cfg.num_nodes
+        self.r0, self.r1 = (0, n) if mesh is None else mesh.bounds(n)
+        self.full_view = cfg.swim_enabled and cfg.swim_view_size == 0
+        self.log_lo = None
+        if mesh is not None and log is not None and (
+                log.cells.shape[0] != log.head.shape[0]):
+            self.log_lo = mesh.bounds(log.head.shape[0])[0]
+
+    def rows(self, x):
+        return x[self.r0:self.r1]
+
+    def sum(self, x):
+        return x if self.mesh is None else self.mesh.reduce(x)
+
+    def view(self, view):
+        """Gossip's and sync's membership view: a full-view plane is
+        this rank's rows, read through the mesh's row lookup."""
+        if self.mesh is None or not self.full_view:
+            return view
+        return self.mesh.row_lookup(view)
+
+
+def _mesh_enter(cfg, state, mesh):
+    from corro_sim_torch.engine.sharding import gather_small, mesh_shardings
+
+    return gather_small(state, mesh, mesh_shardings(cfg, mesh))
+
+
+def _mesh_exit(cfg, state, mesh):
+    from corro_sim_torch.engine.sharding import mesh_shardings, slice_small
+
+    return slice_small(state, mesh, mesh_shardings(cfg, mesh))
 
 
 def _i32(x: int, device) -> torch.Tensor:
@@ -248,6 +304,7 @@ def sim_step(
     writes: tuple | None = None,
     quiesced: bool | None = None,
     knobs: dict | None = None,
+    mesh=None,
 ):
     """Advance the cluster one round; returns ``(state, metrics)``.
 
@@ -275,13 +332,32 @@ def sim_step(
     ``knobs``: under a sweep, the lane's host copy of its
     ``sweep_knobs`` leaf (:func:`host_knobs`; read here when None). With
     ``sweep.workload``, ``writes`` feeds the lane only where its
-    ``use_workload`` knob says so; else the sampler does."""
+    ``use_workload`` knob says so; else the sampler does.
+
+    ``mesh``: a :class:`~corro_sim_torch.engine.sharding.Mesh`; ``state``
+    is this rank's slice (``engine/sharding.py::shard_state``), and so is
+    the returned state. ``alive``, ``part`` and ``writes`` are whole, the
+    same on every rank (module docstring)."""
+    args = (key, alive, part, write_enable, round_idx, repair, writes,
+            quiesced, knobs)
+    if mesh is None:
+        return _step(cfg, state, *args, _Shards(cfg, None))
+    state = _mesh_enter(cfg, state, mesh)
+    new_state, metrics = _step(cfg, state, *args,
+                               _Shards(cfg, mesh, state.log))
+    return _mesh_exit(cfg, new_state, mesh), metrics
+
+
+def _step(cfg, state, key, alive, part, write_enable, round_idx, repair,
+          writes, quiesced, knobs, sh):
+    """:func:`sim_step`'s round on ``sh``'s rows."""
+    mesh = sh.mesh
     sw = None
     if cfg.sweep.enabled:
         sw = knobs if knobs is not None else host_knobs(state)
         cfg = _lane_config(cfg, sw)
     if repair:
-        return _repair_step(cfg, state, key, alive, part, round_idx, sw)
+        return _repair_step(cfg, state, key, alive, part, round_idx, sw, sh)
     n = cfg.num_nodes
     s = cfg.seqs_per_version
     cpv = cfg.chunks_per_version
@@ -290,9 +366,10 @@ def sim_step(
     (k_write, k_row, k_col, k_val, k_del, k_ncell, k_bcast, k_swim,
      k_sync) = prng.split(key, len(STEP_KEY_STREAMS))
     reach = _reachable_fn(alive, part)
-    state, nf = _node_fault_prologue(cfg, state, round_idx, sw)
+    state, nf = _node_fault_prologue(cfg, state, round_idx, sw, sh)
     fl = _fault_lane(cfg, state, key, sw)
     view = membership_view(cfg, state.swim, n)
+    lo = sh.r0  # this rank's first node
 
     # ---------------------------------------------------------- local writes
     if writes is not None and not (
@@ -311,31 +388,35 @@ def sim_step(
         # post-wipe write gate (faults/nodes.py): a restarted node mints
         # no version until anti-entropy has served its own actor's
         # history back; identically all-pass absent wipes
-        writers = writers & ~(recovering_mask(state.book, state.log) & alive)
+        writers = writers & ~(
+            recovering_mask(state.book, state.log, mesh) & alive)
         w_del = w_del & writers
         if nf["wipes"] and quiesced is False:
             # the gate may silence every scheduled writer, which only
             # the device sees
             quiesced = None
 
+    # each rank writes its own writers' rows; the change records are
+    # gathered for the log and the ownership fold
     table, ch_cv, ch_cl, ch_vr = local_write(
-        state.table, rows_idx, w_row_s, w_col, w_val, w_del, w_ncells, writers
+        state.table, sh.rows(rows_idx), sh.rows(w_row_s), sh.rows(w_col),
+        sh.rows(w_val), sh.rows(w_del), sh.rows(w_ncells), sh.rows(writers),
+        row_lo=lo,
     )
+    if mesh is not None:
+        ch_cv, ch_cl, ch_vr = (mesh.gather(x) for x in (ch_cv, ch_cl, ch_vr))
     log, w_ver = append_changesets(
         state.log, rows_idx, w_row_s, w_col, ch_vr, ch_cv, ch_cl, w_ncells,
-        writers,
+        writers, actor_lo=sh.log_lo,
     )
     # self-bookkeeping: a node's own writes are trivially in order
     head = state.book.head.clone()
-    head.diagonal().add_(writers.to(torch.int32))
+    loc = torch.arange(head.shape[0], device=dev)
+    head[loc, loc + lo] += sh.rows(writers).to(torch.int32)
     book = dataclasses.replace(state.book, head=head)
     # ring-wrap tripwire and the pre-delivery repair signal, from the
     # post-write log heads against the pre-delivery bookkeeping
-    lag_pre = log.head[None, :] - state.book.head
-    log_wrapped = ((lag_pre > log.capacity) & alive[:, None]).sum(
-        dtype=torch.int32)
-    behind_pre = ((lag_pre > 0) & alive[:, None]).any()
-    del lag_pre
+    log_wrapped, behind_pre = _lag_signals(log, state.book, alive, sh)
     gate = _sync_gate(cfg, round_idx, quiesced, behind_pre, writers)
 
     # global ownership fold: which versions lost cells to this round
@@ -357,10 +438,15 @@ def sim_step(
         ch_cl.reshape(-1),
         w_cell_live.reshape(-1),
         w_del[:, None].expand(n, s).reshape(-1),
+        actor_lo=sh.log_lo,
     )
     # each version cleared this round is stamped with the round's
     # write-phase clock (store_empty_changeset, change.rs:267-389)
     newly_cleared = log.cleared & ~pre_cleared
+    if mesh is not None and sh.log_lo is None:
+        # a replicated log: this rank's actors' rows of the stamps
+        a0, a1 = mesh.bounds(newly_cleared.shape[0])
+        newly_cleared = newly_cleared[a0:a1]
     writer_ts = torch.where(writers, state.hlc, -1).max()
     cleared_hlc = torch.where(
         newly_cleared, torch.maximum(state.cleared_hlc, writer_ts),
@@ -383,7 +469,7 @@ def sim_step(
     # ------------------------------------------------- gossip dissemination
     gossip, g_dst, g_src, g_actor, g_ver, g_chunk, g_valid = broadcast_step(
         state.gossip, k_bcast, alive if active is None else alive & active,
-        view, cfg.fanout,
+        sh.view(view), cfg.fanout,
         emit_slots=cfg.emit_slots, round_idx=round_idx, need_chunk=cpv > 1,
     )
     dst = torch.cat([e_dst, g_dst])
@@ -458,7 +544,7 @@ def sim_step(
     # --------------------------------------- fused delivery merge (1 pass)
     dv = delivery_pass(
         cfg, table, book, log, state.hlc, dst, src, actor, ver, chunk,
-        delivered, probe=probe, round_=state.round,
+        delivered, probe=probe, round_=state.round, mesh=mesh,
     )
     table, book, probe = dv.table, dv.book, dv.probe
 
@@ -468,10 +554,14 @@ def sim_step(
     # takes the next round's eager sends
     rtt, ring0 = state.rtt, state.ring0
     if cfg.rtt_rings:
-        rtt = observe_rtt(cfg, rtt, dv.dst, dv.src, dv.delivered_precap)
+        # each rank's rows: lanes to other shards fall out of range
+        rtt = observe_rtt(cfg, rtt, dv.dst, dv.src, dv.delivered_precap,
+                          row_lo=lo)
         iv = cfg.ring_update_interval
         if round_idx % iv == iv - 1:
-            ring0 = recompute_ring0(rtt, ring0)
+            ring0 = recompute_ring0(rtt, sh.rows(ring0), lo)
+            if mesh is not None:
+                ring0 = mesh.gather(ring0)
 
     # ------------------------------------------------- rebroadcast + enqueue
     if cpv <= cfg.pend_slots:
@@ -499,14 +589,11 @@ def sim_step(
     )
 
     swim, swim_metrics = _swim_block(cfg, state.swim, k_swim, alive, reach,
-                                     round_idx)
+                                     round_idx, mesh)
 
     # last_cleared_ts analog, HLC-gated (handlers.rs:524-719)
-    last_cleared = scatter_max(
-        state.last_cleared, (dv.dst,),
-        cleared_hlc[dv.g_actor.long(), dv.g_slot.long()],
-        dv.complete & dv.c_cleared,
-    )
+    last_cleared = _delivery_cleared(state.last_cleared, cleared_hlc, dv,
+                                     mesh)
 
     # ----------------------------------------------------------------- sync
     is_sync = _sync_due(gate)
@@ -514,12 +601,21 @@ def sim_step(
         cfg, is_sync, book, log, table, state.hlc, last_cleared, cleared_hlc,
         k_sync, alive, view, part, round_idx=state.sync_rounds,
         fault=fl, client_ok=_sync_client_ok(cfg, nf, state),
-        rtt=rtt if cfg.rtt_rings else None,
+        rtt=rtt if cfg.rtt_rings else None, sh=sh,
     )
-    probe = _probe_after_sync(cfg, probe, book, is_sync, alive, state.round)
+    probe = _probe_after_sync(cfg, probe, book, is_sync, alive, state.round,
+                              mesh)
 
     # -------------------------------------------------------------- metrics
-    gap = _gap(alive, log, book)
+    gap = _gap(alive, log, book, sh)
+    partial, cleared_n, gossip_cells = sh.sum(torch.stack([
+        partial_versions(book, cfg.chunks_per_version),
+        log.cleared.sum(dtype=torch.int32),
+        dv.cell_live.sum(dtype=torch.int32),
+    ]))
+    if sh.log_lo is None and mesh is not None:
+        # a replicated log counts once, not once per rank
+        cleared_n = log.cleared.sum(dtype=torch.int32)
     hlc, skew = _hlc_tick(alive, hlc_s, dv.hlc_recv, state.round,
                           None if nf is None else nf["skew"])
     metrics = {
@@ -531,13 +627,12 @@ def sim_step(
         "delivered": dv.delivered.sum(dtype=torch.int32),
         "fresh": dv.complete.sum(dtype=torch.int32),
         "fresh_chunks": dv.fresh_chunk.sum(dtype=torch.int32),
-        "gossip_cells": dv.cell_live.sum(dtype=torch.int32),
-        "buffered_partials": partial_versions(
-            book, cfg.chunks_per_version),
+        "gossip_cells": gossip_cells,
+        "buffered_partials": partial,
         "dropped_window": dv.dropped.sum(dtype=torch.int32),
         "queue_overflow": gossip.overflow,
         "pend_live": (gossip.pend_tx > 0).sum(dtype=torch.int32),
-        "cleared_versions": log.cleared.sum(dtype=torch.int32),
+        "cleared_versions": cleared_n,
         "gap": gap,
         "log_wrapped": log_wrapped,
         "clock_skew": skew,
@@ -545,7 +640,7 @@ def sim_step(
         **sync_metrics,
         **(probe_metrics(probe) if cfg.probes else {}),
         **fault_metrics,
-        **_node_fault_metrics(nf, alive, book, log),
+        **_node_fault_metrics(nf, alive, book, log, mesh),
     }
     new_state = dataclasses.replace(
         state,
@@ -569,16 +664,51 @@ def sim_step(
     return new_state, metrics
 
 
-def _probe_after_sync(cfg, probe, book, is_sync: bool, alive, round_):
+def _lag_signals(log, book, alive, sh):
+    """``(log_wrapped, behind_pre)``: live (node, actor) pairs further
+    behind than the log ring holds, and whether any live node is behind
+    at all, from this rank's rows and reduced over the ranks."""
+    lag = log.head[None, :] - book.head
+    live = sh.rows(alive)[:, None]
+    counts = sh.sum(torch.stack([
+        ((lag > log.capacity) & live).sum(dtype=torch.int32),
+        ((lag > 0) & live).sum(dtype=torch.int32),
+    ]))
+    return counts[0], counts[1] > 0
+
+
+def _delivery_cleared(last_cleared, cleared_hlc, dv, mesh):
+    """``last_cleared`` raised by the clears this round's complete
+    deliveries carried. Under a mesh each rank reads the stamps of its
+    share of the lanes (from the stamps' owners) and the ranks' maxima
+    are reduced."""
+    if mesh is None:
+        return scatter_max(
+            last_cleared, (dv.dst,),
+            cleared_hlc[dv.g_actor.long(), dv.g_slot.long()],
+            dv.complete & dv.c_cleared,
+        )
+    from corro_sim_torch.core.delivery import lane_share
+
+    g_actor, g_slot, dst, complete = (
+        lane_share(x, mesh)
+        for x in (dv.g_actor, dv.g_slot, dv.dst, dv.complete))
+    stamp = mesh.fetch_elems(cleared_hlc, g_actor, g_slot)
+    return mesh.reduce(scatter_max(last_cleared, (dst,), stamp,
+                                   complete & dv.c_cleared), "max")
+
+
+def _probe_after_sync(cfg, probe, book, is_sync: bool, alive, round_,
+                      mesh=None):
     """The anti-entropy merge point and the sweep stamp, both step
     programs' last probe updates of a round."""
     if not cfg.probes:
         return probe
-    probe = probe_book_update(probe, book.head, round_)
+    probe = probe_book_update(probe, book.head, round_, mesh)
     return probe_sync_mark(probe, is_sync, alive, round_)
 
 
-def _node_fault_prologue(cfg, state, round_idx: int, sw=None):
+def _node_fault_prologue(cfg, state, round_idx: int, sw=None, sh=None):
     """The node-fault prologue both step programs run before anything
     reads the state: the round's scheduled wipes and snapshot captures,
     the straggler duty mask and the clock-skew plane. Returns ``(state,
@@ -591,8 +721,9 @@ def _node_fault_prologue(cfg, state, round_idx: int, sw=None):
     n = cfg.num_nodes
     dev = state.hlc.device
     leaf = state.features["sweep_knobs"] if lane else None
-    state, wiped = apply_node_faults(cfg, state, round_idx,
-                                     sweep=sw if lane else None)
+    state, wiped = apply_node_faults(
+        cfg, state, round_idx, sweep=sw if lane else None,
+        rows=None if sh is None or sh.mesh is None else (sh.r0, sh.r1))
     return state, {
         "wiped": wiped,
         "active": straggler_active(cfg.node_faults, n, round_idx, dev,
@@ -643,7 +774,7 @@ def _sync_client_ok(cfg, nf, state):
                                     sweep=nf["leaf"])
 
 
-def _node_fault_metrics(nf, alive, book, log) -> dict:
+def _node_fault_metrics(nf, alive, book, log, mesh=None) -> dict:
     """The node-fault metrics, shared by both step programs (additive
     node-rounds): wipes this round, straggler node-rounds parked, and
     live nodes still resyncing their own write cursor."""
@@ -656,24 +787,30 @@ def _node_fault_metrics(nf, alive, book, log) -> dict:
             (alive & ~nf["active"]).sum(dtype=torch.int32)
             if nf["active"] is not None else zero
         ),
-        "node_fault_recovering": (recovering_mask(book, log) & alive).sum(
+        "node_fault_recovering": (
+            recovering_mask(book, log, mesh) & alive).sum(
             dtype=torch.int32),
     }
 
 
-def _swim_block(cfg, swim_state, k_swim, alive, reach, round_idx: int):
+def _swim_block(cfg, swim_state, k_swim, alive, reach, round_idx: int,
+                mesh=None):
     """The SWIM cadence: a tick every ``swim_interval``-th round; on the
-    rounds between, the metrics of the standing beliefs."""
+    rounds between, the metrics of the standing beliefs. ``mesh``: the
+    full-view plane is this rank's rows; the windowed state is whole."""
     zero = _i32(0, alive.device)
     if not cfg.swim_enabled:
         return swim_state, dict.fromkeys(
             ("swim_suspects", "swim_down", "swim_probe_failures"), zero)
-    windowed = cfg.swim_view_size > 0
+    if cfg.swim_view_size > 0:
+        if tick_round(cfg, round_idx):
+            return swim_window_step(cfg, swim_state, k_swim, alive, reach,
+                                    round_idx)
+        return swim_state, window_metrics(swim_state, alive, zero)
     if tick_round(cfg, round_idx):
-        step_fn = swim_window_step if windowed else swim_step
-        return step_fn(cfg, swim_state, k_swim, alive, reach, round_idx)
-    metrics_fn = window_metrics if windowed else plane_metrics
-    return swim_state, metrics_fn(swim_state, alive, zero)
+        return swim_step(cfg, swim_state, k_swim, alive, reach, round_idx,
+                         mesh=mesh)
+    return swim_state, plane_metrics(swim_state, alive, zero, mesh=mesh)
 
 
 def _sync_gate(cfg, round_: int, quiesced: bool | None, behind_pre,
@@ -712,13 +849,16 @@ def _sync_due(gate) -> bool:
 
 def _sync_block(cfg, is_sync: bool, book, log, table, hlc, last_cleared,
                 cleared_hlc, k_sync, alive, view, part, round_idx,
-                fault=None, client_ok=None, rtt=None):
+                fault=None, client_ok=None, rtt=None, sh=None):
     """One anti-entropy sweep when ``is_sync``; zero metrics otherwise.
     ``fault``: the round's link-fault lane (:func:`_fault_lane`) with
     link faults on.
     ``client_ok``: makes the straggler duty mask, which gates the pair
     rows (the client side) only. ``rtt``: the observed edge delays with
-    RTT rings on."""
+    RTT rings on. ``sh``: the round's :class:`_Shards`; under a mesh the
+    pair mask is a reader of ``alive`` and ``part``, never an (N, N)
+    plane."""
+    mesh = None if sh is None else sh.mesh
     if not is_sync:
         dev = hlc.device
         names = _SYNC_METRICS + (
@@ -726,25 +866,41 @@ def _sync_block(cfg, is_sync: bool, book, log, table, hlc, last_cleared,
         return book, table, hlc, last_cleared, {
             k: _i32(0, dev) for k in names
         }
-    pairs = _pairwise_mask(alive, part)
-    if client_ok is not None:
-        pairs = pairs & client_ok()[:, None]
+    if mesh is None:
+        pairs = _pairwise_mask(alive, part)
+        if client_ok is not None:
+            pairs = pairs & client_ok()[:, None]
+    else:
+        reach = _reachable_fn(alive, part)
+        ok = None if client_ok is None else client_ok()
+
+        def pairs(src, dst):
+            link = reach(src, dst)
+            return link if ok is None else link & ok[src.long()]
     return sync_round(
         cfg, book, log, table, hlc, last_cleared, cleared_hlc, k_sync,
-        alive, view, pairs, rtt=rtt, round_idx=round_idx,
+        alive, view if sh is None else sh.view(view), pairs, rtt=rtt,
+        round_idx=round_idx,
         fault_key=None if fault is None else fault["k_sync"],
         fault_cfg=(None if fault is None or fault["conf"] is cfg.faults
                    else fault["conf"]),
+        mesh=mesh,
     )
 
 
-def _gap(alive, log, book) -> torch.Tensor:
+def _gap(alive, log, book, sh=None) -> torch.Tensor:
     """() float32 cluster-wide count of written-but-unapplied versions at
     live nodes. Summed exactly in int64 and cast once: equal to the JAX
     package's float32 sum wherever that sum is exact (partial sums under
-    2**24), and exact beyond."""
+    2**24), and exact beyond. ``sh``: ``book`` is this rank's rows; the
+    int64 partial sums are reduced before the cast."""
     lag = (log.head[None, :] - book.head).to(torch.int64)
-    return (lag * alive[:, None]).sum().to(torch.float32)
+    if sh is not None:
+        alive = sh.rows(alive)
+    total = (lag * alive[:, None]).sum()
+    if sh is not None:
+        total = sh.sum(total)
+    return total.to(torch.float32)
 
 
 def _hlc_tick(alive, hlc_s, hlc_recv, round_, skew=None):
@@ -769,7 +925,7 @@ def _hlc_tick(alive, hlc_s, hlc_recv, round_, skew=None):
 
 
 def _repair_step(cfg, state: SimState, key, alive, part, round_idx: int,
-                 sw=None):
+                 sw=None, sh=None):
     """The post-quiesce round: SWIM + sync + bookkeeping only.
     Preconditions (driver-checked): no writes this round, every gossip
     ring drained, no in-flight ring and no RTT rings; under those this is
@@ -786,34 +942,38 @@ def _repair_step(cfg, state: SimState, key, alive, part, round_idx: int,
     # the full step's node-fault prologue and fault lane: a wipe in the
     # convergence tail executes here too, the burst state keeps evolving
     # and sync grants keep failing
-    state, nf = _node_fault_prologue(cfg, state, round_idx, sw)
+    state, nf = _node_fault_prologue(cfg, state, round_idx, sw, sh)
     fl = _fault_lane(cfg, state, key, sw)
     view = membership_view(cfg, state.swim, n)
     log, book = state.log, state.book
-    lag_pre = log.head[None, :] - book.head
-    log_wrapped = ((lag_pre > log.capacity) & alive[:, None]).sum(
-        dtype=torch.int32)
-    behind_pre = ((lag_pre > 0) & alive[:, None]).any()
-    del lag_pre
+    sh = sh or _Shards(cfg, None)
+    mesh = sh.mesh
+    log_wrapped, behind_pre = _lag_signals(log, book, alive, sh)
     # quiesced is identically True here (no writers by precondition)
     gate = _sync_gate(cfg, round_idx, True, behind_pre, None)
     hlc_recv = torch.zeros((n,), dtype=torch.int32, device=dev)
 
     # SWIM keeps its tick cadence through the tail
     swim, swim_metrics = _swim_block(
-        cfg, state.swim, k_swim, alive, _reachable_fn(alive, part), round_idx
-    )
+        cfg, state.swim, k_swim, alive, _reachable_fn(alive, part),
+        round_idx, mesh)
 
     is_sync = _sync_due(gate)
     book, table, hlc_s, last_cleared, sync_metrics = _sync_block(
         cfg, is_sync, book, log, state.table, state.hlc, state.last_cleared,
         state.cleared_hlc, k_sync, alive, view, part,
         round_idx=state.sync_rounds, fault=fl,
-        client_ok=_sync_client_ok(cfg, nf, state),
+        client_ok=_sync_client_ok(cfg, nf, state), sh=sh,
     )
     probe = _probe_after_sync(cfg, state.probe, book, is_sync, alive,
-                              state.round)
-    gap = _gap(alive, log, book)
+                              state.round, mesh)
+    gap = _gap(alive, log, book, sh)
+    partial, cleared_n = sh.sum(torch.stack([
+        partial_versions(book, cfg.chunks_per_version),
+        log.cleared.sum(dtype=torch.int32),
+    ]))
+    if sh.log_lo is None and mesh is not None:
+        cleared_n = log.cleared.sum(dtype=torch.int32)
     hlc, skew = _hlc_tick(alive, hlc_s, hlc_recv, state.round,
                           None if nf is None else nf["skew"])
     zero = _i32(0, dev)
@@ -835,12 +995,11 @@ def _repair_step(cfg, state: SimState, key, alive, part, round_idx: int,
         "fresh": zero,
         "fresh_chunks": zero,
         "gossip_cells": zero,
-        "buffered_partials": partial_versions(
-            book, cfg.chunks_per_version),
+        "buffered_partials": partial,
         "dropped_window": zero,
         "queue_overflow": state.gossip.overflow,
         "pend_live": (state.gossip.pend_tx > 0).sum(dtype=torch.int32),
-        "cleared_versions": log.cleared.sum(dtype=torch.int32),
+        "cleared_versions": cleared_n,
         "gap": gap,
         "log_wrapped": log_wrapped,
         "clock_skew": skew,
@@ -848,7 +1007,7 @@ def _repair_step(cfg, state: SimState, key, alive, part, round_idx: int,
         **sync_metrics,
         **(probe_metrics(probe) if cfg.probes else {}),
         **fault_metrics,
-        **_node_fault_metrics(nf, alive, book, log),
+        **_node_fault_metrics(nf, alive, book, log, mesh),
     }
     new_state = dataclasses.replace(
         state,

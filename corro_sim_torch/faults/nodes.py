@@ -55,13 +55,14 @@ __all__ = [
 ]
 
 
-def _snapshot_leaf(cfg, seed, device) -> dict:
+def _snapshot_leaf(cfg, seed, device, rows: int | None = None) -> dict:
     """The stale-rejoin capture plane: table cell planes and bookkeeping
     rows, initialized to the empty-DB values (a restore scheduled before
     its snapshot degenerates to amnesia). ``win`` rides the port's int64
-    carrier of the JAX package's uint32 window."""
-    n, r, c, a = (cfg.num_nodes, cfg.num_rows, cfg.num_cols,
-                  cfg.num_actors)
+    carrier of the JAX package's uint32 window. ``rows``: only that
+    many nodes' rows (one rank's shard)."""
+    n, r, c, a = (cfg.num_nodes if rows is None else rows, cfg.num_rows,
+                  cfg.num_cols, cfg.num_actors)
     i32 = dict(dtype=torch.int32, device=device)
     return {
         "cv": torch.zeros((n, r, c), **i32),
@@ -91,6 +92,7 @@ register_feature(FeatureLeaf(
     ),
     build=_snapshot_leaf,
     volatile=True,
+    row_plane=True,
 ))
 
 
@@ -171,12 +173,17 @@ def straggler_active(nf, n: int, round_, device,
     return parked == 0
 
 
-def recovering_mask(book, log) -> torch.Tensor:
+def recovering_mask(book, log, mesh=None) -> torch.Tensor:
     """(N,) bool: nodes whose own actor column is still behind the log
     head — the post-wipe resync window in which local commits are
     gated, and the ``node_fault_recovering`` metric. Identically False
-    absent wipes."""
-    return book.head.diagonal() < log.head
+    absent wipes. ``mesh``: ``book`` is this rank's rows; each rank reads
+    its nodes' own columns and the masks are all-gathered."""
+    if mesh is None:
+        return book.head.diagonal() < log.head
+    lo, hi = mesh.bounds(log.head.shape[0])
+    rows = torch.arange(hi - lo, device=book.head.device)
+    return mesh.gather(book.head[rows, rows + lo] < log.head[lo:hi])
 
 
 def _wipe_masks(nf, n: int, round_: int):
@@ -206,7 +213,7 @@ def _sweep_wipe_masks(sweep: dict, round_: int):
     return None, fire, None, int(sweep["epoch_jump"])
 
 
-def apply_node_faults(cfg, state, round_: int, sweep=None):
+def apply_node_faults(cfg, state, round_: int, sweep=None, rows=None):
     """The node-fault prologue, at the start of a round in both step
     programs: capture stale-rejoin snapshots, then execute every wipe
     scheduled for round ``round_`` (the host's count of ``state.round``).
@@ -223,6 +230,10 @@ def apply_node_faults(cfg, state, round_: int, sweep=None):
 
     ``sweep``: a lane's host copy of its ``sweep_knobs`` leaf; where it
     holds wipe planes they replace the schedules.
+
+    ``rows``: ``(lo, hi)`` under a device mesh: the row planes (table,
+    bookkeeping, the snapshot, a full-view SWIM plane) hold nodes ``lo``
+    to ``hi``, the other leaves every node.
 
     The snapshot and the restored planes are new tensors: the merge
     updates table planes in place, so neither may share storage with
@@ -241,8 +252,9 @@ def apply_node_faults(cfg, state, round_: int, sweep=None):
     else:
         cap, am, sv = _wipe_masks(nf, n, round_)
         epoch_jump = nf.epoch_jump
+    lo, hi = (0, n) if rows is None else rows
     if cap is not None and cap.any():
-        c = upload(cap, str(dev))
+        c = upload(cap[lo:hi], str(dev))
         snap = feats["node_snapshot"]
         c3, c2 = c[:, None, None], c[:, None]
         feats["node_snapshot"] = {
@@ -259,14 +271,15 @@ def apply_node_faults(cfg, state, round_: int, sweep=None):
                 torch.zeros((n,), dtype=torch.bool, device=dev))
 
     wiped = upload(wiped_np, str(dev))
-    amnesia = upload(am, str(dev)) if sv is not None else None
+    wiped_rows = wiped[lo:hi]
+    amnesia = upload(am[lo:hi], str(dev)) if sv is not None else None
     snap = feats.get("node_snapshot")
 
     def pick(live, zero, field, expand):
-        w = wiped.reshape((n,) + (1,) * expand)
+        w = wiped_rows.reshape((hi - lo,) + (1,) * expand)
         if amnesia is None:
             return torch.where(w, zero, live)
-        a = amnesia.reshape((n,) + (1,) * expand)
+        a = amnesia.reshape((hi - lo,) + (1,) * expand)
         return torch.where(w, torch.where(a, zero, snap[field]), live)
 
     table = dataclasses.replace(
@@ -290,7 +303,7 @@ def apply_node_faults(cfg, state, round_: int, sweep=None):
     if cfg.swim_enabled:
         from corro_sim_torch.membership.swim import renew_membership
 
-        swim = renew_membership(swim, wiped)
+        swim = renew_membership(swim, wiped, row_lo=lo)
     # epoch-bumped HLC reboot: the clock restarts at the wall clock plus
     # the configured per-epoch jump; _hlc_tick's max keeps it monotone
     epoch = feats["node_epoch"] + wiped.to(torch.int32)

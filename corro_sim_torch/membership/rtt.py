@@ -34,33 +34,44 @@ def link_delay(cfg, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
         torch.int32)
 
 
-def make_rtt(num_nodes: int, enabled: bool, device) -> torch.Tensor:
-    """The ``(N, N)`` uint8 plane, all unobserved; ``(1, 1)`` when off."""
+def make_rtt(num_nodes: int, enabled: bool, device,
+             rows: int | None = None) -> torch.Tensor:
+    """The ``(N, N)`` uint8 plane, all unobserved; ``(1, 1)`` when off.
+    ``rows``: only that many rows (one rank's shard)."""
     n = num_nodes if enabled else 1
-    return torch.full((n, n), UNOBSERVED, dtype=torch.uint8, device=device)
+    r = rows if enabled and rows is not None else n
+    return torch.full((r, n), UNOBSERVED, dtype=torch.uint8, device=device)
 
 
 def observe_rtt(cfg, rtt: torch.Tensor, dst: torch.Tensor, src: torch.Tensor,
-                delivered: torch.Tensor) -> torch.Tensor:
+                delivered: torch.Tensor, row_lo: int = 0) -> torch.Tensor:
     """``rtt`` with the observed delay of every delivered lane set at
     ``[dst, src]``. The delay is fixed per edge, so duplicate lanes carry
     equal samples and the order of the writes does not matter; lanes not
-    delivered write nothing."""
+    delivered write nothing. ``row_lo``: ``rtt`` holds the rows of nodes
+    ``row_lo`` on (one rank's shard); lanes to other rows write
+    nothing."""
     sample = torch.clamp(link_delay(cfg, src, dst), 0, 254).to(torch.uint8)
-    return scatter_set(rtt, (dst, src), sample, delivered)
+    return scatter_set(rtt, (dst - row_lo, src), sample, delivered)
 
 
-def recompute_ring0(rtt: torch.Tensor, ring0: torch.Tensor) -> torch.Tensor:
+def recompute_ring0(rtt: torch.Tensor, ring0: torch.Tensor,
+                    row_lo: int = 0) -> torch.Tensor:
     """Each node's ``ring0_size`` lowest-observed-RTT peers.
 
     Unobserved peers rank behind every observed one and self is never
     picked. Ties, and the all-unobserved cold start, break toward the
     current ring's members (a bonus of 1 under a score scaled by 4), then
-    toward the lower index, as ``jax.lax.top_k`` does."""
+    toward the lower index, as ``jax.lax.top_k`` does.
+
+    ``row_lo``: ``rtt`` and ``ring0`` are the rows of nodes ``row_lo``
+    on (one rank's shard under a mesh)."""
     n, k = ring0.shape
     score = rtt.to(torch.int32)  # 255 = unobserved
-    score.fill_diagonal_(1000)  # never pick self
-    bonus = torch.zeros((n, n), dtype=torch.int32, device=rtt.device)
+    rows = torch.arange(n, device=rtt.device)
+    score[rows, rows + row_lo] = 1000  # never pick self
+    bonus = torch.zeros(tuple(rtt.shape), dtype=torch.int32,
+                        device=rtt.device)
     bonus.scatter_(1, ring0.long(), 1)
     _, new_ring = top_k(-(score * 4 - bonus), k)
     return new_ring.to(torch.int32)

@@ -128,10 +128,12 @@ class SwimState:
 
 
 def make_swim_state(num_nodes: int, enabled: bool, narrow: bool,
-                    device) -> SwimState:
-    """The all-ALIVE plane; ``(1, 1)`` with SWIM off."""
+                    device, rows: int | None = None) -> SwimState:
+    """The all-ALIVE plane; ``(1, 1)`` with SWIM off. ``rows``: only
+    that many observers' rows (one rank's shard)."""
     n = num_nodes if enabled else 1
-    return SwimState(p=torch.zeros((n, n), dtype=belief_dtype(narrow),
+    r = rows if enabled and rows is not None else n
+    return SwimState(p=torch.zeros((r, n), dtype=belief_dtype(narrow),
                                    device=device))
 
 
@@ -151,7 +153,7 @@ def down_belief_matrix(sw, n: int) -> np.ndarray:
     return status >= DOWN
 
 
-def renew_membership(swim_state, wipe: torch.Tensor):
+def renew_membership(swim_state, wipe: torch.Tensor, row_lo: int = 0):
     """Crash-restart the masked nodes' membership state: each wiped
     node's belief row resets to the empty-DB state and its self entry
     comes back ALIVE at a bumped incarnation (saturating at the layout's
@@ -159,7 +161,9 @@ def renew_membership(swim_state, wipe: torch.Tensor):
     DOWN verdict re-admit it. The pre-wipe self-incarnation is read
     before the reset. Takes the full (N, N) plane (wide or narrow
     carrier) and the windowed member/belief state; ``wipe`` is an (N,)
-    bool mask, and untouched rows pass through unchanged."""
+    bool mask, and untouched rows pass through unchanged. ``row_lo``: the
+    full plane is one rank's rows, those of nodes ``row_lo`` on (the
+    windowed state is whole under a mesh)."""
     if hasattr(swim_state, "member"):  # windowed O(N·K) belief state
         belief = swim_state.belief
         lo = swim_layout(belief.dtype)
@@ -176,10 +180,13 @@ def renew_membership(swim_state, wipe: torch.Tensor):
                                    cursor=cursor)
     p = swim_state.p
     lo = swim_layout(p.dtype)
-    old_inc = p.diagonal() >> lo.inc_shift
+    rows = torch.arange(p.shape[0], device=p.device)
+    cols = rows + row_lo
+    wipe = wipe[row_lo:row_lo + p.shape[0]]
+    old_inc = p[rows, cols] >> lo.inc_shift
     renewed = torch.clamp(old_inc + 1, max=lo.inc_max) << lo.inc_shift
     p = torch.where(wipe[:, None], 0, p)
-    p.diagonal().copy_(torch.where(wipe, renewed, p.diagonal()))
+    p[rows, cols] = torch.where(wipe, renewed, p[rows, cols])
     return dataclasses.replace(swim_state, p=p)
 
 
@@ -203,32 +210,54 @@ def announce_round(cfg, round_idx: int) -> bool:
 
 
 def swim_step(cfg, swim: SwimState, key, alive: torch.Tensor, reachable,
-              round_idx: int):
+              round_idx: int, mesh=None):
     """One SWIM protocol round for every node; returns ``(swim,
     metrics)``. ``round_idx`` is the round number on the host;
-    ``reachable(src, dst)`` is the ground-truth link predicate."""
+    ``reachable(src, dst)`` is the ground-truth link predicate.
+
+    ``mesh``: ``swim.p`` is this rank's ``(N/D, N)`` rows. Draws keep
+    their global shapes and each rank takes its rows' share; a pull or
+    an announce fetches just the partners' rows
+    (:meth:`~corro_sim_torch.engine.sharding.Mesh.fetch_rows`), a push
+    routes each sender's row to the target's owner, and the diagonal
+    the bounded pull reads is all-gathered (N words)."""
     p = swim.p
     lo = swim_layout(p.dtype)
-    n = p.shape[0]
+    n = p.shape[1]
+    r0, r1 = (0, n) if mesh is None else mesh.bounds(n)
+    nl = r1 - r0
     dev = p.device
     rows = torch.arange(n, dtype=torch.int32, device=dev)
-    rows_l = rows.long()
+    me = rows[r0:r1]  # this rank's nodes
+    loc = torch.arange(nl, device=dev)  # their rows of p
+    alive_me = alive[r0:r1]
     k_tgt, k_ind, k_ex = prng.split(key, 3)
     rnd = round_idx & lo.since_mask
     zero = torch.zeros((), dtype=lo.dtype, device=dev)
 
+    def rows_of(idx):
+        """``p[idx]`` of the whole plane: this rank's rows, or fetched."""
+        if mesh is None:
+            return p[idx.long()]
+        return mesh.fetch_rows(p, idx)
+
+    def diagonal():
+        d = p[loc, me.long()]
+        return d if mesh is None else mesh.gather(d)
+
     # --- probe: one random target each ----------------------------------
-    tgt = prng.randint(k_tgt, (n,), 0, n, dev)
+    tgt = prng.randint(k_tgt, (n,), 0, n, dev)[r0:r1]
     tgt_l = tgt.long()
-    cur = p[rows_l, tgt_l]
+    cur = p[loc, tgt_l]
     cur_status = (cur >> lo.status_shift) & 3
-    probing = alive & (tgt != rows) & (cur_status < DOWN)
-    direct_ack = probing & alive[tgt_l] & reachable(rows, tgt)
-    inter = prng.randint(k_ind, (n, cfg.swim_indirect_probes), 0, n, dev)
+    probing = alive_me & (tgt != me) & (cur_status < DOWN)
+    direct_ack = probing & alive[tgt_l] & reachable(me, tgt)
+    inter = prng.randint(k_ind, (n, cfg.swim_indirect_probes), 0, n,
+                         dev)[r0:r1]
     ind_ok = (
         alive[inter.long()]
         & alive[tgt_l][:, None]
-        & reachable(rows[:, None], inter)
+        & reachable(me[:, None], inter)
         & reachable(inter, tgt[:, None])
     ).any(dim=1)
     acked = direct_ack | (probing & ind_ok)
@@ -244,14 +273,14 @@ def swim_step(cfg, swim: SwimState, key, alive: torch.Tensor, reachable,
     new_p = ((cur & lo.inc_only_mask) | (new_status << lo.status_shift)
              | new_since)
     p = p.clone()
-    p[rows_l, tgt_l] = torch.where(probing, new_p, cur)
+    p[loc, tgt_l] = torch.where(probing, new_p, cur)
 
     # --- suspicion timeout -> down --------------------------------------
     elapsed = (rnd - (p & lo.since_mask)) & lo.since_mask  # mod 2^k
     timed_out = (
         (_status(p) == SUSPECT)
         & (elapsed >= cfg.swim_suspect_rounds)
-        & alive[:, None]
+        & alive_me[:, None]
     )
     p = torch.where(timed_out, (p & lo.not_status_mask) | lo.down_key, p)
 
@@ -262,12 +291,16 @@ def swim_step(cfg, swim: SwimState, key, alive: torch.Tensor, reachable,
     # member columns at a per-sender phase (>= n: the full view), and
     # always its sender's own entry (the message header).
     bounded = cfg.swim_payload_members < n
+    cols = torch.arange(n, dtype=torch.int32, device=dev)
 
     def payload_block(key_b):
+        """Each sender's block phase, (N,); None with the full view."""
         if not bounded:
             return None
-        off = prng.randint(key_b, (n,), 0, n, dev)
-        cols = torch.arange(n, dtype=torch.int32, device=dev)
+        return prng.randint(key_b, (n,), 0, n, dev)
+
+    def block_rows(off):
+        """The block masks of the senders whose phases are ``off``."""
         return torch.remainder(cols[None, :] - off[:, None], n) < (
             cfg.swim_payload_members)
 
@@ -275,45 +308,61 @@ def swim_step(cfg, swim: SwimState, key, alive: torch.Tensor, reachable,
         kg_pull, kg_push, kg_bl1, kg_bl2 = prng.split(
             prng.fold_in(k_ex, SWIM_PEER_KEY_TAG_BASE + g), 4
         )
-        peer = prng.randint(kg_pull, (n,), 0, n, dev)
+        peer = prng.randint(kg_pull, (n,), 0, n, dev)[r0:r1]
         peer_l = peer.long()
         can1 = (
-            alive & alive[peer_l] & reachable(rows, peer) & (peer != rows)
-            & ((p[rows_l, peer_l] & lo.status_mask) < lo.down_key)
+            alive_me & alive[peer_l] & reachable(me, peer) & (peer != me)
+            & ((p[loc, peer_l] & lo.status_mask) < lo.down_key)
         )
         can = can1[:, None]
-        block = payload_block(kg_bl1)
-        if block is not None:
-            can = can & block[peer_l]  # the responder picks the contents
-        p = torch.where(can, torch.maximum(p, p[peer_l]), p)
-        if block is not None:
+        off = payload_block(kg_bl1)
+        if off is not None:
+            # the responder picks the contents
+            can = can & block_rows(off[peer_l])
+        p = torch.where(can, torch.maximum(p, rows_of(peer)), p)
+        if off is not None:
             # the sender's identity + incarnation ride every message
-            p[rows_l, peer_l] = torch.maximum(
-                p[rows_l, peer_l], torch.where(can1, p[peer_l, peer_l], zero)
+            p[loc, peer_l] = torch.maximum(
+                p[loc, peer_l], torch.where(can1, diagonal()[peer_l], zero)
             )
 
-        push_tgt = prng.randint(kg_push, (n,), 0, n, dev)
+        push_tgt = prng.randint(kg_push, (n,), 0, n, dev)[r0:r1]
         push_l = push_tgt.long()
         ok_push = (
-            alive & alive[push_l] & reachable(rows, push_tgt)
-            & (push_tgt != rows)
-            & ((p[rows_l, push_l] & lo.status_mask) < lo.down_key)
+            alive_me & alive[push_l] & reachable(me, push_tgt)
+            & (push_tgt != me)
+            & ((p[loc, push_l] & lo.status_mask) < lo.down_key)
         )
         send = ok_push[:, None]
-        block = payload_block(kg_bl2)
-        if block is not None:
-            send = send & block
+        off = payload_block(kg_bl2)
+        if off is not None:
+            send = send & block_rows(off[r0:r1])
         contrib = torch.where(send, p, zero)
-        if block is not None:
-            contrib.diagonal().copy_(torch.where(ok_push, p.diagonal(), zero))
+        if off is not None:
+            contrib[loc, me.long()] = torch.where(ok_push, p[loc, me.long()],
+                                                  zero)
         # zero is the identity of this max and every value is >= 0, so a
         # row whose sender may not push (all zeros) can land anywhere:
         # no lane is dropped, and the max is order-free (deterministic
         # under atomics too)
-        best = torch.zeros_like(p).index_reduce_(
-            0, push_l, contrib, "amax", include_self=True
-        )
-        p = torch.where(alive[:, None], torch.maximum(p, best), p)
+        if mesh is None:
+            best = torch.zeros_like(p).index_reduce_(
+                0, push_l, contrib, "amax", include_self=True
+            )
+        else:
+            # only rows that may push carry anything: route those to the
+            # targets' owners
+            sel = torch.nonzero(ok_push).reshape(-1)
+            owner = torch.div(push_l[sel], nl, rounding_mode="floor")
+            order = torch.argsort(owner, stable=True)
+            sel = sel[order]
+            _, got_tgt, got_rows = mesh.exchange(
+                torch.bincount(owner, minlength=mesh.nodes),
+                push_l[sel], contrib[sel])
+            best = torch.zeros_like(p).index_reduce_(
+                0, got_tgt - r0, got_rows, "amax", include_self=True
+            )
+        p = torch.where(alive_me[:, None], torch.maximum(p, best), p)
 
     # --- periodic announce (belief-independent) --------------------------
     if announce_round(cfg, round_idx):
@@ -323,30 +372,42 @@ def swim_step(cfg, swim: SwimState, key, alive: torch.Tensor, reachable,
         inv = torch.empty_like(perm)
         inv[perm.long()] = rows  # the stable argsort of a permutation
         for partner in (perm, inv):
+            partner = partner[r0:r1]
             part_l = partner.long()
-            can = (alive & alive[part_l] & reachable(rows, partner)
-                   & (partner != rows))[:, None]
-            p = torch.where(can, torch.maximum(p, p[part_l]), p)
+            can = (alive_me & alive[part_l] & reachable(me, partner)
+                   & (partner != me))[:, None]
+            p = torch.where(can, torch.maximum(p, rows_of(partner)), p)
 
     # --- refutation / identity renew -------------------------------------
-    self_p = p.diagonal()
-    need_refute = alive & ((self_p & lo.status_mask) > 0)
+    self_p = p[loc, me.long()]
+    need_refute = alive_me & ((self_p & lo.status_mask) > 0)
     inc_next = torch.clamp((self_p >> lo.inc_shift) + 1, max=lo.inc_max)
     refreshed = inc_next << lo.inc_shift  # ALIVE, since 0
-    p.diagonal().copy_(torch.where(need_refute, refreshed, self_p))
+    p[loc, me.long()] = torch.where(need_refute, refreshed, self_p)
 
     swim = SwimState(p=p)
-    return swim, plane_metrics(swim, alive, failed.sum(dtype=torch.int32))
+    failures = failed.sum(dtype=torch.int32)
+    if mesh is not None:
+        failures = mesh.reduce(failures)
+    return swim, plane_metrics(swim, alive, failures, mesh=mesh)
 
 
 def plane_metrics(swim: SwimState, alive: torch.Tensor,
-                  probe_failures: torch.Tensor) -> dict:
-    """Suspect and DOWN beliefs held by live nodes."""
+                  probe_failures: torch.Tensor, mesh=None) -> dict:
+    """Suspect and DOWN beliefs held by live nodes. ``mesh``: ``swim.p``
+    is this rank's rows; the counts are summed over the ranks."""
     status = _status(swim.p)
+    if mesh is not None:
+        r0, r1 = mesh.bounds(alive.shape[0])
+        alive = alive[r0:r1]
+    counts = torch.stack([
+        ((status == SUSPECT) & alive[:, None]).sum(dtype=torch.int32),
+        ((status == DOWN) & alive[:, None]).sum(dtype=torch.int32),
+    ])
+    if mesh is not None:
+        counts = mesh.reduce(counts)
     return {
-        "swim_suspects": ((status == SUSPECT) & alive[:, None]).sum(
-            dtype=torch.int32),
-        "swim_down": ((status == DOWN) & alive[:, None]).sum(
-            dtype=torch.int32),
+        "swim_suspects": counts[0],
+        "swim_down": counts[1],
         "swim_probe_failures": probe_failures,
     }

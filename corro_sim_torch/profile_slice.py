@@ -464,25 +464,32 @@ CONFIG7_RUN_ARGS = dict(max_rounds=2048, chunk=8, seed=0,
 
 
 def size_config7(device_bytes: int,
-                 nodes: int = CONFIG7_TARGET_NODES) -> tuple:
-    """``(nodes, reason)``: config 7's one-device sizing
-    (``benchmarks.py:986-1009``): one device's eighth of the ``nodes``
-    (100 000-node) target, then halved while the state plus ~3 dense (N,
-    8192) int32 sweep temporaries exceed 85 % of ``device_bytes``.
-    ``reason`` names the limit that bound (None when none did)."""
+                 nodes: int = CONFIG7_TARGET_NODES,
+                 devices: int = 1) -> tuple:
+    """``(nodes, reason)``: config 7's sizing on ``devices`` devices
+    (``benchmarks.py:986-1009``): their share of the ``nodes``
+    (100 000-node, 8-device) target, each device an eighth, then halved
+    while one device's state plus ~3 dense (N/D, 8192) int32 sweep
+    temporaries exceed 85 % of ``device_bytes``, then cut to a multiple
+    of ``devices``. ``reason`` names the limit that bound (None when
+    none did)."""
+    from corro_sim_torch.engine.sharding import state_bytes as mesh_bytes
+
     reason = None
-    share = max(nodes // 8, 1024)
+    share = max(nodes // 8, 1024) * devices
     if nodes > share:
         nodes = share
-        reason = ("weak-scaling share (1 device(s) run 1/8 of the "
-                  "8-device target)")
+        reason = (f"weak-scaling share ({devices} device(s) run "
+                  f"{devices}/8 of the 8-device target)")
     budget = int(0.85 * device_bytes)
-    while nodes > 1024:
-        if state_bytes(config7_config(nodes)) + 12 * nodes * 8192 <= budget:
+    while nodes > 1024 * devices:
+        _, per_dev = mesh_bytes(config7_config(nodes), sharded_over=devices,
+                                shard_log=True)
+        if per_dev + 12 * (nodes // devices) * 8192 <= budget:
             break
         nodes //= 2
         reason = "device memory budget"
-    return nodes, reason
+    return nodes - nodes % devices, reason
 
 
 # The whole-run digests of this slice's configurations at sizes the JAX
@@ -2260,11 +2267,11 @@ def _merge_bounds(cfg, device, workload=None, soak=None) -> list:
     works = []
     merge = sync_mod.merge_grouped
 
-    def counted(table, lanes, cap):
+    def counted(table, lanes, cap, mesh=None):
         n, r, c = table.cv.shape
         before = tuple(t.reshape(n, -1).clone() for t in
                        (table.cv, table.vr, table.site, table.cl))
-        out = merge(table, lanes, cap)
+        out = merge(table, lanes, cap, mesh=mesh)
         after = tuple(t.reshape(n, -1) for t in
                       (out.cv, out.vr, out.site, out.cl))
         valid = lanes[mk.LANE_VALID] != 0
@@ -2532,6 +2539,57 @@ def swim_churn(out_dir: str, sizes=tuple(SWIM_CHURN_PINS),
     return {"swim_churn": out}
 
 
+def mesh_bytes(cfg: SimConfig, d: int) -> dict:
+    """What one rank of a ``d``-rank mesh receives in one round of
+    ``cfg``, by source, from the shapes alone (on ``meta``; nothing runs):
+    the leaves the round gathers whole when it starts (each the whole leaf
+    less the rank's own slice), the column slices and lane results the
+    stages gather, and the rows a SWIM tick fetches. Bytes are upper
+    bounds where a stage sends only live rows (the SWIM push)."""
+    from corro_sim_torch.engine.sharding import (
+        Mesh,
+        gathered_bytes,
+        state_shardings,
+    )
+    from corro_sim_torch.engine.state import init_state
+
+    n, a = cfg.num_nodes, cfg.num_actors
+    mesh = Mesh(("nodes",), {"nodes": d}, {"nodes": 0}, None, "cpu")
+    st = init_state(cfg, seed=0, device="meta")
+    share = (d - 1) / d
+    leaves = {k: int(v * share) for k, v in gathered_bytes(
+        st, state_shardings(st, mesh, n, shard_log=cfg.shard_log)).items()}
+    s = cfg.seqs_per_version
+    e = min(cfg.emit_slots or cfg.pend_slots, cfg.pend_slots)
+    lanes = n * cfg.ring0_size * cfg.chunks_per_version + n * e * cfg.fanout
+    stages = {
+        "local_write change records (3 x (N, S) int32)":
+            int(3 * 4 * n * s * share),
+        "delivery outcomes (all_reduce of (M,) int32)": 4 * lanes,
+        "delivery exchange (buckets of 8 int32 per cell lane)":
+            int(32 * -(-lanes // d) * s * d * share),
+        "broadcast view bits ((N, E, fanout) bool)":
+            int(n * e * cfg.fanout * share) if cfg.swim_enabled else 0,
+        "sync: need-sample columns ((N, S_need) int32)":
+            int(4 * n * min(cfg.sync_need_sample, a) * share),
+        "sync: hot columns ((N, A') int32)":
+            int(4 * n * min(cfg.sync_hot_actors, a) * share)
+            if cfg.sync_hot_actors and not cfg.sync_deal_probes else 0,
+    }
+    if cfg.swim_enabled and cfg.swim_view_size == 0:
+        carrier = 4 if cfg.narrow_state else 8  # the port's carrier
+        rows = (n // d) * n * carrier
+        stages["SWIM tick: pulled rows (per gossip peer)"] = rows * (
+            cfg.swim_gossip_peers)
+        stages["SWIM tick: announce rows (two partners)"] = 2 * rows
+        stages["SWIM tick: pushed rows, at most"] = rows * (
+            cfg.swim_gossip_peers)
+        stages["SWIM tick: diagonal"] = int(carrier * n * share)
+    return {"nodes": n, "ranks": d, "gathered_leaves": leaves,
+            "gathered_leaves_total": sum(leaves.values()),
+            "stages": stages}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="bench_out")
@@ -2557,11 +2615,20 @@ def main(argv=None) -> dict:
                       help="the early read of the sweep gate against the "
                            "late read, PAIRS pairs on configs 0 and 6 at "
                            "10 000 nodes")
+    cell.add_argument("--mesh-bytes", type=int, metavar="RANKS",
+                      help="the bytes one rank of a RANKS-rank mesh "
+                           "receives per round of config 0 at 10 000 "
+                           "nodes, by leaf and stage (shapes only; no "
+                           "card needed)")
     cell.add_argument("--swim-churn", action="store_true",
                       help="config 0's churn soak at 1024, 2048 and 4096 "
                            "nodes through `soak --serial` and run_soak, "
                            "held to SWIM_CHURN_PINS")
     args = ap.parse_args(argv)
+    if args.mesh_bytes:
+        report = mesh_bytes(slice_config(swim=True), args.mesh_bytes)
+        print(json.dumps(report, indent=1))
+        return report
     if args.swim_churn:
         report = dict(swim_churn(args.out),
                       card=torch.cuda.get_device_name(0),

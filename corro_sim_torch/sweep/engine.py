@@ -195,13 +195,16 @@ class _Fleet:
     """What both loops share: the plan, the lanes' roots and first
     rounds, the checkers, and the one-lane chunk dispatch."""
 
-    def __init__(self, plan, chunk, scorecards, invariants, device):
+    def __init__(self, plan, chunk, scorecards, invariants, device,
+                 mesh=None):
         from corro_sim_torch.faults import (
             InvariantChecker,
             ResilienceScorecard,
         )
 
         self.plan = plan
+        # a lane group of several ranks: each lane's nodes over them
+        self.mesh = mesh if mesh is not None and mesh.nodes > 1 else None
         self.cfg = plan.union_cfg
         self.chunk = chunk
         self.dev = resolve_device(device)
@@ -236,7 +239,25 @@ class _Fleet:
         (a fork token's state starts at the fork's round)."""
         st = _lane_state(self.plan, self.plan.lanes[li], self.dev)
         self.round0[li] = int(st.round)
+        if self.mesh is not None:
+            from corro_sim_torch.engine.sharding import shard_state
+
+            st = shard_state(st, self.mesh, self.cfg.num_nodes,
+                             shard_log=self.cfg.shard_log)
         return st
+
+    def whole(self, state):
+        """A lane's state whole on the host of its lane group's first
+        rank, gathered from the group's ranks; None on the others."""
+        if self.mesh is None or state is None:
+            return state
+        from corro_sim_torch.engine.sharding import (
+            gather_state,
+            mesh_shardings,
+        )
+
+        return gather_state(state, self.mesh,
+                            mesh_shardings(self.cfg, self.mesh))
 
     def dispatch(self, li: int, ci: int, base: int, state) -> _LaneChunk:
         """Queue chunk ``ci`` (rounds from ``base``) of lane ``li`` on
@@ -262,13 +283,16 @@ class _Fleet:
                 self.round0[li] + base + r,
                 writes=None if staged is None else tuple(
                     x[r] for x in staged),
-                quiesced=quiesced[r], knobs=lane.knobs,
+                quiesced=quiesced[r], knobs=lane.knobs, mesh=self.mesh,
             )
             per_round.append(m)
         i_s, f_s, ikeys = pack_metrics(per_round)
+        # the checkers read on the lane group's first rank
+        full = self.whole(st) if self.armed else None
         return _LaneChunk(
             state_out=st, fetch=start_async_fetch(i_s, f_s), ikeys=ikeys,
-            boundary=_boundary_fetch(cfg, st) if self.armed else None,
+            boundary=(_boundary_fetch(cfg, full) if full is not None
+                      else None),
             alive=alive, part=part,
         )
 
@@ -277,7 +301,7 @@ class _Fleet:
         ``"poisoned"``, ``("converged", round)`` or None."""
         lane = self.plan.lanes[li]
         card, check = self.cards[li], self.checks[li]
-        if self.armed:
+        if lc.boundary is not None:
             view = _boundary_view(lc.boundary)
             if card is not None:
                 card.on_chunk(view, m, lc.alive, lc.part, base)
@@ -289,10 +313,13 @@ class _Fleet:
         if conv is None:
             return None
         a, p = lc.alive[-1], lc.part[-1]
-        if card is not None:
-            card.on_converged(lc.state_out, a, p)
-        if check is not None:
-            check.on_converged(lc.state_out, a, p)
+        final = None
+        if card is not None or check is not None:
+            final = self.whole(lc.state_out)
+        if card is not None and final is not None:
+            card.on_converged(final, a, p)
+        if check is not None and final is not None:
+            check.on_converged(final, a, p)
         return ("converged", conv)
 
     def sweeps(self) -> dict:
@@ -303,10 +330,12 @@ class _Fleet:
                 "sweeps_run": g["host_on"] + g["read_on"]}
 
     def results(self, lane_metrics, converged, poisoned, lane_rounds,
-                final_states, max_rounds) -> list:
+                final_states, max_rounds, owned=None) -> list:
         plan = self.plan
         out = []
         for li, lane in enumerate(plan.lanes):
+            if owned is not None and not owned[li]:
+                continue
             metrics = (
                 {k: np.concatenate([c[k] for c in lane_metrics[li]])
                  for k in lane_metrics[li][0]}
@@ -367,6 +396,61 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _lane_block(num_lanes: int, mesh):
+    """``(owned, total)``: which lanes this rank races (a contiguous
+    block over the ``"sweep"`` axis, shared by its lane group's ranks;
+    all of them off a mesh), and a function that sums host ints over the
+    lane groups (a tuple, one sum per argument; each group counts
+    once)."""
+    owned = np.ones(num_lanes, bool)
+    if mesh is None:
+        return owned, lambda *xs: xs
+    s = mesh.shape["sweep"]
+    if num_lanes % s:
+        raise ValueError(f"{num_lanes} lanes do not split over {s} ranks")
+    per = num_lanes // s
+    me = mesh.coords["sweep"]
+    owned[:] = False
+    owned[me * per:(me + 1) * per] = True
+    group = _sweep_group(mesh)
+    first = mesh.coords["nodes"] == 0  # the lane group's voice
+
+    def total(*xs):
+        t = torch.tensor(xs if first else [0] * len(xs),
+                         dtype=torch.int64, device=mesh.device)
+        torch.distributed.all_reduce(t, group=group)
+        return tuple(int(v) for v in t.tolist())
+
+    return owned, total
+
+
+def _sweep_group(mesh):
+    """The process group of every rank of the mesh."""
+    if len(mesh.ranks) == torch.distributed.get_world_size():
+        return torch.distributed.group.WORLD
+    return mesh.sweep_group
+
+
+def _gather_lanes(results: list, mesh) -> list:
+    """Every rank's lane results, in plan order, on every rank (states
+    on the host)."""
+    for r in results:
+        if r.state is not None:
+            r.state = _to_host(r.state)
+    parts = [None] * len(mesh.ranks)
+    torch.distributed.all_gather_object(
+        parts, results if mesh.coords["nodes"] == 0 else [],
+        group=_sweep_group(mesh))
+    return sorted((r for part in parts for r in part),
+                  key=lambda r: r.index)
+
+
+def _to_host(state):
+    from corro_sim_torch.engine.state import _map_tensors
+
+    return _map_tensors(state, lambda t: t.detach().cpu())
+
+
 def run_sweep(
     plan,
     max_rounds: int = 4096,
@@ -393,14 +477,24 @@ def run_sweep(
     ``pipeline``: queue chunk N+1 before chunk N's metrics are read.
     Both keep every lane bit-identical to its serial twin.
 
-    ``mesh``: not ported — the lane axis across devices is ROADMAP.md
-    queue 1's multi-device item."""
+    ``mesh``: a :func:`~corro_sim_torch.engine.sharding.make_sweep_mesh`
+    mesh; call ``run_sweep`` on every rank. The lanes go in contiguous
+    blocks over the ``"sweep"`` axis and each lane group races its
+    block, its lanes' nodes sharded over the group's ``"nodes"`` ranks
+    (``sim_step(mesh=)``) when ``node_shards`` > 1, in lockstep with the
+    others: every chunk's lane counts are summed over the groups, so the
+    dispatch count and the occupancy books are the unsharded sweep's.
+    Every rank returns the whole result, its lanes in plan order,
+    ``devices`` the mesh size; a rank outside the mesh returns None.
+    Compaction and the pipeline refuse a mesh (``check_compact_mesh``)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "run_sweep(mesh=...) is not ported: a sweep over several "
-            "devices waits for ROADMAP.md queue 1's multi-device item "
-            "(engine/sharding.py on torch.distributed)"
-        )
+        from corro_sim_torch.engine.sharding import check_compact_mesh
+
+        if compact or pipeline:
+            check_compact_mesh(mesh)
+        if mesh.coords is None:
+            return None
+        device = mesh.device
     if compact or pipeline:
         return _run_compact(
             plan, max_rounds=max_rounds, chunk=chunk,
@@ -408,12 +502,13 @@ def run_sweep(
             on_chunk=on_chunk, compact=compact, width=width,
             pipeline=pipeline, device=device,
         )
-    fleet = _Fleet(plan, chunk, scorecards, invariants, device)
+    fleet = _Fleet(plan, chunk, scorecards, invariants, device, mesh=mesh)
     lanes = plan.lanes
     L = len(lanes)
-    states = [fleet.fresh(li) for li in range(L)]
+    owned, total = _lane_block(L, mesh)
+    states = [fleet.fresh(li) if owned[li] else None for li in range(L)]
 
-    active = np.ones(L, bool)
+    active = owned.copy()
     converged: list = [None] * L
     poisoned = [False] * L
     lane_rounds = [0] * L
@@ -425,9 +520,10 @@ def run_sweep(
     ci = 0
     occupancy: list[dict] = []
     wasted_total = 0
-    while active.any() and rounds < max_rounds:
-        pre_active = int(active.sum())
-        pre_poisoned = sum(poisoned)
+    while rounds < max_rounds:
+        pre_active, pre_poisoned = total(int(active.sum()), sum(poisoned))
+        if not pre_active:
+            break
         racing = [li for li in range(L) if active[li]]
         t0 = time.perf_counter()
         with tracer.span("sweep chunk", ci=ci, lanes=pre_active,
@@ -473,10 +569,12 @@ def run_sweep(
             "lanes_poisoned": pre_poisoned,
             "wasted_lane_rounds": wasted,
         })
-        n_active = int(active.sum())
-        n_poisoned = sum(poisoned)
+        n_active, n_poisoned = total(int(active.sum()), sum(poisoned))
         n_converged = L - n_active - n_poisoned
         _publish_gauges(n_active, n_converged, n_poisoned)
+        codes = total(*(
+            (1 if active[li] else (2 if poisoned[li] else 3))
+            if owned[li] else 0 for li in range(L)))
         progress = {
             "chunk": ci,
             "rounds_done": rounds,
@@ -486,10 +584,7 @@ def run_sweep(
             "lanes_poisoned": n_poisoned,
             "wasted_lane_rounds_total": wasted_total,
             # one char per lane: A racing, C converged, P poisoned
-            "lane_states": "".join(
-                "A" if active[li] else ("P" if poisoned[li] else "C")
-                for li in range(L)
-            ),
+            "lane_states": "".join(" APC"[c] for c in codes),
             "chunk_wall_s": round(elapsed, 3),
         }
         publish_sweep_progress({"lanes": L, "dispatches": ci + 1,
@@ -506,8 +601,14 @@ def run_sweep(
     for li in range(L):
         if final_states[li] is None:  # round budget spent unsettled
             final_states[li] = states[li]
+        final_states[li] = fleet.whole(final_states[li])
     results = fleet.results(lane_metrics, converged, poisoned, lane_rounds,
-                            final_states, max_rounds)
+                            final_states, max_rounds, owned=owned)
+    gates = fleet.sweeps()
+    if mesh is not None:
+        results = _gather_lanes(results, mesh)
+        converged = [r.converged_round for r in results]
+        poisoned = [r.poisoned for r in results]
     n_poisoned = sum(poisoned)
     n_converged = sum(1 for li in range(L)
                       if converged[li] is not None and not poisoned[li])
@@ -530,9 +631,11 @@ def run_sweep(
     })
     return SweepResult(
         lanes=results, rounds=rounds, dispatches=dispatches,
-        wall_seconds=wall, compile_seconds=fleet.setup_seconds, devices=1,
+        wall_seconds=wall, compile_seconds=fleet.setup_seconds,
+        devices=1 if mesh is None else mesh.size,
         compile_cache=fleet.cache_probe.summary(),
-        chunk=chunk, occupancy=occupancy, sweeps=fleet.sweeps(),
+        chunk=chunk, occupancy=occupancy,
+        sweeps=dict(zip(gates, total(*gates.values()))),
     )
 
 

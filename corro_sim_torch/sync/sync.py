@@ -24,7 +24,11 @@ import torch
 
 from corro_sim_torch import prng
 from corro_sim_torch.core.bookkeeping import Bookkeeping, advance_heads
-from corro_sim_torch.core.changelog import ChangeLog, gather_changesets
+from corro_sim_torch.core.changelog import (
+    ChangeLog,
+    fetch_changesets,
+    gather_changesets,
+)
 from corro_sim_torch.core.crdt import NEG, TableState, apply_cell_changes
 from corro_sim_torch.core.merge_kernel import kernel_supported, merge_grouped
 from corro_sim_torch.utils.bits import WINDOW_BITS
@@ -32,15 +36,28 @@ from corro_sim_torch.utils.slots import ranks_within_group
 from corro_sim_torch.utils.sort import lexsort, scatter_max, top_k
 
 
+def _pair_read(plane, rows, cols):
+    """``plane[rows, cols]`` of a plane or a reader callable (a mesh's
+    :meth:`~corro_sim_torch.engine.sharding.Mesh.row_lookup`)."""
+    if callable(plane):
+        return plane(rows, cols)
+    return plane[rows.long(), cols.long()]
+
+
 def choose_sync_peers(cfg, book: Bookkeeping, key, alive, view_alive,
-                      reachable, rtt=None):
+                      reachable, rtt=None, mesh=None):
     """Pick up to ``resolved_sync_peers`` peers per node and enforce the
     server-side semaphore across every request of the sweep. Candidates
     rank by sampled need, then, with ``rtt`` (the ``(N, N)`` observed
     edge delays), by lower delay (``handlers.rs:1018-1042``).
 
+    ``reachable``, ``view_alive`` and ``rtt`` may be ``(rows, cols)``
+    readers. ``mesh``: ``book`` is this rank's rows; the sampled
+    ``(N/D, S)`` head columns are all-gathered.
+
     Returns ``(peer, granted, requested)``, each ``(N, P)``."""
-    n, a = book.head.shape
+    n = alive.shape[0]
+    a = book.head.shape[1]
     dev = book.head.device
     p_cnt = cfg.resolved_sync_peers
     k_cand, k_samp, k_adm = prng.split(key, 3)
@@ -53,6 +70,8 @@ def choose_sync_peers(cfg, book: Bookkeeping, key, alive, view_alive,
     )
     cand_l = cand.long()
     head_s = book.head[:, samp.long()]  # (N, S)
+    if mesh is not None:
+        head_s = mesh.gather(head_s)
     need = torch.clamp(
         head_s[cand_l] - head_s[:, None, :], min=0
     ).sum(dim=-1, dtype=torch.int32)  # (N, C)
@@ -71,8 +90,8 @@ def choose_sync_peers(cfg, book: Bookkeeping, key, alive, view_alive,
     ok = believed & (cand != rows[:, None]) & ~dup.any(dim=2)
     if rtt is not None:
         # need * 64 + (63 - rtt): need dominates, close peers win ties
-        rtt_c = torch.clamp(rtt[rows.long()[:, None], cand_l].to(
-            torch.int32), max=63)
+        rtt_c = torch.clamp(_pair_read(
+            rtt, rows[:, None].expand(n, c), cand).to(torch.int32), max=63)
         score = torch.clamp(need, max=1 << 24) * 64 + (63 - rtt_c)
     else:
         score = need
@@ -83,7 +102,9 @@ def choose_sync_peers(cfg, book: Bookkeeping, key, alive, view_alive,
     valid_slot = topv >= 0
 
     peer_l = peer.long()
-    if reachable.shape[0] == 1:
+    if callable(reachable):
+        link = reachable(rows[:, None].expand(peer.shape), peer)
+    elif reachable.shape[0] == 1:
         link = reachable[0][peer_l]
     else:
         link = reachable[rows.long()[:, None], peer_l]
@@ -181,7 +202,7 @@ def _rank_within_slot(slot: torch.Tensor) -> torch.Tensor:
 
 
 def _legacy_schedule(cfg, book, log, peer, granted, phase, round_idx, kp,
-                     kprime):
+                     kprime, mesh=None):
     """The full-actor-axis request schedule (``sync_hot_actors == 0``).
 
     1. Each node selects up to K' actors it still needs (its bookkeeping
@@ -194,7 +215,15 @@ def _legacy_schedule(cfg, book, log, peer, granted, phase, round_idx, kp,
        (``cfg.sync_deal_probes``) or the exact argmax.
 
     Returns ``(topa, slot, topv, lane_ok, within_budget)``, each (N, K').
-    (``round_idx`` is the dense schedule's; this one does not read it.)"""
+    (``round_idx`` is the dense schedule's; this one does not read it.)
+    ``mesh``: ``book``, ``peer`` and ``granted`` are this rank's rows;
+    the peers' heads are fetched from their owners."""
+
+    def peer_head(prow, acol):
+        if mesh is None:
+            return book.head[prow.long(), acol.long()]
+        return mesh.fetch_elems(book.head, prow, acol)
+
     n, a = book.head.shape
     p_cnt = peer.shape[1]
     my_need = torch.clamp(log.head[None, :] - book.head, min=0)  # (N, A)
@@ -231,8 +260,7 @@ def _legacy_schedule(cfg, book, log, peer, granted, phase, round_idx, kp,
                 slot_i, max=p_cnt - 1).long())
             tv_i = torch.where(
                 slot_i < p_cnt,
-                torch.clamp(book.head[peer_i.long(), topa_l] - my_head,
-                            min=0),
+                torch.clamp(peer_head(peer_i, topa_l) - my_head, min=0),
                 0,
             )
             slot = torch.where(tv_i > topv, slot_i, slot)
@@ -243,7 +271,8 @@ def _legacy_schedule(cfg, book, log, peer, granted, phase, round_idx, kp,
         # exact argmax: what each granted peer can serve of each requested
         # actor, (N, P, K'), then the furthest-ahead assignment; dead
         # lanes get the sentinel slot P, their own budget group
-        ph = book.head[peer.long()[:, :, None], topa_l[:, None, :]]
+        ph = peer_head(peer[:, :, None].expand(n, p_cnt, kprime),
+                       topa_l[:, None, :].expand(n, p_cnt, kprime))
         delta_p = torch.clamp(ph - my_head[:, None, :], min=0)
         delta_p = torch.where(granted[:, :, None], delta_p, 0)
         slot, topv = choose_serving_slots(delta_p, topa, phase)
@@ -253,16 +282,22 @@ def _legacy_schedule(cfg, book, log, peer, granted, phase, round_idx, kp,
 
 
 def _hot_schedule(cfg, book, log, peer, granted, phase, round_idx, kp,
-                  kprime):
+                  kprime, mesh=None):
     """The dense hot-actor schedule: compact the actor axis to the actors
     anyone could need, then run needs, capability and the serving
     assignment as dense work over (N, P, A'). Returns ``(topa, slot,
-    topv, lane_ok, within_budget)``, each (N, K')."""
+    topv, lane_ok, within_budget)``, each (N, K').
+
+    ``mesh``: ``book``, ``peer`` and ``granted`` are this rank's rows;
+    the column minimum is reduced over the ranks and the ``(N/D, A')``
+    hot columns are all-gathered for the peers' reads."""
     n, a = book.head.shape
     p_cnt = peer.shape[1]
     dev = book.head.device
     ahot = min(cfg.sync_hot_actors, a)
     min_head = book.head.min(dim=0).values
+    if mesh is not None:
+        min_head = mesh.reduce(min_head, "min")
     hot_mask = log.head > min_head
     hot_cs = torch.cumsum(hot_mask.to(torch.int32), 0).to(torch.int32)
     total_hot = hot_cs[-1]
@@ -278,7 +313,8 @@ def _hot_schedule(cfg, book, log, peer, granted, phase, round_idx, kp,
     hot_idx = torch.where(hot_ok, hpos, 0).clamp(0, a - 1)  # (A',) int64
 
     head_hot = book.head[:, hot_idx]  # (N, A')
-    ph_hot = head_hot[peer.long()]  # (N, P, A')
+    all_hot = head_hot if mesh is None else mesh.gather(head_hot)
+    ph_hot = all_hot[peer.long()]  # (N, P, A')
     delta_p = torch.clamp(ph_hot - head_hot[:, None, :], min=0)
     delta_p = torch.where(
         granted[:, :, None] & hot_ok[None, None, :], delta_p, 0
@@ -306,7 +342,7 @@ def _hot_schedule(cfg, book, log, peer, granted, phase, round_idx, kp,
 def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
                hlc, last_cleared, cleared_hlc, key, alive, view_alive,
                reachable, rtt=None, round_idx=0, fault_key=None,
-               fault_cfg=None):
+               fault_cfg=None, mesh=None):
     """One anti-entropy sweep (multi-peer).
 
     Returns ``(book, table, hlc, last_cleared, metrics)``. On the mailbox
@@ -325,12 +361,26 @@ def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
 
     ``fault_cfg``: a sweep lane's fault knobs
     (:class:`~corro_sim_torch.faults.inject.LaneFaultKnobs`) in place of
-    ``cfg.faults``; None off the sweep."""
-    n, a = book.head.shape
+    ``cfg.faults``; None off the sweep.
+
+    ``mesh``: a :class:`~corro_sim_torch.engine.sharding.Mesh`. ``book``,
+    ``table``, ``rtt`` and ``cleared_hlc`` are this rank's rows (the log
+    its actor shard under ``shard_log``); ``hlc`` and ``last_cleared``
+    whole. The peer choice and the clock exchange run whole on every
+    rank; each rank schedules, gathers and merges its own nodes' requests
+    (the mailbox is node-major, so the merge needs no collective), and
+    the counts are summed over the ranks."""
+    n = alive.shape[0]
+    a = book.head.shape[1]
     dev = book.head.device
+    r0, r1 = (0, n) if mesh is None else mesh.bounds(n)
+    nl = r1 - r0
     k_peer, k_phase = prng.split(key)
+    rtt_read = rtt
+    if mesh is not None and rtt is not None:
+        rtt_read = mesh.row_lookup(rtt)
     peer, granted, requested = choose_sync_peers(
-        cfg, book, k_peer, alive, view_alive, reachable, rtt
+        cfg, book, k_peer, alive, view_alive, reachable, rtt_read, mesh=mesh
     )
     p_cnt = peer.shape[1]
     rejected = requested & ~granted
@@ -350,6 +400,7 @@ def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
             dtype=torch.int32)
         granted = granted & keep
     peer_l = peer.long()
+    granted_all = granted
 
     # clock exchange, both directions (api/peer.rs:1074-1126,1502-1521)
     client_merge = hlc
@@ -369,8 +420,8 @@ def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
     bpv = cfg.chunks_per_version
     vwin = WINDOW_BITS // bpv
     group_mask = (1 << bpv) - 1
-    rows = torch.arange(n, dtype=torch.int32, device=dev)
-    rows_l = rows.long()
+    rows = torch.arange(n, dtype=torch.int32, device=dev)[r0:r1]
+    rows_l = torch.arange(nl, device=dev)  # this rank's rows of the book
     s = log.seqs
     offs = torch.arange(1, cap + 1, dtype=torch.int32, device=dev)
 
@@ -380,8 +431,11 @@ def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
     schedule = (_hot_schedule
                 if cfg.sync_hot_actors > 0 and not cfg.sync_deal_probes
                 else _legacy_schedule)
+    peer, granted = peer[r0:r1], granted[r0:r1]
+    peer_l = peer.long()
     topa, slot, topv, lane_ok, within_budget = schedule(
-        cfg, book, log, peer, granted, phase, round_idx, kp, kprime)
+        cfg, book, log, peer, granted, phase, round_idx, kp, kprime,
+        mesh=mesh)
 
     # adaptive chunk sizing (peer.rs:345-349): a slow connection serves
     # halved per-actor caps, floored at 1; an unobserved edge (255)
@@ -413,13 +467,18 @@ def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
     dst_l = rows[:, None, None].expand(ver.shape).reshape(-1)
 
     g_actor_l = torch.where(valid_l, actor_l, 0)
-    row, col, vr, cv, cl, ncells = gather_changesets(
-        log, g_actor_l, torch.clamp(ver_l, min=1)
-    )
-    m = dst_l.shape[0]
-    # cleared versions are served as empties (api/peer.rs:716-758)
     g_slot_l = (torch.clamp(ver_l, min=1) - 1) % log.capacity
-    cleared_l = log.cleared[g_actor_l.long(), g_slot_l.long()]
+    if mesh is not None and log.cells.shape[0] != log.head.shape[0]:
+        # actor-sharded log: the served versions come from their owners
+        row, col, vr, cv, cl, ncells, cleared_l = fetch_changesets(
+            log, mesh, g_actor_l, torch.clamp(ver_l, min=1))
+    else:
+        row, col, vr, cv, cl, ncells = gather_changesets(
+            log, g_actor_l, torch.clamp(ver_l, min=1)
+        )
+        # cleared versions are served as empties (api/peer.rs:716-758)
+        cleared_l = log.cleared[g_actor_l.long(), g_slot_l.long()]
+    m = dst_l.shape[0]
     seq = torch.arange(s, dtype=torch.int32, device=dev)
     cell_live = (
         valid_l[:, None] & ~cleared_l[:, None] & (seq[None, :] < ncells[:, None])
@@ -446,7 +505,7 @@ def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
         pad = (-lanes_per_node) % 128
 
         def node_major(x):
-            v = x.reshape(n, lanes_per_node).to(torch.int32)
+            v = x.reshape(nl, lanes_per_node).to(torch.int32)
             if pad:
                 v = torch.nn.functional.pad(v, (0, pad))
             return v.reshape(-1)
@@ -456,10 +515,11 @@ def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
             node_major(vr), node_major(site_l), node_major(cl),
             node_major(cell_live),
         ])
-        table = merge_grouped(table, box, lanes_per_node + pad)
+        box_cap = lanes_per_node + pad
+        table = merge_grouped(table, box, box_cap, mesh=mesh)
     else:
         table = apply_cell_changes(
-            table, dst_l[:, None].expand(m, s).reshape(-1),
+            table, (dst_l - r0)[:, None].expand(m, s).reshape(-1),
             row.reshape(-1), col.reshape(-1), cv.reshape(-1),
             vr.reshape(-1), site_l.reshape(-1), cl.reshape(-1),
             cell_live.reshape(-1),
@@ -478,23 +538,30 @@ def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
     for o in range(min(cap, vwin)):
         g = (win_k >> (o * bpv)) & group_mask
         already = already + ((g == group_mask) & (o < take)).to(torch.int32)
-    new_versions = (take - already).sum(dtype=torch.int32)
-    empties = (valid_l & cleared_l).sum(dtype=torch.int32)
-
-    last_cleared = scatter_max(
-        last_cleared, (dst_l,),
-        cleared_hlc[g_actor_l.long(), g_slot_l.long()], valid_l & cleared_l,
-    )
+    emptied = valid_l & cleared_l
+    counts = torch.stack([
+        (take - already).sum(dtype=torch.int32),
+        emptied.sum(dtype=torch.int32),
+        shipped.sum(dtype=torch.int32),
+    ])
+    if mesh is None:
+        stamp = cleared_hlc[g_actor_l.long(), g_slot_l.long()]
+    else:
+        counts = mesh.reduce(counts)
+        stamp = mesh.fetch_elems(cleared_hlc, g_actor_l, g_slot_l)
+    last_cleared = scatter_max(last_cleared, (dst_l,), stamp, emptied)
+    if mesh is not None:
+        last_cleared = mesh.reduce(last_cleared, "max")
 
     book = advance_heads(book, floor, bpv)
 
     metrics = {
-        "sync_pairs": granted.sum(dtype=torch.int32),
+        "sync_pairs": granted_all.sum(dtype=torch.int32),
         "sync_requests": requested.sum(dtype=torch.int32),
         "sync_rejections": rejected.sum(dtype=torch.int32),
-        "sync_versions": new_versions,
-        "sync_empties": empties,
-        "sync_cells": shipped.sum(dtype=torch.int32),
+        "sync_versions": counts[0],
+        "sync_empties": counts[1],
+        "sync_cells": counts[2],
         **fault_metrics,
     }
     return book, table, hlc, last_cleared, metrics

@@ -241,10 +241,78 @@ def test_assert_workload_vacuous_at_its_default_shape(monkeypatch):
 
 WAITING_ARGV = {
     "lint": ["lint"], "audit": ["audit"],
-    "run --mesh": ["run", "--mesh"],
-    "sweep --mesh": ["sweep", "scenario=lossy", "--mesh"],
     "run --transfer-guard": ["run", "--transfer-guard"],
 }
+
+
+def port_mesh_cli(argv, ranks=8) -> tuple:
+    """The port's command with ``--mesh`` over ``ranks`` gloo ranks, in a
+    child process (the ranks print through its stdout): exit code and
+    the JSON report."""
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               CORRO_SIM_MESH_RANKS=str(ranks))
+    r = subprocess.run(
+        [sys.executable, "-m", "corro_sim_torch", "--device", "cpu", *argv,
+         "--mesh"], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=600)
+    return r.returncode, (json.loads(r.stdout) if r.stdout.strip()
+                          else r.stderr)
+
+
+def _sharding_equal(ref, got):
+    """The sharding block key for key: equal values but the per-component
+    byte counts, where the port's widened carriers differ
+    (``convert.WIDENED``) and the placements must agree."""
+    ref, got = dict(ref), dict(got)
+    rb, gb = ref.pop("state_bytes"), got.pop("state_bytes")
+    assert got == ref
+    assert sorted(gb) == sorted(rb)
+    for comp in rb:
+        assert sorted(gb[comp]) == sorted(rb[comp])
+        assert gb[comp]["placement"] == rb[comp]["placement"], comp
+
+
+def test_run_mesh_report_equals_the_reference():
+    """``run --mesh`` on 8 gloo ranks prints the JAX package's 8-device
+    report key for key (wall-clock fields masked; the sharding block's
+    byte counts by key and placement)."""
+    argv = ["run", *SMALL, "--write-rounds", "8", "--chunk", "8",
+            "--seed", "1", "--shard-log", "on"]
+    rrc, ref = run_cli(r_cli.main, argv + ["--mesh"])
+    prc, got = port_mesh_cli(argv)
+    assert prc == rrc == 0, got
+    assert ref["sharding"]["devices"] == got["sharding"]["devices"] == 8
+    _sharding_equal(ref.pop("sharding"), got.pop("sharding"))
+    assert masked(got) == masked(ref)
+
+
+def test_sweep_mesh_report_equals_the_reference():
+    """``sweep --mesh``: the lanes over the ranks, the report the JAX
+    package's (its ``devices`` the mesh's size)."""
+    argv = ["sweep", "scenario=lossy:p=0.2", "seed=0,1", "--nodes", "12",
+            "--rows", "16", "--cols", "2", "--log-capacity", "64",
+            "--rounds", "24", "--write-rounds", "8", "--chunk", "8"]
+    rrc, ref = run_cli(r_cli.main, argv + ["--mesh"])
+    prc, got = port_mesh_cli(argv)
+    assert prc == rrc
+    assert got["devices"] == ref["devices"] == 2
+    for r in (ref, got):  # the sweep's wall and the rate made from it
+        r.pop("wall_seconds"), r.pop("clusters_per_second_per_device")
+    assert masked(got) == masked(ref)
+
+
+def test_mesh_refused_with_one_visible_device(capsys, monkeypatch):
+    """One visible device: exit 2 with the JAX package's message, its
+    hint naming the port's CPU rank count."""
+    monkeypatch.delenv("CORRO_SIM_MESH_RANKS", raising=False)
+    for argv in (["run"], ["sweep", "scenario=lossy"]):
+        rc = p_cli.main(["--device", "cpu", *argv, "--mesh"])
+        assert rc == 2
+        out, err = capsys.readouterr()
+        assert out == ""
+        assert err.startswith(
+            "error: --mesh needs >1 visible device (force a CPU mesh with ")
+        assert "CORRO_SIM_MESH_RANKS" in err
 
 
 @pytest.mark.parametrize("what", sorted(WAITING_ARGV))

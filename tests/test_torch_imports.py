@@ -60,6 +60,7 @@ def test_port_imports_without_jax():
         " 'corro_sim_torch.client', 'corro_sim_torch.admin',"
         " 'corro_sim_torch.workload.harness',"
         " 'corro_sim_torch.engine.sharding', 'corro_sim_torch.io.config_file',"
+        " 'corro_sim_torch.engine.ranks', 'corro_sim_torch.engine.mesh_jobs',"
         " 'corro_sim_torch.membership.bootstrap',"
         " 'corro_sim_torch.harness.devcluster', 'corro_sim_torch.tls',"
         " 'corro_sim_torch.tpl', 'corro_sim_torch.integrations',"
@@ -216,9 +217,10 @@ def test_serving_entry_points_refuse_without_cuda():
     dict(sweep=pconfig.SweepConfig(lanes=2)),
 ])
 def test_unported_features_are_refused(change):
-    """The sweep's union config runs on one device; what is left of it,
-    the lane axis over a device mesh, is refused naming its ROADMAP
-    queue 1 item."""
+    """The sweep's union config runs on one device and over a device
+    mesh, its lanes and their nodes sharded; what a mesh still refuses,
+    by design, is the compacted dispatch, with its reason."""
+    from corro_sim_torch.engine.sharding import Mesh
     from corro_sim_torch.sweep import build_plan
     from corro_sim_torch.sweep.engine import run_sweep
 
@@ -226,8 +228,10 @@ def test_unported_features_are_refused(change):
     assert pconfig.validate_torch_slice(cfg) is cfg
     plan = build_plan(_small_cfg(), ["lossy:p=0.1"], [0], rounds=16,
                       write_rounds=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP|queue 1"):
-        run_sweep(plan, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="power-of-2 buckets"):
+        run_sweep(plan, device="cpu", compact=True, mesh=Mesh(
+            ("sweep", "nodes"), {"sweep": 1, "nodes": 2},
+            {"sweep": 0, "nodes": 0}, None, "cpu"))
 
 
 def test_serving_entry_points_refuse_without_cuda():

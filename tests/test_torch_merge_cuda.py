@@ -236,7 +236,7 @@ def test_cuda_kernel_on_a_crash_amnesia_catch_up_mailbox(dev, monkeypatch):
         now["round"] = round_idx
         return real_step(cfg, state, key, alive, part, we, round_idx, **kw)
 
-    def merge(table, box, cap):
+    def merge(table, box, cap, mesh=None):
         if not captured and now["round"] >= rejoin:
             victims = torch.as_tensor(nodes_down, device=box.device)
             lanes = box[mk.LANE_VALID].view(n, cap)[victims]
@@ -245,7 +245,7 @@ def test_cuda_kernel_on_a_crash_amnesia_catch_up_mailbox(dev, monkeypatch):
                     cv=table.cv.clone(), vr=table.vr.clone(),
                     site=table.site.clone(), cl=table.cl.clone()),
                     box.clone(), cap))
-        return real_merge(table, box, cap)
+        return real_merge(table, box, cap, mesh=mesh)
 
     from corro_sim_torch.faults import make_scenario
 

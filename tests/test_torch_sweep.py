@@ -356,7 +356,16 @@ def test_knob_axis_lands_in_lane_config_and_repro():
 
 
 def test_mesh_is_refused_naming_the_multi_device_item():
+    """The lane axis and each lane's nodes over a mesh are ported
+    (tests/test_torch_mesh.py); what a mesh still refuses, by design, is
+    the compacted or pipelined dispatch, whose lane widths change at
+    re-pack boundaries."""
+    from corro_sim_torch.engine.sharding import Mesh
+
     plan = build_plan(BASE, ["lossy:p=0.1"], [0], rounds=48,
                       write_rounds=8)
-    with pytest.raises(NotImplementedError, match="queue 1.*multi-device"):
-        run_sweep(plan, mesh=object(), device="cpu")
+    mesh = Mesh(("sweep", "nodes"), {"sweep": 1, "nodes": 2},
+                {"sweep": 0, "nodes": 0}, None, "cpu")
+    with pytest.raises(ValueError, match="does not compose with a device "
+                                         "mesh"):
+        run_sweep(plan, mesh=mesh, device="cpu", compact=True)
