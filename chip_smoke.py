@@ -136,7 +136,12 @@ live and serving runs and the configuration digests) run in a second
 process on the same card (``chip_smoke.py --helper``, killed if this
 one ends first), so that the two share the card's idle time; its phase
 lines print when it ends, and its launches join this process's in the
-``kernels`` line. Every phase
+``kernels`` line. The helper ends with the analysis tools' phases:
+config 0 at 10 000 nodes through ``run_sim(transfer_guard=True)`` under
+``torch.cuda.set_sync_debug_mode("error")``, held to the unguarded run,
+with its reads per sanctioned point per round ("transfer_guard_10k"),
+and the C++ pk codec built with g++ and held to the Python codec on the
+trace fixtures ("native_codec"). Every phase
 prints one JSON line with its seconds; any failure raises and exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside the repository, it exits non-zero and
@@ -3030,6 +3035,241 @@ def mesh_1rank_phase(emit) -> int:
     return mr["launches"]["grouped_merge"]
 
 
+def transfer_guard_phase(emit, n: int = 10000) -> int:
+    """"transfer_guard_10k": config 0 at 10 000 nodes, the bench's north
+    star shape (the "swim_slice" run), through ``run_sim(
+    transfer_guard=True)`` with ``torch.cuda.set_sync_debug_mode("error")``
+    armed over the chunk loop: it must converge with the merge kernel
+    launched and equal, in round and digest, the unguarded run of the
+    same seed, which runs first, under the sync debug mode's "warn" so
+    that every host sync it makes is counted. The guarded run's reads per
+    sanctioned point per round are printed and the ``sync_gate`` reads
+    held to the pipeline's ``host_reads``; a deliberate ``.item()``
+    inside a guarded region, outside every point, must raise. The host's
+    waits are printed per round for both runs: on the sweep gate's reads
+    (event waits, which the sync debug mode does not see) and on the
+    chunks' metrics (the pipeline's ``fetch_wait_s``). Returns the
+    guarded run's merge launches."""
+    import warnings
+
+    import torch
+
+    from corro_sim_torch.analysis.transfer_guard import guarded, sanctioned
+    from corro_sim_torch.convert import state_to_numpy
+    from corro_sim_torch.core import merge_kernel as mk
+    from corro_sim_torch.engine.driver import run_sim
+    from corro_sim_torch.engine import step as step_mod
+    from corro_sim_torch.engine.state import init_state
+    from corro_sim_torch.merge_probe import nvidia_smi
+    from corro_sim_torch.profile_slice import (
+        RUN_ARGS,
+        run_digest,
+        slice_config,
+        slice_schedule,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = slice_config(n, swim=True)
+    runs = {}
+    syncs = None
+    for guard in (False, True):
+        state = init_state(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        mk.reset_launch_counts()
+        gate_wait0 = step_mod.SWEEP_GATE_WAIT_S[0]
+        caught = contextlib.nullcontext([])
+        if not guard:
+            caught = warnings.catch_warnings(record=True)
+        with caught as seen:
+            if not guard:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                res = run_sim(cfg, state, slice_schedule(), device="cuda",
+                              transfer_guard=guard, **RUN_ARGS)
+                torch.cuda.synchronize()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        if not guard:
+            syncs = sum("synchroniz" in str(w.message) for w in seen)
+        del state
+        runs["guarded" if guard else "unguarded"] = {
+            "converged_round": res.converged_round,
+            "rounds": res.rounds,
+            "final_gap": float(res.metrics["gap"][-1]),
+            "digest": run_digest(state_to_numpy(res.state), res.metrics),
+            "wall_per_round_ms": res.wall_per_round_ms,
+            "launches": mk.LAUNCHES["grouped_merge"],
+            "sweeps_run": res.pipeline["sweeps_run"],
+            "host_reads": res.pipeline["host_reads"],
+            "sanctioned": res.transfer_guard,
+            "gate_wait_ms_per_round": 1e3 * (
+                step_mod.SWEEP_GATE_WAIT_S[0] - gate_wait0) / res.rounds,
+            "fetch_wait_ms_per_round": (
+                1e3 * res.pipeline["fetch_wait_s"] / res.rounds),
+        }
+        del res
+        torch.cuda.empty_cache()
+    g, u = runs["guarded"], runs["unguarded"]
+    per_round = {k: v / g["rounds"] for k, v in g["sanctioned"].items()}
+    # a host read inside a guarded region, outside every point
+    x = torch.arange(8, device="cuda")
+    refused = None
+    with guarded(True, "cuda"):
+        try:
+            x.sum().item()
+        except RuntimeError as e:
+            refused = str(e).splitlines()[0]
+        with sanctioned("smoke_check"):
+            allowed = x.sum().item() == 28
+    emit({"phase": "transfer_guard_10k", "nodes": n, "card": nvidia_smi(),
+          "runs": runs, "sanctioned_per_round": per_round,
+          "sync_gate_equals_host_reads": (
+              g["sanctioned"].get("sync_gate", 0) == g["host_reads"]),
+          "warn_mode_syncs_unguarded_run": syncs,
+          "unsanctioned_item_refused": refused, "sanctioned_item": allowed,
+          "guard_cost_ms_per_round": (g["wall_per_round_ms"]
+                                      - u["wall_per_round_ms"]),
+          "phase_s": time.perf_counter() - t_phase})
+    bad = []
+    if g["converged_round"] is None or g["final_gap"] != 0.0:
+        bad.append("the guarded run did not converge")
+    if (g["converged_round"], g["digest"]) != (u["converged_round"],
+                                               u["digest"]):
+        bad.append("the guarded run differs from the unguarded one")
+    if g["launches"] <= 0 or g["launches"] != g["sweeps_run"]:
+        bad.append("the guarded run did not launch the kernel once per "
+                   "sweep")
+    if g["sanctioned"].get("sync_gate", 0) != g["host_reads"]:
+        bad.append("sync_gate reads differ from the pipeline's host reads")
+    if refused is None or not allowed:
+        bad.append("the guard let an unsanctioned .item() through")
+    if bad:
+        raise AssertionError("transfer_guard_10k: " + "; ".join(bad))
+    return g["launches"]
+
+
+def native_codec_phase(emit, chunk: int = 2048) -> None:
+    """"native_codec": the C++ pk codec built with g++ on the card's
+    machine (``io/native.py``; it must be available, not the fallback),
+    and the trace fixtures ``tests/fixtures/traces/flyio_small.ndjson``
+    and ``flyio_live.ndjson`` decoded through the batch path: their
+    parseable lines cycled into chunks of ``chunk`` lines, each chunk
+    parsed by ``io/traces.py::parse_trace_lines`` with the native codec
+    and with the Python codec, which must agree; ms per chunk for both.
+    Then end to end on twin_10k's feed (``profile_slice.TWIN_10K_FEED``)
+    with either codec, in turns: the twin's seconds per chunk in
+    ``TraceStream.feed`` (a line at a time, a few blobs per call: below
+    the batch threshold, so both decode in Python) and the seconds of
+    ``ingest`` of its parseable lines (one bulk batch, the path the C++
+    codec serves)."""
+    import itertools
+
+    from corro_sim_torch.engine.twin import twin_universe
+    from corro_sim_torch.io import columns, native, traces
+    from corro_sim_torch.merge_probe import nvidia_smi
+    from corro_sim_torch.profile_slice import (
+        TWIN_10K_CHUNK,
+        TWIN_10K_FEED,
+        twin_feed,
+    )
+
+    t_phase = time.perf_counter()
+    if not native.available():
+        raise AssertionError(f"native_codec: {native.reason()}")
+    lines = []
+    for name in ("flyio_small.ndjson", "flyio_live.ndjson"):
+        with open(os.path.join("tests", "fixtures", "traces", name)) as f:
+            for ln in f.read().splitlines():
+                try:
+                    traces.parse_trace_line(ln)
+                except (ValueError, KeyError, TypeError):
+                    continue  # the live feed's hostile lines
+                lines.append(ln)
+    chunks = [list(itertools.islice(itertools.cycle(lines), i, i + chunk))
+              for i in range(3)]
+    blobs = [bytes(c["pk"]) for ln in chunks[0]
+             for c in json.loads(ln).get("changes", ())
+             if "versions" not in json.loads(ln)]
+
+    def python_batch(bs):
+        return [columns.unpack_columns(b) for b in bs]
+
+    def timed(fn) -> float:
+        best = []
+        for c in chunks * 3:
+            t0 = time.perf_counter()
+            fn(c)
+            best.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(best))
+
+    native_ms = timed(traces.parse_trace_lines)
+    got = [traces.parse_trace_lines(c) for c in chunks]
+    batch_native = native.unpack_columns_batch(blobs)
+    plain = traces.unpack_columns_batch
+    traces.unpack_columns_batch = python_batch
+    try:
+        python_ms = timed(traces.parse_trace_lines)
+        want = [traces.parse_trace_lines(c) for c in chunks]
+    finally:
+        traces.unpack_columns_batch = plain
+    equal = got == want and batch_native == python_batch(blobs)
+
+    feed = twin_feed(**TWIN_10K_FEED)
+    uni = twin_universe(feed.lines, 0)
+    bulk, seen = [], set()
+    for ln in feed.lines:
+        try:
+            ev = traces.parse_trace_line(ln)
+        except (ValueError, KeyError, TypeError):
+            continue  # the feed's hostile lines
+        if isinstance(ev, traces.TraceChangeset):
+            if (ev.actor_id, ev.version) in seen:
+                continue  # a copy: strict ingest refuses it
+            seen.add((ev.actor_id, ev.version))
+        bulk.append(ln)
+
+    def twin_feed_s() -> float:
+        stream = traces.TraceStream(uni)
+        t0 = time.perf_counter()
+        for i in range(0, len(feed.lines), TWIN_10K_CHUNK):
+            stream.feed(feed.lines[i:i + TWIN_10K_CHUNK], skip_bad=True)
+        return (time.perf_counter() - t0) / -(-len(feed.lines)
+                                              // TWIN_10K_CHUNK)
+
+    def ingest_s() -> float:
+        t0 = time.perf_counter()
+        traces.ingest(bulk)
+        return time.perf_counter() - t0
+
+    e2e = {"native": [], "python": []}
+    for _ in range(3):
+        for name in ("native", "python"):
+            traces.unpack_columns_batch = (plain if name == "native"
+                                           else python_batch)
+            try:
+                e2e[name].append((twin_feed_s(), ingest_s()))
+            finally:
+                traces.unpack_columns_batch = plain
+    twin_10k = {"lines": len(feed.lines), "chunk_lines": TWIN_10K_CHUNK,
+                "ingest_lines": len(bulk)}
+    for name, rows in e2e.items():
+        twin_10k[f"{name}_feed_s_per_chunk"] = [r[0] for r in rows]
+        twin_10k[f"{name}_ingest_s"] = [r[1] for r in rows]
+    emit({"phase": "native_codec", "card": nvidia_smi(),
+          "library": native.BUILD_INFO.get("library"),
+          "build": native.BUILD_INFO.get("status"),
+          "build_s": native.BUILD_INFO.get("seconds"),
+          "fixture_lines": len(lines), "chunk_lines": chunk,
+          "blobs_per_chunk": len(blobs), "equal": equal,
+          "native_ms_per_chunk": native_ms,
+          "python_ms_per_chunk": python_ms, "twin_10k_feed": twin_10k,
+          "phase_s": time.perf_counter() - t_phase})
+    if not equal:
+        raise AssertionError("native_codec: the native codec's parse "
+                             "differs from the Python codec's")
+
+
 def helper_phases(emit) -> dict:
     """The phases that share no state with the rest: the 256- to
     4000-node runs held to the JAX package's digests, the fleet sweeps,
@@ -3054,6 +3294,8 @@ def helper_phases(emit) -> dict:
     launches["serve_256"] = serve_256_phase(emit)
     launches.update(config_digest_phase(emit))
     launches["mesh_1rank"] = mesh_1rank_phase(emit)
+    launches["transfer_guard_10k"] = transfer_guard_phase(emit)
+    native_codec_phase(emit)
     return launches
 
 

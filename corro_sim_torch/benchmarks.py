@@ -71,12 +71,27 @@ def _bench_pipeline() -> bool | None:
 
 
 def _step_eqns(cfg) -> dict:
-    """The JAX package's op-budget keys (jaxpr equation counts of the
-    chunk body), null here until the port has a graph auditor;
-    ``step_eqns_repair`` exists where the repair step does."""
-    out = {"step_eqns_full": None}
+    """The op-budget datum beside the wall it produced, under the JAX
+    package's keys: the aten-node count of the step's audit rounds
+    (``analysis/fx_audit.py``: the rounds of one cadence cycle that run
+    every block, traced on the CPU with fake tensors, so nothing is
+    computed), full step and, where the repair step exists, repair step.
+    Aten nodes of those rounds, not comparable with the JAX package's
+    jaxpr equation counts of one round. The trace's state is fake, so
+    no (N, N) plane is made; in a world of several ranks only rank 0,
+    whose artifact line is the leg's, traces (the others return
+    nothing)."""
+    import torch.distributed as dist
+
+    from corro_sim_torch.analysis.fx_audit import op_fingerprint, step_graph
+
+    if dist.is_available() and dist.is_initialized() and dist.get_rank():
+        return {}
+    out = {"step_eqns_full": op_fingerprint(
+        step_graph(cfg, mode="fake"))["eqns"]}
     if cfg.inflight_slots == 0 and not cfg.rtt_rings:
-        out["step_eqns_repair"] = None
+        out["step_eqns_repair"] = op_fingerprint(
+            step_graph(cfg, repair=True, mode="fake"))["eqns"]
     return out
 
 

@@ -11,11 +11,13 @@ package's ``JAX_PLATFORMS``. Without a card, those commands raise
 back to the CPU. The client commands (query, exec and the admin calls)
 take no device.
 
-What the port does not have yet refuses with exit 2 and one line naming
-the missing module: ``lint``, ``audit`` and ``run --transfer-guard``
-(:data:`WAITING`). ``run --mesh`` and ``sweep --mesh`` start one rank
-per visible device (the cards, or ``CORRO_SIM_MESH_RANKS`` CPU ranks
-with ``--device cpu``) through ``engine/ranks.py``. ``bench`` runs
+``lint`` runs the port's torch lint (``analysis/lint.py``), ``audit``
+its fx program, contract and key-lineage auditors on the CPU
+(``analysis/fx_audit.py``), and ``run --transfer-guard`` arms the
+transfer guard (``analysis/transfer_guard.py``). ``run --mesh`` and
+``sweep --mesh`` start one rank per visible device (the cards, or
+``CORRO_SIM_MESH_RANKS`` CPU ranks with ``--device cpu``) through
+``engine/ranks.py``. ``bench`` runs
 ``benchmarks.main`` on ``--device``; ``soak``, ``sweep``, ``twin`` and
 ``bench`` append their numbers to the perf ledger (``perf``), and
 ``doctor`` diagnoses their artifacts. What the port compiles is its
@@ -44,8 +46,8 @@ Command surface vs the reference's Command enum
   subs         — list / inspect subscriptions         [Command::Subs]
   locks        — lock registry dump                   [Command::Locks]
   traces       — recent tracer spans                  [telemetry analog]
-  lint         — corro-lint trace-safety analyzer     [waits: item 12]
-  audit        — jaxpr vacuity + golden fingerprint   [waits: item 12]
+  lint         — corro-lint step-path analyzer        [torch rules]
+  audit        — fx vacuity + golden fingerprint      [fx graphs, CPU]
   flight       — per-round telemetry timeline         [flight recorder]
   probes       — gossip provenance + lag observatory  [probe tracer]
   db lock      — hold the write lock around a command [DbCommand::Lock]
@@ -75,26 +77,6 @@ _FLAG_TO_FIELD = {
     "probes": "probes",
     "pipeline": "pipeline",
 }
-
-# what the port does not have yet: the module each refusal names and the
-# ROADMAP.md queue 1 item that brings it
-WAITING = {
-    "lint": ("analysis/lint.py", 12),
-    "audit": ("analysis/jaxpr_audit.py", 12),
-    "run --transfer-guard": ("run_sim(transfer_guard=)", 12),
-}
-
-
-def _waiting(what: str) -> int:
-    """Refuse ``what`` with exit 2 and one line naming what it waits for."""
-    module, item = WAITING[what]
-    print(
-        f"error: `{what}` is not in corro_sim_torch yet: it waits for "
-        f"{module} (ROADMAP.md queue 1 item {item})",
-        file=sys.stderr,
-    )
-    return 2
-
 
 def _device(args: argparse.Namespace):
     """The ``--device`` the command runs on, resolved (``cuda`` by
@@ -163,8 +145,6 @@ def _cmd_run(args: argparse.Namespace) -> int:
 
     import numpy as np
 
-    if getattr(args, "transfer_guard", False):
-        return _waiting("run --transfer-guard")
     mesh = None
     if getattr(args, "mesh", False):
         if not _in_world():
@@ -366,6 +346,8 @@ def _cmd_run(args: argparse.Namespace) -> int:
             fork_tok.refit(cfg, args.seed, args.chunk)
             if fork_tok is not None else None
         ),
+        # None defers to the CORRO_SIM_TRANSFER_GUARD env var
+        transfer_guard=True if args.transfer_guard else None,
         min_rounds=(
             max(
                 scenario.heal_round or 0, args.write_rounds,
@@ -1788,13 +1770,32 @@ def _cmd_load(args: argparse.Namespace) -> int:
 
 
 def _cmd_lint(args: argparse.Namespace) -> int:
-    """`corro-sim lint` — the trace-safety analyzer; waits (:data:`WAITING`)."""
-    return _waiting("lint")
+    """`corro-sim lint` — the AST step-path analyzer (analysis/lint.py
+    over analysis/rules.py). Pure AST: no torch import. Exit 1 on any
+    error-severity finding (warnings too under --strict)."""
+    from corro_sim_torch.analysis.lint import run_lint
+
+    return run_lint(
+        args.paths, fmt=args.format, strict=args.strict, out=args.out,
+    )
 
 
 def _cmd_audit(args: argparse.Namespace) -> int:
-    """`corro-sim audit` — the program auditors; waits (:data:`WAITING`)."""
-    return _waiting("audit")
+    """`corro-sim audit` — trace sim_step to fx graphs under the
+    feature-off matrix, check the vacuity invariants and host reads, and
+    verify (or rewrite with --update-golden) the committed op-count
+    fingerprint (analysis/golden/fx_fingerprint.json). With
+    --contracts, also the program-contract auditor (analysis/
+    contracts.py); with --keys, the key-lineage auditor (analysis/
+    keys.py). It traces on the CPU, whatever --device says: the audited
+    program is the plain path."""
+    from corro_sim_torch.analysis.fx_audit import run_audit
+
+    return run_audit(
+        update_golden=args.update_golden, out=args.out,
+        as_json=args.json, diff=args.diff, contracts=args.contracts,
+        keys=args.keys,
+    )
 
 
 def _cmd_bench(args: argparse.Namespace) -> int:
@@ -2429,9 +2430,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     pr.add_argument(
         "--transfer-guard", action="store_true",
-        help="refuse host syncs outside the sanctioned staging and "
-             "resolve points of the chunk loop; not in the port yet "
-             "(exits 2)",
+        help="refuse host reads outside the sanctioned points of the "
+             "chunk loop (analysis/transfer_guard.py): on the card "
+             "torch.cuda.set_sync_debug_mode('error'), on the CPU a "
+             "dispatch mode; default: CORRO_SIM_TRANSFER_GUARD",
     )
     pr.add_argument(
         "--mesh", action="store_true",
@@ -2851,12 +2853,12 @@ def build_parser() -> argparse.ArgumentParser:
 
     pli = sub.add_parser(
         "lint",
-        help="corro-lint: static trace-safety analysis; not in the "
-             "port yet (exits 2)",
+        help="corro-lint: static analysis of the port's step path "
+             "(analysis/rules.py)",
     )
     pli.add_argument(
         "paths", nargs="*",
-        help="files/directories to lint (default: corro_sim)",
+        help="files/directories to lint (default: corro_sim_torch)",
     )
     pli.add_argument(
         "--format", choices=["text", "json"], default="text",
@@ -2876,11 +2878,11 @@ def build_parser() -> argparse.ArgumentParser:
     pau = sub.add_parser(
         "audit",
         help="program audit: feature-off vacuity + golden op-count "
-             "fingerprint; not in the port yet (exits 2)",
+             "fingerprint of the fx graphs (analysis/fx_audit.py)",
     )
     pau.add_argument(
         "--update-golden", action="store_true",
-        help="re-baseline analysis/golden/jaxpr_fingerprint.json from "
+        help="re-baseline analysis/golden/fx_fingerprint.json from "
              "the current tree (commit the diff with the change that "
              "moved the op counts)",
     )
@@ -2895,21 +2897,19 @@ def build_parser() -> argparse.ArgumentParser:
     )
     pau.add_argument(
         "--contracts", action="store_true",
-        help="also run the program-contract auditor: jaxpr dataflow "
+        help="also run the program-contract auditor: fx dataflow "
              "vacuity proofs for every registered feature x program, "
-             "collective budgets of the sharded/sweep programs, "
-             "determinism lints, and the static peak-HBM golden "
-             "(analysis/golden/program_contracts.json; "
-             "doc/static_analysis.md)",
+             "the mesh's collective budget on gloo ranks, determinism "
+             "censuses, and the static peak-bytes golden "
+             "(analysis/golden/program_contracts.json)",
     )
     pau.add_argument(
         "--keys", action="store_true",
-        help="also run the key-lineage auditor: reconstruct every "
-             "program's PRNG derivation forest and prove K1 single-"
-             "consumption, K2 stream disjointness (declared == "
+        help="also run the key-lineage auditor: record every "
+             "program's PRNG derivation forest at prng.py and prove K1 "
+             "single-consumption, K2 stream disjointness (declared == "
              "observed fold tags), and K3 lane/fork independence "
-             "(analysis/golden/key_lineage.json; "
-             "doc/static_analysis.md §4)",
+             "(analysis/golden/key_lineage.json)",
     )
     pau.add_argument(
         "--out", help="also write the JSON report to this path"

@@ -57,6 +57,12 @@ import numpy as np
 import torch
 
 from corro_sim_torch import prng
+from corro_sim_torch.analysis.transfer_guard import (
+    env_enabled as _tg_env_enabled,
+    guarded as _tg_guarded,
+    point_counts as _tg_counts,
+    sanctioned as _tg_sanctioned,
+)
 from corro_sim_torch.config import SimConfig, validate_torch_slice
 from corro_sim_torch.convert import _leaves
 from corro_sim_torch.core.merge_kernel import (
@@ -251,6 +257,8 @@ class RunResult:
     sharding: dict | None = None  # mesh placement provenance: devices,
     # mesh shape, change-log regime, the merge kernel in effect and the
     # explicit downgrades; None off a mesh
+    transfer_guard: dict | None = None  # with the guard armed, this
+    # run's host reads by sanctioned point (analysis/transfer_guard.py)
 
     @property
     def wall_per_round_ms(self) -> float:
@@ -381,6 +389,7 @@ def run_sim(
     checkpoint_every: int = 0,
     checkpoint_meta: dict | None = None,
     mesh=None,
+    transfer_guard: bool | None = None,
 ) -> RunResult:
     """Run ``state`` forward in chunks of ``chunk`` rounds until
     convergence (or ``max_rounds``) — the JAX package's ``run_sim``.
@@ -459,7 +468,14 @@ def run_sim(
     the JAX package's stays sharded: ``gather_state(res.state, mesh,
     mesh_shardings(cfg, mesh))`` makes it whole on rank 0's host. Only
     rank 0's result carries ``probe`` and ``resilience``.
-    ``RunResult.sharding`` records the placement."""
+    ``RunResult.sharding`` records the placement.
+
+    ``transfer_guard``: arm the transfer guard over the chunk loops
+    (``analysis/transfer_guard.py``): on the card
+    ``torch.cuda.set_sync_debug_mode("error")``, on the CPU a dispatch
+    mode that refuses host reads, so that any host read outside the
+    sanctioned points raises. None follows ``CORRO_SIM_TRANSFER_GUARD``.
+    ``RunResult.transfer_guard`` counts the run's reads by point."""
     validate_torch_slice(cfg)
     want = resolve_device(device)
     if mesh is None and state.hlc.device.type != want.type:
@@ -478,6 +494,9 @@ def run_sim(
         min_rounds = schedule.write_rounds
     if pipeline is None:
         pipeline = cfg.pipeline
+    if transfer_guard is None:
+        transfer_guard = _tg_env_enabled()
+    tg = bool(transfer_guard)
     if flight is None:
         flight = FlightRecorder()
     n = cfg.num_nodes
@@ -583,7 +602,8 @@ def run_sim(
             return st
         from corro_sim_torch.engine.sharding import gather_state
 
-        return gather_state(st, mesh, specs, keys=keys)
+        with _tg_sanctioned("mesh_gather", tg):
+            return gather_state(st, mesh, specs, keys=keys)
 
     t0 = time.perf_counter()
     cache_probe = CompileCacheProbe()
@@ -657,14 +677,15 @@ def run_sim(
         this one speculates past; once its metrics show that this chunk
         will be discarded, the rest of it is not queued."""
         alive, part, we = schedule.slice(base, chunk, n)
-        keys = chunk_keys(root, ci, chunk)
         use_repair = (select_repair(known_pend_live, we)
                       and not blocked_by_writes)
-        alive_t = upload(alive, dev)
-        part_t = upload(part, dev)
         staged, quiesced = None, [None] * chunk
-        if workload is not None and not use_repair:
-            staged, quiesced = stage_writes(base, alive)
+        with _tg_sanctioned("chunk_stage", tg):
+            keys = chunk_keys(root, ci, chunk)
+            alive_t = upload(alive, dev)
+            part_t = upload(part, dev)
+            if workload is not None and not use_repair:
+                staged, quiesced = stage_writes(base, alive)
         st = state_in
         per_round = []
         with tracer.span("chunk dispatch", ci=ci, slow_warn=False,
@@ -688,7 +709,9 @@ def run_sim(
                 )
                 per_round.append(m)
             i_s, f_s, ikeys = pack_metrics(per_round)
-            fetch = start_async_fetch(i_s, f_s)
+            with (_tg_sanctioned("metric_fetch_start", tg) if pipeline
+                  else contextlib.nullcontext()):
+                fetch = start_async_fetch(i_s, f_s)
             # the checkers' and the probe extraction's reads, queued
             # before any chunk that follows
             due = checkpoint_due(ci)
@@ -714,14 +737,18 @@ def run_sim(
         the ranks agree (every rank's copy landed), since each rank's
         timing is its own and every rank must queue the same rounds."""
         ready = pending.fetch.ready()
-        return ready if mesh is None else mesh.agree(ready)
+        if mesh is None:
+            return ready
+        with _tg_sanctioned("mesh_agree", tg):
+            return mesh.agree(ready)
 
     def doomed(pending: _InFlight, we, use_repair) -> bool:
         """Whether ``pending``'s metrics (landed) show that the chunk
         speculating past it will be discarded: the run ends at
         ``pending`` (poisoned or converged), or the repair-program
         choice differs from the sequential rule's."""
-        m = unpack_metrics(*pending.fetch.resolve(), pending.ikeys)
+        with _tg_sanctioned("metric_peek", tg):
+            m = unpack_metrics(*pending.fetch.resolve(), pending.ikeys)
         if m["log_wrapped"].any():
             return True
         if stop_on_convergence and converged_at(
@@ -817,16 +844,22 @@ def run_sim(
                 if delta:
                     counters.inc(cname, n=delta, help_=chelp)
         if inflight.boundary is not None:
-            view = _boundary_view(inflight.boundary)
+            # the JAX package's cadence: one sanctioned read per armed
+            # reader, the view's copy inside the first
+            view = None
             if scorecard is not None:
                 t = time.perf_counter()
-                scorecard.on_chunk(view, m, inflight.alive, inflight.part,
-                                   base)
+                with _tg_sanctioned("invariants", tg):
+                    view = _boundary_view(inflight.boundary)
+                    scorecard.on_chunk(view, m, inflight.alive,
+                                       inflight.part, base)
                 check_seconds["scorecard"] += time.perf_counter() - t
             if invariants is not None:
                 t = time.perf_counter()
-                found = list(invariants.on_chunk(
-                    view, m, inflight.alive, inflight.part, base))
+                with _tg_sanctioned("invariants", tg):
+                    view = view or _boundary_view(inflight.boundary)
+                    found = list(invariants.on_chunk(
+                        view, m, inflight.alive, inflight.part, base))
                 check_seconds["invariants"] += time.perf_counter() - t
                 violations_found(found, base + 1)
         if prev_writes and not bool(we.any()):
@@ -838,10 +871,12 @@ def run_sim(
         if inflight.probe is not None:
             # a probe whose p99 delivery lag worsened this chunk (a late
             # straggler stretched the tail) annotates the flight record
-            planes = dict(zip(PROBE_FIELDS, inflight.probe.resolve()))
-            p99 = ProbeTrace.from_state(
-                cfg, types.SimpleNamespace(
-                    probe=types.SimpleNamespace(**planes))).delivery_p99()
+            with _tg_sanctioned("probe_extract", tg):
+                planes = dict(zip(PROBE_FIELDS, inflight.probe.resolve()))
+                p99 = ProbeTrace.from_state(
+                    cfg, types.SimpleNamespace(
+                        probe=types.SimpleNamespace(**planes))
+                ).delivery_p99()
             if (p99 is not None and probe_p99_last is not None
                     and p99 > probe_p99_last):
                 flight.annotate(rounds, "probe_p99_regression", p99=p99,
@@ -883,19 +918,22 @@ def run_sim(
                         else inflight.whole)
                 if scorecard is not None and done is not None:
                     t = time.perf_counter()
-                    scorecard.on_converged(done, alive_now, part_now)
+                    with _tg_sanctioned("invariants", tg):
+                        scorecard.on_converged(done, alive_now, part_now)
                     check_seconds["scorecard"] += time.perf_counter() - t
                 if invariants is not None and done is not None:
                     t = time.perf_counter()
-                    found = list(invariants.on_converged(
-                        done, alive_now, part_now))
+                    with _tg_sanctioned("invariants", tg):
+                        found = list(invariants.on_converged(
+                            done, alive_now, part_now))
                     check_seconds["invariants"] += time.perf_counter() - t
                     violations_found(found, converged_round)
                 return False
         if checkpoint_due(ci):
             # only a continuing run reaches here: a token never re-animates
             # a finished run
-            save_checkpoint(ci, inflight)
+            with _tg_sanctioned("checkpoint", tg):
+                save_checkpoint(ci, inflight)
         return True
 
     def save_checkpoint(ci, inflight: _InFlight) -> None:
@@ -938,7 +976,8 @@ def run_sim(
         """The chunk's metrics on the host, and the seconds the host
         waited for them."""
         t_f = time.perf_counter()
-        m = unpack_metrics(*inflight.fetch.resolve(), inflight.ikeys)
+        with _tg_sanctioned("metric_resolve", tg):
+            m = unpack_metrics(*inflight.fetch.resolve(), inflight.ikeys)
         waited = time.perf_counter() - t_f
         histograms.observe(PIPELINE_FETCH_WAIT, waited,
                            labels=f'{{mode="{mode}"}}',
@@ -954,8 +993,15 @@ def run_sim(
             [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
         profiler = profile(activities=acts)
     drain = 0.0
-    with profiler if profiler is not None else contextlib.nullcontext():
+    # the guard covers the chunk loops only: the set-up before them and
+    # the drain and result after them read the card freely; the stack
+    # disarms it after the loops, or on the way out of a failed run
+    guard = contextlib.ExitStack()
+    with profiler if profiler is not None else contextlib.nullcontext(), \
+            guard:
         _sync(dev)
+        tg0 = _tg_counts()
+        guard.enter_context(_tg_guarded(tg, dev))
         if not pipeline:
             # ----------------------------------------------- sequential loop
             ci = start_ci
@@ -1055,6 +1101,7 @@ def run_sim(
                     raise RuntimeError("a cut speculative chunk reached "
                                        "its commit")
                 pending = nxt
+        guard.close()
         # the run is done when its state is, not when its last metrics
         # landed
         t0 = time.perf_counter()
@@ -1140,4 +1187,7 @@ def run_sim(
                if cfg.probes and final is not None else None),
         checkpoint_seconds=checkpoint_seconds,
         sharding=sharding_info,
+        transfer_guard=({k: v - tg0.get(k, 0)
+                         for k, v in _tg_counts().items()
+                         if v - tg0.get(k, 0)} if tg else None),
     )

@@ -103,3 +103,28 @@ def volatile_scrub_prefixes() -> tuple[str, ...]:
         leaf.field if leaf.field is not None else f"features/{name}"
         for name, leaf in sorted(_REGISTRY.items()) if leaf.volatile
     )
+
+
+def feature_registry() -> dict[str, FeatureLeaf]:
+    """Snapshot of the registry, insertion-ordered."""
+    return dict(_REGISTRY)
+
+
+def leaf_provenance(path: str) -> str | None:
+    """The registry feature that owns a state leaf, or None for core
+    state. ``path`` is the leaf's name relative to the state root in the
+    JAX package's key-path spelling (``".probe.first_seen"``,
+    ``".features['sweep_knobs']['loss']"``). A field-style feature owns
+    its field's subtree, a dict-style one its ``features['<name>']``
+    subtree: registering a feature IS declaring its taint scope for the
+    contract auditor (``analysis/contracts.py``)."""
+    for name in sorted(_REGISTRY):
+        leaf = _REGISTRY[name]
+        if leaf.field is not None:
+            if path == f".{leaf.field}" or path.startswith(
+                f".{leaf.field}."
+            ):
+                return name
+        elif path.startswith(f".features['{name}']"):
+            return name
+    return None

@@ -262,8 +262,9 @@ def gather_job(cfg_dict, seed: int) -> dict:
 
 class AllocationWatch:
     """A ``TorchDispatchMode`` factory that records every tensor the
-    operations inside it return, the most axes of length ``n`` any of
-    them had, and how many had two or more (``big``)."""
+    operations inside it return that holds memory (not meta, not fake),
+    the most axes of length ``n`` any of them had, and how many had two
+    or more (``big``)."""
 
     def __init__(self, n: int):
         self.n = n
@@ -273,6 +274,7 @@ class AllocationWatch:
         self.shapes: dict = {}
 
     def __call__(self):
+        from torch._subclasses.fake_tensor import FakeTensor
         from torch.utils._python_dispatch import TorchDispatchMode
 
         watch = self
@@ -282,7 +284,8 @@ class AllocationWatch:
                 out = func(*args, **(kwargs or {}))
                 for t in (out if isinstance(out, (tuple, list))
                           else (out,)):
-                    if isinstance(t, torch.Tensor) and not t.is_meta:
+                    if (isinstance(t, torch.Tensor) and not t.is_meta
+                            and not isinstance(t, FakeTensor)):
                         k = sum(1 for s in t.shape if s == watch.n)
                         watch.count += 1
                         watch.big += k >= 2

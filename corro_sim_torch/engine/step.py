@@ -64,10 +64,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 
 import torch
 
 from corro_sim_torch import prng
+from corro_sim_torch.analysis.transfer_guard import armed as guard_armed
+from corro_sim_torch.analysis.transfer_guard import sanctioned
 from corro_sim_torch.config import SimConfig
 from corro_sim_torch.core.bookkeeping import partial_versions
 from corro_sim_torch.core.changelog import append_changesets
@@ -143,6 +146,8 @@ _SYNC_METRICS = ("sync_pairs", "sync_requests", "sync_rejections",
 # where the kernel takes the sweep.
 SWEEP_GATES = dict.fromkeys(
     ("host_on", "host_off", "read_on", "read_off"), 0)
+# the host's seconds waiting on those reads (the copy's event), summed
+SWEEP_GATE_WAIT_S = [0.0]
 
 
 def _reachable_fn(alive: torch.Tensor, part: torch.Tensor):
@@ -842,7 +847,10 @@ def _sync_due(gate) -> bool:
     where :func:`_sync_gate` started one."""
     if isinstance(gate, bool):
         return gate
-    due = bool(gate.resolve()[0])
+    t = time.perf_counter()
+    with sanctioned("sync_gate", guard_armed()):
+        due = bool(gate.resolve()[0])
+    SWEEP_GATE_WAIT_S[0] += time.perf_counter() - t
     SWEEP_GATES["read_on" if due else "read_off"] += 1
     return due
 

@@ -40,9 +40,9 @@ With a :class:`~corro_sim_torch.schema.TableLayout` (``layout=``) the
 row slots and column planes come from the schema. The streaming half
 (:class:`TraceUniverse`, :class:`TraceStream`, :func:`validate_feed`)
 is what the digital twin (:mod:`corro_sim_torch.engine.twin`) tails a
-live feed with. The pk codec is the pure-Python one
-(:mod:`corro_sim_torch.io.columns`); the JAX package's C batch decoder
-is a host-side speed path the port does not carry.
+live feed with. The pk blobs decode through the C++ batch codec
+(:mod:`corro_sim_torch.io.native`), which falls back to the pure-Python
+one (:mod:`corro_sim_torch.io.columns`) where no compiler builds it.
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ import json
 
 import numpy as np
 
-from corro_sim_torch.io.columns import unpack_columns
+from corro_sim_torch.io.native import unpack_columns_batch
 from corro_sim_torch.io.values import ValueInterner, sqlite_sort_key
 
 DELETE_CID = "__crsql_del"
@@ -132,7 +132,7 @@ def parse_trace_line(line: str):
     package's parse raises."""
     obj = json.loads(line)
     blobs = [bytes(c["pk"]) for c in obj.get("changes", ())]
-    return _build_event(obj, iter([unpack_columns(b) for b in blobs]))
+    return _build_event(obj, iter(unpack_columns_batch(blobs)))
 
 
 def parse_trace_lines(lines) -> list:
@@ -148,7 +148,7 @@ def parse_trace_lines(lines) -> list:
         if "versions" not in obj
         for c in obj.get("changes", ())
     ]
-    pks = iter([unpack_columns(b) for b in blobs])
+    pks = iter(unpack_columns_batch(blobs))
     return [_build_event(obj, pks) for obj in objs]
 
 

@@ -3,7 +3,8 @@
     python -m corro_sim_torch.profile_slice [--swim | --config3 | --config6
                                              | --soak SPEC | --latency
                                              | --config8
-                                             | --host-read PAIRS]
+                                             | --host-read PAIRS
+                                             | --sync-inventory PAIRS]
                                             [--out DIR]
 
 Defines the slice's cells — the north-star cluster with SWIM off and,
@@ -58,6 +59,15 @@ gate's device predicate: copied to the host where it is computed and
 read where the sweep is due (the step as it is), against a blocking
 read where the sweep is due, end to end on config 0 and config 6 at
 10 000 nodes, ``PAIRS`` pairs each, to ``DIR/host_read.json``.
+
+``--sync-inventory PAIRS`` takes the transfer guard's inventory: config 0
+at 10 000 nodes, after one untimed run, ``PAIRS`` times unguarded under
+``torch.cuda.set_sync_debug_mode("warn")`` (every synchronizing call
+torch flags, by the line that made it) and ``PAIRS`` times through
+``run_sim(transfer_guard=True)`` (the mode at "error" over the chunk
+loop), in turns, the first of each pair alternating: each run's wall per
+round, round and digest, and the guarded runs' reads per sanctioned
+point, to ``DIR/sync_inventory.json``.
 """
 
 from __future__ import annotations
@@ -2320,6 +2330,55 @@ def _late_read():
         step_mod.start_async_fetch = start
 
 
+def sync_inventory(pairs: int, n: int = 10000) -> dict:
+    """``--sync-inventory``: the synchronizing calls of config 0's run at
+    ``n`` nodes by call site (sync debug mode "warn"), against the same
+    run under the transfer guard, ``pairs`` pairs in turns (module
+    docstring)."""
+    import warnings
+
+    device = torch.device("cuda")
+    cfg = slice_config(n, swim=True)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def run(guard: bool) -> dict:
+        state = init_state(cfg, seed=0, device=device)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            if not guard:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                res = run_sim(cfg, state, slice_schedule(), device=device,
+                              transfer_guard=guard, **RUN_ARGS)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        sites: dict = {}
+        for w in seen:
+            if "synchroniz" in str(w.message):
+                site = f"{os.path.relpath(w.filename, root)}:{w.lineno}"
+                sites[site] = sites.get(site, 0) + 1
+        return {"guard": guard, "converged_round": res.converged_round,
+                "rounds": res.rounds,
+                "wall_per_round_ms": res.wall_per_round_ms,
+                "digest": run_digest(state_to_numpy(res.state), res.metrics),
+                "host_reads": res.pipeline["host_reads"],
+                "sanctioned": res.transfer_guard, "sync_sites": sites}
+
+    run(False)  # warm-up: allocator growth, kernel build
+    runs = []
+    for i in range(pairs):
+        order = (False, True) if i % 2 == 0 else (True, False)
+        runs += [run(g) for g in order]
+    ms = {g: [r["wall_per_round_ms"] for r in runs if r["guard"] is g]
+          for g in (False, True)}
+    return {"nodes": n, "runs": runs,
+            "median_ms_unguarded": float(np.median(ms[False])),
+            "median_ms_guarded": float(np.median(ms[True])),
+            "digests_equal": len({r["digest"] for r in runs}) == 1,
+            "rounds_equal": len({r["converged_round"] for r in runs}) == 1}
+
+
 def host_read(pairs: int) -> dict:
     """The early read of the sweep gate's device predicate (started where
     the predicate is computed, read where the sweep is due) against the
@@ -2615,6 +2674,10 @@ def main(argv=None) -> dict:
                       help="the early read of the sweep gate against the "
                            "late read, PAIRS pairs on configs 0 and 6 at "
                            "10 000 nodes")
+    cell.add_argument("--sync-inventory", type=int, metavar="PAIRS",
+                      help="config 0 at 10 000 nodes under the sync debug "
+                           "mode's warn (its synchronizing calls by site) "
+                           "against the transfer guard, PAIRS pairs")
     cell.add_argument("--mesh-bytes", type=int, metavar="RANKS",
                       help="the bytes one rank of a RANKS-rank mesh "
                            "receives per round of config 0 at 10 000 "
@@ -2634,6 +2697,15 @@ def main(argv=None) -> dict:
                       card=torch.cuda.get_device_name(0),
                       nvidia_smi=mp.nvidia_smi())
         with open(os.path.join(args.out, "swim_churn.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        print(json.dumps(report))
+        return report
+    if args.sync_inventory:
+        report = dict(sync_inventory(args.sync_inventory),
+                      card=torch.cuda.get_device_name(0),
+                      nvidia_smi=mp.nvidia_smi())
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "sync_inventory.json"), "w") as f:
             json.dump(report, f, indent=1)
         print(json.dumps(report))
         return report

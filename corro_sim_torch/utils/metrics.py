@@ -114,6 +114,40 @@ CONFIG_DOWNGRADE_HELP = (
     "annotations carry the same provenance)"
 )
 
+# ---- corro_lint_*: static analysis + transfer-guard observability ----
+# The corro-lint analyzer (analysis/lint.py, `lint`) exports its run
+# profile as info counters:
+#   corro_lint_runs_total                    analyzer invocations
+#   corro_lint_files_scanned_total           files parsed
+#   corro_lint_findings_total{rule,severity} findings by rule (CL1xx)
+#   corro_lint_suppressions_total{rule}      `# corro-lint: ignore[...]`
+#                                            hits
+# The transfer guard (analysis/transfer_guard.py, armed by
+# CORRO_SIM_TRANSFER_GUARD=1 / run_sim(transfer_guard=True)) counts
+# every host read through the chunk loop's sanctioned points:
+#   corro_lint_sanctioned_transfers_total{point}
+LINT_RUNS_TOTAL = "corro_lint_runs_total"
+LINT_FILES_SCANNED_TOTAL = "corro_lint_files_scanned_total"
+LINT_FINDINGS_TOTAL = "corro_lint_findings_total"
+LINT_SUPPRESSIONS_TOTAL = "corro_lint_suppressions_total"
+LINT_SANCTIONED_TRANSFERS_TOTAL = "corro_lint_sanctioned_transfers_total"
+
+# ---- corro_audit_contract_*: the program-contract auditor
+# (analysis/contracts.py, `audit --contracts`), by family (vacuity |
+# determinism | memory | collectives):
+#   corro_audit_contract_checks_total{family}      contracts evaluated
+#   corro_audit_contract_violations_total{family}  budget violations +
+#                                                  manifest drift
+AUDIT_CONTRACT_CHECKS_TOTAL = "corro_audit_contract_checks_total"
+AUDIT_CONTRACT_VIOLATIONS_TOTAL = "corro_audit_contract_violations_total"
+
+# ---- corro_audit_key_*: the key-lineage auditor (analysis/keys.py,
+# `audit --keys`), by family (k1 | k2 | k3 | manifest):
+#   corro_audit_key_checks_total{family}      lineage checks evaluated
+#   corro_audit_key_violations_total{family}  violations + drift
+AUDIT_KEY_CHECKS_TOTAL = "corro_audit_key_checks_total"
+AUDIT_KEY_VIOLATIONS_TOTAL = "corro_audit_key_violations_total"
+
 # ---- corro_workload_* / corro_sub_latency_*: the production workload
 # engine (workload/, workload/harness.py). The load harness
 # drives a compiled traffic schedule through a LiveCluster with

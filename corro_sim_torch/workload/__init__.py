@@ -58,18 +58,20 @@ def _step_loop(cfg, rounds: int, write_rounds: int, seed: int, device,
 def assert_workload_vacuous(cfg=None, rounds: int = 10,
                             device=None) -> None:
     """The workload engine's vacuity claim (``corro-sim-torch load
-    --verify-vacuous``, tests): ``sim_step`` fed an all-idle schedule
-    through its ``writes=`` port is bit-identical, on every state leaf
-    and every metric of every round, to the sampler with writes
-    disabled. ``device``: where both runs happen (default ``cuda``).
+    --verify-vacuous``, tests), the JAX package's
+    ``assert_feature_vacuous(on_workload=)`` in two halves:
 
-    This is the runtime half of the JAX package's
-    ``assert_feature_vacuous(on_workload=)``. Its trace-level half (the
-    writes port is a distinct program, ``extra_eqns``, and the jaxpr
-    golden that pins the workload-off program) has no counterpart in the
-    port yet: it waits for the port's analysis tools (ROADMAP item 12)."""
+    - trace level — the write-schedule step is a DISTINCT program: its
+      fx graph differs in node count from the sampler's
+      (``analysis/fx_audit.py::extra_eqns``, traced on the CPU); the
+      fx golden pins the workload-off program (``audit``);
+    - runtime level — ``sim_step`` fed an all-idle schedule through its
+      ``writes=`` port is bit-identical, on every state leaf and every
+      metric of every round, to the sampler with writes disabled.
+      ``device``: where both runs happen (default ``cuda``)."""
     import numpy as np
 
+    from corro_sim_torch.analysis.fx_audit import extra_eqns
     from corro_sim_torch.device import resolve_device
 
     if cfg is None:
@@ -81,10 +83,14 @@ def assert_workload_vacuous(cfg=None, rounds: int = 10,
             write_rate=0.6,
         ).validate()
     dev = resolve_device(device)
+    # raised, not asserted: the check must hold under ``python -O`` too
+    if extra_eqns(cfg, cfg, workload_other=True) == 0:
+        raise AssertionError(
+            "workload program traces identical to the sampler program — "
+            "the writes port is not a distinct program")
     s0, m0 = _step_loop(cfg, rounds, 0, 3, dev)
     s1, m1 = _step_loop(cfg, rounds, 0, 3, dev,
                         workload=empty_workload(cfg.num_nodes, rounds))
-    # raised, not asserted: the check must hold under ``python -O`` too
     if s0.keys() != s1.keys():
         raise AssertionError("the two runs' states have different leaves")
     for k in s0:

@@ -28,8 +28,9 @@ CPU.
 Every test sets ``CORRO_BENCH_OUT`` and ``CORRO_PERF_LEDGER`` into
 ``tmp_path``. Walls (``WALL_FIELDS``, the pipeline's timings, a chunk's
 walls) are masked by name; ``step_eqns_*`` (the JAX package's jaxpr
-counts, null in the port), ``env``, ``sharding`` and ``devices`` (the JAX
-package's tests run on an 8-device CPU mesh) are compared by key.
+counts, the port's aten-node counts), ``env``, ``sharding`` and
+``devices`` (the JAX package's tests run on an 8-device CPU mesh) are
+compared by key.
 Tolerance: exact.
 """
 
@@ -277,9 +278,16 @@ def test_bench_without_a_card_is_unmeasured(tmp_path, monkeypatch):
 
 
 def test_waiting_commands_are_the_auditors_and_the_mesh():
-    """What still waits is the auditors' family; `run --mesh` and
-    `sweep --mesh` run (tests/test_torch_cli.py holds their reports)."""
-    assert set(p_cli.WAITING) == {"lint", "audit", "run --transfer-guard"}
+    """Nothing waits any more: the auditors' family (`lint`, `audit`,
+    `run --transfer-guard`) runs, as `run --mesh` and `sweep --mesh` do
+    (tests/test_torch_cli.py holds their reports)."""
+    assert not hasattr(p_cli, "WAITING")
+    parser = p_cli.build_parser()
+    (sub,) = [a for a in parser._actions if hasattr(a, "choices")
+              and isinstance(a.choices, dict) and "lint" in a.choices]
+    assert {"lint", "audit"} <= set(sub.choices)
+    args = parser.parse_args(["run", "--transfer-guard"])
+    assert args.transfer_guard is True
 
 
 # ------------------------------------------- the kernel-library cache

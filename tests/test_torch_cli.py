@@ -317,13 +317,28 @@ def test_mesh_refused_with_one_visible_device(capsys, monkeypatch):
 
 @pytest.mark.parametrize("what", sorted(WAITING_ARGV))
 def test_waiting_commands_exit_2_naming_the_module(what, capsys):
-    rc = p_cli.main(["--device", "cpu", *WAITING_ARGV[what]])
-    assert rc == 2
+    """The commands that once waited for the analysis tools (and exited
+    2 naming them) now run and exit 0: `lint` on the port's tree, `audit`
+    against the committed fx golden, `run --transfer-guard` with the
+    guard armed over the chunk loop."""
+    assert not hasattr(p_cli, "WAITING")
+    argv = {"lint": ["lint", "corro_sim_torch"],
+            "audit": ["audit", "--json"],
+            "run --transfer-guard": [
+                "run", "--transfer-guard", "--nodes", "16", "--rows",
+                "16", "--cols", "2", "--write-rounds", "4", "--chunk",
+                "8"]}[what]
+    assert argv[0] == WAITING_ARGV[what][0]
+    rc = p_cli.main(["--device", "cpu", *argv])
     out, err = capsys.readouterr()
-    assert out == ""
-    (line,) = err.splitlines()
-    module, item = p_cli.WAITING[what]
-    assert module in line and f"queue 1 item {item}" in line
+    assert rc == 0, out[-2000:] + err[-2000:]
+    if what == "audit":
+        rep = json.loads(out)
+        assert rep["ok"] and rep["golden_drift"] == []
+    elif what == "run --transfer-guard":
+        assert json.loads(out)["converged_round"] is not None
+    else:
+        assert ", 0 errors, 0 warnings" in out.strip().splitlines()[-1]
 
 
 def _subcommands(parser) -> set:

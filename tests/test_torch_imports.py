@@ -4,6 +4,7 @@ machine without CUDA unless asked for the CPU."""
 
 import ast
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -68,7 +69,14 @@ def test_port_imports_without_jax():
         " 'corro_sim_torch.__main__', 'corro_sim_torch.workload',"
         " 'corro_sim_torch.obs.ledger', 'corro_sim_torch.obs.doctor',"
         " 'corro_sim_torch.obs.profile',"
-        " 'corro_sim_torch.utils.compile_cache')"
+        " 'corro_sim_torch.utils.compile_cache',"
+        " 'corro_sim_torch.analysis', 'corro_sim_torch.analysis.rules',"
+        " 'corro_sim_torch.analysis.lint',"
+        " 'corro_sim_torch.analysis.transfer_guard',"
+        " 'corro_sim_torch.analysis.fx_audit',"
+        " 'corro_sim_torch.analysis.dataflow',"
+        " 'corro_sim_torch.analysis.contracts',"
+        " 'corro_sim_torch.analysis.keys', 'corro_sim_torch.io.native')"
         " if m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -104,6 +112,25 @@ def test_cli_imports_only_the_standard_library():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_lint_runs_without_torch_or_numpy(tmp_path):
+    """The lint is pure AST, as the JAX package's is: ``python -m
+    corro_sim_torch lint`` lints the port's tree and writes its JSON
+    report with torch and numpy shadowed by import bombs."""
+    for mod in ("torch", "numpy", "jax"):
+        (tmp_path / f"{mod}.py").write_text(
+            f'raise ImportError("{mod} blocked for the pure-AST test")\n')
+    env = dict(os.environ, PYTHONPATH=str(tmp_path))
+    out = tmp_path / "lint.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "corro_sim_torch", "lint", "corro_sim_torch",
+         "--out", str(out)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    rep = json.loads(out.read_text())
+    assert rep["findings"] == [] and rep["files_scanned"] > 100
 
 
 def test_cli_commands_refuse_without_cuda(tmp_path):

@@ -1,15 +1,18 @@
 """Parity of the port's Prometheus exposition with the JAX package's on
 the CPU.
 
-- The cases of tests/test_metrics.py for the families ported so far
-  (every case but the lint, audit-contract and audit-key families, whose
-  modules are not ported yet), each run as written on both packages by
-  tests/test_torch_serving.py's harness, with the names of the record
-  modules (``utils/compile_cache.py``, ``obs/ledger.py``,
-  ``obs/doctor.py``) rebound too. The compile-cache case drives its
+- Every case of tests/test_metrics.py, each run as written on both
+  packages by tests/test_torch_serving.py's harness, with the names of
+  the record modules (``utils/compile_cache.py``, ``obs/ledger.py``,
+  ``obs/doctor.py``) and the analysis modules (``analysis/lint.py``,
+  ``analysis/transfer_guard.py``, ``analysis/contracts.py``,
+  ``analysis/keys.py``) rebound too. The compile-cache case drives its
   probe with the JAX package's cache events; on the port's turn they are
   the port's kernel-library lookup events (a request, and a hit where
-  the lookup needed no build).
+  the lookup needed no build). The lint case lints the JAX package's
+  fixtures by path; on the port's turn each is the port's fixture of the
+  same name (``tests/fixtures/torch_lint/``), which holds the same
+  hazard for the port's rules.
 - The rendered text of the same clusters driven alike on both packages
   (full and windowed SWIM, the probe tracer, a scenario armed, a
   subscription), compared line by line with the wall-clock series masked
@@ -32,6 +35,7 @@ Tolerance: exact.
 """
 
 import importlib
+import os
 import re
 import types
 
@@ -54,14 +58,14 @@ from test_torch_cluster import BOTH, one_torch_thread  # noqa: F401
 from test_torch_serving import (  # noqa: F401 - a module fixture
     _BASIC, PAIRS, Bound, cases, reference_fixtures, run_both)
 
-# families whose modules wait for the port's tooling analogs
-WAITING = ("test_lint_family_renders_and_validates",
-           "test_audit_contract_family_renders_and_validates",
-           "test_audit_key_family_renders_and_validates")
+# cases that wait for a port module: none since the analysis tools
+WAITING = ()
 PARAMS = cases("test_metrics", WAITING)
-# the record modules whose names the compile-cache, perf-ledger and
-# doctor cases import
-RECORD_MODULES = ("utils.compile_cache", "obs.ledger", "obs.doctor")
+# the record and analysis modules whose names the compile-cache,
+# perf-ledger, doctor, lint and audit cases import
+RECORD_MODULES = ("utils.compile_cache", "obs.ledger", "obs.doctor",
+                  "analysis.lint", "analysis.transfer_guard",
+                  "analysis.contracts", "analysis.keys")
 
 
 def _record_pairs() -> list:
@@ -86,13 +90,21 @@ class RecordBound(Bound):
     pairs = PAIRS + _record_pairs()
 
     def port_extra(self, mp) -> None:
+        import corro_sim.analysis.lint as r_lint
         import corro_sim.utils as r_utils
+        from corro_sim_torch.analysis import lint as p_lint
         from corro_sim_torch.utils import compile_cache as p_cc
 
         mp.setattr(r_utils, "compile_cache", types.SimpleNamespace(
             _on_jax_event=p_cc._on_cache_event,
             _EVENT_REQUESTS=p_cc._EVENT_REQUESTS,
             _EVENT_HITS=p_cc._EVENT_HITS))
+        # the JAX package's lint fixtures read as the port's of the same
+        # name
+        mp.setattr(r_lint, "lint_paths", lambda paths: p_lint.lint_paths(
+            [p.replace(os.sep.join(("fixtures", "lint")),
+                       os.sep.join(("fixtures", "torch_lint")))
+             for p in paths]))
 
 
 @pytest.mark.parametrize("mod_name,name", PARAMS,
