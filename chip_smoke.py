@@ -3058,7 +3058,6 @@ def transfer_guard_phase(emit, n: int = 10000) -> int:
     from corro_sim_torch.convert import state_to_numpy
     from corro_sim_torch.core import merge_kernel as mk
     from corro_sim_torch.engine.driver import run_sim
-    from corro_sim_torch.engine import step as step_mod
     from corro_sim_torch.engine.state import init_state
     from corro_sim_torch.merge_probe import nvidia_smi
     from corro_sim_torch.profile_slice import (
@@ -3067,6 +3066,11 @@ def transfer_guard_phase(emit, n: int = 10000) -> int:
         slice_config,
         slice_schedule,
     )
+    from corro_sim_torch.utils.metrics import SWEEP_GATE_WAIT, histograms
+
+    def gate_wait_s() -> float:
+        h = histograms.get(SWEEP_GATE_WAIT)
+        return 0.0 if h is None else h.sum
 
     t_phase = time.perf_counter()
     cfg = slice_config(n, swim=True)
@@ -3076,7 +3080,7 @@ def transfer_guard_phase(emit, n: int = 10000) -> int:
         state = init_state(cfg, seed=0, device="cuda")
         torch.cuda.synchronize()
         mk.reset_launch_counts()
-        gate_wait0 = step_mod.SWEEP_GATE_WAIT_S[0]
+        gate_wait0 = gate_wait_s()
         caught = contextlib.nullcontext([])
         if not guard:
             caught = warnings.catch_warnings(record=True)
@@ -3104,7 +3108,7 @@ def transfer_guard_phase(emit, n: int = 10000) -> int:
             "host_reads": res.pipeline["host_reads"],
             "sanctioned": res.transfer_guard,
             "gate_wait_ms_per_round": 1e3 * (
-                step_mod.SWEEP_GATE_WAIT_S[0] - gate_wait0) / res.rounds,
+                gate_wait_s() - gate_wait0) / res.rounds,
             "fetch_wait_ms_per_round": (
                 1e3 * res.pipeline["fetch_wait_s"] / res.rounds),
         }

@@ -42,6 +42,17 @@ fed committed chunks only. At the convergence report they read the
 committed state's tables, which no queued chunk consumes. The probe
 tracer's per-chunk extraction (``cfg.probes``) reads its ``(K, N)``
 planes the same way.
+
+While a ``torch.profiler`` records (``profile_dir=`` or the caller's
+own), the loop's host work is ranges on the profiler's clock beside the
+step's (``utils/tracing.py::Tracer.stage``): the tracer's spans
+``corro.chunk`` (the sequential loop's chunk) and
+``corro.chunk_dispatch``, ``corro.chunk.stage`` (keys, schedule rows and
+write staging), ``corro.chunk.spec_copy`` (the speculative chunk's state
+copy), ``corro.chunk.resolve`` (the wait for a chunk's metrics) and
+``corro.chunk.commit`` (the host's bookkeeping of a committed chunk).
+The caller's ``on_chunk`` runs inside none of them, so a profiler it
+starts or stops cuts no range short.
 """
 
 from __future__ import annotations
@@ -680,7 +691,8 @@ def run_sim(
         use_repair = (select_repair(known_pend_live, we)
                       and not blocked_by_writes)
         staged, quiesced = None, [None] * chunk
-        with _tg_sanctioned("chunk_stage", tg):
+        with tracer.stage("corro.chunk.stage"), \
+                _tg_sanctioned("chunk_stage", tg):
             keys = chunk_keys(root, ci, chunk)
             alive_t = upload(alive, dev)
             part_t = upload(part, dev)
@@ -776,118 +788,121 @@ def run_sim(
         (converged or poisoned)."""
         nonlocal rounds, prev_writes, last_pend_live, poisoned
         nonlocal converged_round, repair_seen, repair_chunks, probe_p99_last
-        we, use_repair = inflight.we, inflight.use_repair
-        runner = "repair" if use_repair else "full"
-        if use_repair and not repair_seen:
-            counters.inc(
-                "corro_repair_program_switches_total",
-                help_="post-quiesce switches to the repair-specialized "
-                      "step",
-            )
-            flight.annotate(base + 1, "repair_program_switch")
-            repair_seen = True
-        if use_repair:
-            repair_chunks += 1
-        counters.inc("corro_chunk_dispatch_total",
-                     labels=f'{{runner="{runner}"}}',
-                     help_="chunk dispatches by program")
-        histograms.observe(
-            "corro_chunk_wall_seconds", chunk_elapsed,
-            labels=f'{{runner="{runner}"}}',
-            help_="per-chunk execution wall by program (pipelined mode: "
-                  "the commit-to-commit interval)",
-            buckets=SECONDS_BUCKETS,
-        )
-        metrics_chunks.append(m)
-        flight.record_rounds(base + 1, m)
-        flight.annotate(base + chunk, "chunk", chunk=ci, runner=runner,
-                        wall_s=round(chunk_elapsed, 6),
-                        **(annot_extra or {}))
-        for ev_r, ev_name, ev_attrs in schedule.events_in(base, chunk):
-            flight.annotate(ev_r + 1, "fault_event", kind=ev_name,
-                            **ev_attrs)
-            counters.inc("corro_fault_events_total",
-                         labels=f'{{kind="{ev_name}"}}',
-                         help_="scheduled fault events executed, by kind")
-        if workload is not None:
-            for ev_r, ev_name, ev_attrs in workload.events_in(base, chunk):
-                flight.annotate(ev_r + 1, "workload_event", kind=ev_name,
-                                **ev_attrs)
-                counters.inc("corro_workload_events_total",
-                             labels=f'{{kind="{ev_name}"}}',
-                             help_="scheduled workload events executed, "
-                                   "by kind")
-        if "fault_lost" in m:
-            for mk, cname in (
-                ("fault_lost", "corro_fault_lost_total"),
-                ("fault_dup", "corro_fault_dup_total"),
-                ("fault_blackholed", "corro_fault_blackholed_total"),
-                ("fault_sync_lost", "corro_fault_sync_lost_total"),
-            ):
-                delta = int(np.asarray(m[mk]).sum()) if mk in m else 0
-                if delta:
-                    counters.inc(cname, n=delta,
-                                 help_="injected fault effects "
-                                       "(corro_sim_torch/faults/)")
-        if "node_fault_wipes" in m:
-            for mk, cname, chelp in (
-                ("node_fault_wipes", "corro_node_fault_wipes_total",
-                 "crash-restart wipes executed (amnesia + stale)"),
-                ("node_fault_straggling",
-                 "corro_node_fault_straggling_total",
-                 "straggler node-rounds parked by the duty cycle"),
-                ("node_fault_recovering",
-                 "corro_node_fault_recovering_total",
-                 "node-rounds spent resyncing a wiped write cursor"),
-            ):
-                delta = int(np.asarray(m[mk]).sum())
-                if delta:
-                    counters.inc(cname, n=delta, help_=chelp)
-        if inflight.boundary is not None:
-            # the JAX package's cadence: one sanctioned read per armed
-            # reader, the view's copy inside the first
-            view = None
-            if scorecard is not None:
-                t = time.perf_counter()
-                with _tg_sanctioned("invariants", tg):
-                    view = _boundary_view(inflight.boundary)
-                    scorecard.on_chunk(view, m, inflight.alive,
-                                       inflight.part, base)
-                check_seconds["scorecard"] += time.perf_counter() - t
-            if invariants is not None:
-                t = time.perf_counter()
-                with _tg_sanctioned("invariants", tg):
-                    view = view or _boundary_view(inflight.boundary)
-                    found = list(invariants.on_chunk(
-                        view, m, inflight.alive, inflight.part, base))
-                check_seconds["invariants"] += time.perf_counter() - t
-                violations_found(found, base + 1)
-        if prev_writes and not bool(we.any()):
-            flight.annotate(base + 1, "schedule_transition",
-                            kind="write_phase_end")
-        prev_writes = bool(we.any())
-        last_pend_live = int(m["pend_live"][-1])
-        rounds = base + chunk
-        if inflight.probe is not None:
-            # a probe whose p99 delivery lag worsened this chunk (a late
-            # straggler stretched the tail) annotates the flight record
-            with _tg_sanctioned("probe_extract", tg):
-                planes = dict(zip(PROBE_FIELDS, inflight.probe.resolve()))
-                p99 = ProbeTrace.from_state(
-                    cfg, types.SimpleNamespace(
-                        probe=types.SimpleNamespace(**planes))
-                ).delivery_p99()
-            if (p99 is not None and probe_p99_last is not None
-                    and p99 > probe_p99_last):
-                flight.annotate(rounds, "probe_p99_regression", p99=p99,
-                                prev=probe_p99_last)
+        with tracer.stage("corro.chunk.commit"):
+            we, use_repair = inflight.we, inflight.use_repair
+            runner = "repair" if use_repair else "full"
+            if use_repair and not repair_seen:
                 counters.inc(
-                    "corro_probe_p99_regressions_total",
-                    help_="chunks in which a probe's p99 delivery lag "
-                          "worsened",
+                    "corro_repair_program_switches_total",
+                    help_="post-quiesce switches to the repair-specialized "
+                          "step",
                 )
-            if p99 is not None:
-                probe_p99_last = p99
+                flight.annotate(base + 1, "repair_program_switch")
+                repair_seen = True
+            if use_repair:
+                repair_chunks += 1
+            counters.inc("corro_chunk_dispatch_total",
+                         labels=f'{{runner="{runner}"}}',
+                         help_="chunk dispatches by program")
+            histograms.observe(
+                "corro_chunk_wall_seconds", chunk_elapsed,
+                labels=f'{{runner="{runner}"}}',
+                help_="per-chunk execution wall by program (pipelined mode: "
+                      "the commit-to-commit interval)",
+                buckets=SECONDS_BUCKETS,
+            )
+            metrics_chunks.append(m)
+            flight.record_rounds(base + 1, m)
+            flight.annotate(base + chunk, "chunk", chunk=ci, runner=runner,
+                            wall_s=round(chunk_elapsed, 6),
+                            **(annot_extra or {}))
+            for ev_r, ev_name, ev_attrs in schedule.events_in(base, chunk):
+                flight.annotate(ev_r + 1, "fault_event", kind=ev_name,
+                                **ev_attrs)
+                counters.inc("corro_fault_events_total",
+                             labels=f'{{kind="{ev_name}"}}',
+                             help_="scheduled fault events executed, by kind")
+            if workload is not None:
+                for ev_r, ev_name, ev_attrs in workload.events_in(base, chunk):
+                    flight.annotate(ev_r + 1, "workload_event", kind=ev_name,
+                                    **ev_attrs)
+                    counters.inc("corro_workload_events_total",
+                                 labels=f'{{kind="{ev_name}"}}',
+                                 help_="scheduled workload events executed, "
+                                       "by kind")
+            if "fault_lost" in m:
+                for mk, cname in (
+                    ("fault_lost", "corro_fault_lost_total"),
+                    ("fault_dup", "corro_fault_dup_total"),
+                    ("fault_blackholed", "corro_fault_blackholed_total"),
+                    ("fault_sync_lost", "corro_fault_sync_lost_total"),
+                ):
+                    delta = int(np.asarray(m[mk]).sum()) if mk in m else 0
+                    if delta:
+                        counters.inc(cname, n=delta,
+                                     help_="injected fault effects "
+                                           "(corro_sim_torch/faults/)")
+            if "node_fault_wipes" in m:
+                for mk, cname, chelp in (
+                    ("node_fault_wipes", "corro_node_fault_wipes_total",
+                     "crash-restart wipes executed (amnesia + stale)"),
+                    ("node_fault_straggling",
+                     "corro_node_fault_straggling_total",
+                     "straggler node-rounds parked by the duty cycle"),
+                    ("node_fault_recovering",
+                     "corro_node_fault_recovering_total",
+                     "node-rounds spent resyncing a wiped write cursor"),
+                ):
+                    delta = int(np.asarray(m[mk]).sum())
+                    if delta:
+                        counters.inc(cname, n=delta, help_=chelp)
+            if inflight.boundary is not None:
+                # the JAX package's cadence: one sanctioned read per armed
+                # reader, the view's copy inside the first
+                view = None
+                if scorecard is not None:
+                    t = time.perf_counter()
+                    with _tg_sanctioned("invariants", tg):
+                        view = _boundary_view(inflight.boundary)
+                        scorecard.on_chunk(view, m, inflight.alive,
+                                           inflight.part, base)
+                    check_seconds["scorecard"] += time.perf_counter() - t
+                if invariants is not None:
+                    t = time.perf_counter()
+                    with _tg_sanctioned("invariants", tg):
+                        view = view or _boundary_view(inflight.boundary)
+                        found = list(invariants.on_chunk(
+                            view, m, inflight.alive, inflight.part, base))
+                    check_seconds["invariants"] += time.perf_counter() - t
+                    violations_found(found, base + 1)
+            if prev_writes and not bool(we.any()):
+                flight.annotate(base + 1, "schedule_transition",
+                                kind="write_phase_end")
+            prev_writes = bool(we.any())
+            last_pend_live = int(m["pend_live"][-1])
+            rounds = base + chunk
+            if inflight.probe is not None:
+                # a probe whose p99 delivery lag worsened this chunk (a late
+                # straggler stretched the tail) annotates the flight record
+                with _tg_sanctioned("probe_extract", tg):
+                    planes = dict(zip(PROBE_FIELDS, inflight.probe.resolve()))
+                    p99 = ProbeTrace.from_state(
+                        cfg, types.SimpleNamespace(
+                            probe=types.SimpleNamespace(**planes))
+                    ).delivery_p99()
+                if (p99 is not None and probe_p99_last is not None
+                        and p99 > probe_p99_last):
+                    flight.annotate(rounds, "probe_p99_regression", p99=p99,
+                                    prev=probe_p99_last)
+                    counters.inc(
+                        "corro_probe_p99_regressions_total",
+                        help_="chunks in which a probe's p99 delivery lag "
+                              "worsened",
+                    )
+                if p99 is not None:
+                    probe_p99_last = p99
+        # the caller's callback runs outside the range: a profiler it
+        # starts or stops finds no program range open
         if on_chunk is not None:
             on_chunk({
                 "chunk": ci,
@@ -899,42 +914,43 @@ def run_sim(
                 "gap": float(m["gap"][-1]),
                 "pend_live": last_pend_live,
             })
-        if m["log_wrapped"].any():
-            # a live node lagged some actor past log_capacity: gathers may
-            # have read overwritten slots, so convergence cannot be trusted
-            poisoned = True
-            wrapped_at = base + 1 + int(np.argmax(m["log_wrapped"] != 0))
-            flight.annotate(wrapped_at, "log_wrapped")
-            return False
-        if stop_on_convergence:
-            conv = converged_at(m["gap"], base, chunk, min_rounds)
-            if conv is not None:
-                converged_round = conv
-                flight.annotate(converged_round, "converged")
-                # the convergence report is checked on the committed
-                # state, which no queued chunk consumes
-                alive_now, part_now = inflight.alive[-1], inflight.part[-1]
-                done = (inflight.state_out if mesh is None
-                        else inflight.whole)
-                if scorecard is not None and done is not None:
-                    t = time.perf_counter()
-                    with _tg_sanctioned("invariants", tg):
-                        scorecard.on_converged(done, alive_now, part_now)
-                    check_seconds["scorecard"] += time.perf_counter() - t
-                if invariants is not None and done is not None:
-                    t = time.perf_counter()
-                    with _tg_sanctioned("invariants", tg):
-                        found = list(invariants.on_converged(
-                            done, alive_now, part_now))
-                    check_seconds["invariants"] += time.perf_counter() - t
-                    violations_found(found, converged_round)
+        with tracer.stage("corro.chunk.commit"):
+            if m["log_wrapped"].any():
+                # a live node lagged some actor past log_capacity: gathers may
+                # have read overwritten slots, so convergence cannot be trusted
+                poisoned = True
+                wrapped_at = base + 1 + int(np.argmax(m["log_wrapped"] != 0))
+                flight.annotate(wrapped_at, "log_wrapped")
                 return False
-        if checkpoint_due(ci):
-            # only a continuing run reaches here: a token never re-animates
-            # a finished run
-            with _tg_sanctioned("checkpoint", tg):
-                save_checkpoint(ci, inflight)
-        return True
+            if stop_on_convergence:
+                conv = converged_at(m["gap"], base, chunk, min_rounds)
+                if conv is not None:
+                    converged_round = conv
+                    flight.annotate(converged_round, "converged")
+                    # the convergence report is checked on the committed
+                    # state, which no queued chunk consumes
+                    alive_now, part_now = inflight.alive[-1], inflight.part[-1]
+                    done = (inflight.state_out if mesh is None
+                            else inflight.whole)
+                    if scorecard is not None and done is not None:
+                        t = time.perf_counter()
+                        with _tg_sanctioned("invariants", tg):
+                            scorecard.on_converged(done, alive_now, part_now)
+                        check_seconds["scorecard"] += time.perf_counter() - t
+                    if invariants is not None and done is not None:
+                        t = time.perf_counter()
+                        with _tg_sanctioned("invariants", tg):
+                            found = list(invariants.on_converged(
+                                done, alive_now, part_now))
+                        check_seconds["invariants"] += time.perf_counter() - t
+                        violations_found(found, converged_round)
+                    return False
+            if checkpoint_due(ci):
+                # only a continuing run reaches here: a token never re-animates
+                # a finished run
+                with _tg_sanctioned("checkpoint", tg):
+                    save_checkpoint(ci, inflight)
+            return True
 
     def save_checkpoint(ci, inflight: _InFlight) -> None:
         nonlocal checkpoint_seconds
@@ -976,7 +992,8 @@ def run_sim(
         """The chunk's metrics on the host, and the seconds the host
         waited for them."""
         t_f = time.perf_counter()
-        with _tg_sanctioned("metric_resolve", tg):
+        with tracer.stage("corro.chunk.resolve"), \
+                _tg_sanctioned("metric_resolve", tg):
             m = unpack_metrics(*inflight.fetch.resolve(), inflight.ikeys)
         waited = time.perf_counter() - t_f
         histograms.observe(PIPELINE_FETCH_WAIT, waited,
@@ -1037,7 +1054,8 @@ def run_sim(
                     # the speculative chunk runs on a copy: the step
                     # consumes its input, and pending's state stays the
                     # committed state and the re-dispatch source
-                    spec_src = clone_state(pending.state_out)
+                    with tracer.stage("corro.chunk.spec_copy"):
+                        spec_src = clone_state(pending.state_out)
                     copy_bytes += state_nbytes(spec_src)
                     nxt = dispatch(pending.ci + 1, next_base, spec_src,
                                    last_pend_live, bool(pending.we.any()),

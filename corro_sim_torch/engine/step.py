@@ -58,6 +58,18 @@ peers' rows fetched. Draws keep their global shapes, so each rank's
 share is the one-device draw's. Counts are reduced over the ranks in
 int32 or int64, so the metrics are the one-device values, and the sweep
 gate's device predicate is reduced before any rank reads it.
+
+While a ``torch.profiler`` records, a round is a range ``corro.step``
+holding the sibling ranges of its stages, on the profiler's clock
+(``utils/tracing.py::Tracer.stage``): ``corro.step.writes`` (key split
+through the cleared stamps), ``.gossip`` (ring-0, dissemination, the
+in-flight ring, link faults, probe origins, and again the rebroadcast
+and enqueue), ``.delivery`` (the fused merge and RTT samples),
+``.swim``, ``.sync_gate`` (the gate's read), ``.sync`` (the sweep and
+the probe sync marks) and ``.bookkeeping`` (gap, partial versions, HLC
+tick, metrics); the repair step opens those it has. With no profiler
+recording they build nothing. The host's wait on the gate's read is the
+``corro_sweep_gate_wait_seconds`` histogram.
 """
 
 from __future__ import annotations
@@ -118,8 +130,15 @@ from corro_sim_torch.membership.swim_window import (
     window_metrics,
 )
 from corro_sim_torch.sync.sync import sync_round
+from corro_sim_torch.utils.metrics import (
+    SECONDS_BUCKETS,
+    SWEEP_GATE_WAIT,
+    SWEEP_GATE_WAIT_HELP,
+    histograms,
+)
 from corro_sim_torch.utils.runtime import start_async_fetch
 from corro_sim_torch.utils.sort import scatter_max
+from corro_sim_torch.utils.tracing import tracer
 
 # The step's PRNG stream map: the round key splits once into these
 # lanes, in this order (the JAX package's STEP_KEY_STREAMS). Reordering
@@ -146,8 +165,6 @@ _SYNC_METRICS = ("sync_pairs", "sync_requests", "sync_rejections",
 # where the kernel takes the sweep.
 SWEEP_GATES = dict.fromkeys(
     ("host_on", "host_off", "read_on", "read_off"), 0)
-# the host's seconds waiting on those reads (the copy's event), summed
-SWEEP_GATE_WAIT_S = [0.0]
 
 
 def _reachable_fn(alive: torch.Tensor, part: torch.Tensor):
@@ -345,12 +362,13 @@ def sim_step(
     same on every rank (module docstring)."""
     args = (key, alive, part, write_enable, round_idx, repair, writes,
             quiesced, knobs)
-    if mesh is None:
-        return _step(cfg, state, *args, _Shards(cfg, None))
-    state = _mesh_enter(cfg, state, mesh)
-    new_state, metrics = _step(cfg, state, *args,
-                               _Shards(cfg, mesh, state.log))
-    return _mesh_exit(cfg, new_state, mesh), metrics
+    with tracer.stage("corro.step"):
+        if mesh is None:
+            return _step(cfg, state, *args, _Shards(cfg, None))
+        state = _mesh_enter(cfg, state, mesh)
+        new_state, metrics = _step(cfg, state, *args,
+                                   _Shards(cfg, mesh, state.log))
+        return _mesh_exit(cfg, new_state, mesh), metrics
 
 
 def _step(cfg, state, key, alive, part, write_enable, round_idx, repair,
@@ -367,286 +385,294 @@ def _step(cfg, state, key, alive, part, write_enable, round_idx, repair,
     s = cfg.seqs_per_version
     cpv = cfg.chunks_per_version
     dev = state.hlc.device
-    rows_idx = torch.arange(n, dtype=torch.int32, device=dev)
-    (k_write, k_row, k_col, k_val, k_del, k_ncell, k_bcast, k_swim,
-     k_sync) = prng.split(key, len(STEP_KEY_STREAMS))
-    reach = _reachable_fn(alive, part)
-    state, nf = _node_fault_prologue(cfg, state, round_idx, sw, sh)
-    fl = _fault_lane(cfg, state, key, sw)
-    view = membership_view(cfg, state.swim, n)
-    lo = sh.r0  # this rank's first node
+    with tracer.stage("corro.step.writes"):
+        rows_idx = torch.arange(n, dtype=torch.int32, device=dev)
+        (k_write, k_row, k_col, k_val, k_del, k_ncell, k_bcast, k_swim,
+         k_sync) = prng.split(key, len(STEP_KEY_STREAMS))
+        reach = _reachable_fn(alive, part)
+        state, nf = _node_fault_prologue(cfg, state, round_idx, sw, sh)
+        fl = _fault_lane(cfg, state, key, sw)
+        view = membership_view(cfg, state.swim, n)
+        lo = sh.r0  # this rank's first node
 
-    # ---------------------------------------------------------- local writes
-    if writes is not None and not (
-            sw is not None and cfg.sweep.workload
-            and not bool(sw["use_workload"])):
-        writers, w_row_s, w_col, w_val, w_del, w_ncells = writes
-        writers = writers & alive
-        w_del = w_del & writers
-    else:
-        writers, w_row_s, w_col, w_val, w_del, w_ncells = _sample_writes(
-            cfg, state, (k_write, k_row, k_col, k_val, k_del, k_ncell),
-            alive, write_enable)
-        # the sampler draws no writer outside the write phase
-        quiesced = None if write_enable and cfg.write_rate > 0 else True
-    if nf is not None:
-        # post-wipe write gate (faults/nodes.py): a restarted node mints
-        # no version until anti-entropy has served its own actor's
-        # history back; identically all-pass absent wipes
-        writers = writers & ~(
-            recovering_mask(state.book, state.log, mesh) & alive)
-        w_del = w_del & writers
-        if nf["wipes"] and quiesced is False:
-            # the gate may silence every scheduled writer, which only
-            # the device sees
-            quiesced = None
-
-    # each rank writes its own writers' rows; the change records are
-    # gathered for the log and the ownership fold
-    table, ch_cv, ch_cl, ch_vr = local_write(
-        state.table, sh.rows(rows_idx), sh.rows(w_row_s), sh.rows(w_col),
-        sh.rows(w_val), sh.rows(w_del), sh.rows(w_ncells), sh.rows(writers),
-        row_lo=lo,
-    )
-    if mesh is not None:
-        ch_cv, ch_cl, ch_vr = (mesh.gather(x) for x in (ch_cv, ch_cl, ch_vr))
-    log, w_ver = append_changesets(
-        state.log, rows_idx, w_row_s, w_col, ch_vr, ch_cv, ch_cl, w_ncells,
-        writers, actor_lo=sh.log_lo,
-    )
-    # self-bookkeeping: a node's own writes are trivially in order
-    head = state.book.head.clone()
-    loc = torch.arange(head.shape[0], device=dev)
-    head[loc, loc + lo] += sh.rows(writers).to(torch.int32)
-    book = dataclasses.replace(state.book, head=head)
-    # ring-wrap tripwire and the pre-delivery repair signal, from the
-    # post-write log heads against the pre-delivery bookkeeping
-    log_wrapped, behind_pre = _lag_signals(log, state.book, alive, sh)
-    gate = _sync_gate(cfg, round_idx, quiesced, behind_pre, writers)
-
-    # global ownership fold: which versions lost cells to this round
-    w_cell_live = writers[:, None] & (
-        torch.arange(s, dtype=torch.int32, device=dev)[None, :]
-        < w_ncells[:, None]
-    )
-    rows_s = rows_idx[:, None].expand(n, s)
-    pre_cleared = log.cleared
-    own, log = update_ownership(
-        state.own, log,
-        rows_s.reshape(-1),
-        w_ver[:, None].expand(n, s).reshape(-1),
-        w_row_s.reshape(-1),
-        w_col.reshape(-1),
-        ch_cv.reshape(-1),
-        ch_vr.reshape(-1),
-        torch.where(w_del[:, None], NEG, rows_s).reshape(-1),
-        ch_cl.reshape(-1),
-        w_cell_live.reshape(-1),
-        w_del[:, None].expand(n, s).reshape(-1),
-        actor_lo=sh.log_lo,
-    )
-    # each version cleared this round is stamped with the round's
-    # write-phase clock (store_empty_changeset, change.rs:267-389)
-    newly_cleared = log.cleared & ~pre_cleared
-    if mesh is not None and sh.log_lo is None:
-        # a replicated log: this rank's actors' rows of the stamps
-        a0, a1 = mesh.bounds(newly_cleared.shape[0])
-        newly_cleared = newly_cleared[a0:a1]
-    writer_ts = torch.where(writers, state.hlc, -1).max()
-    cleared_hlc = torch.where(
-        newly_cleared, torch.maximum(state.cleared_hlc, writer_ts),
-        state.cleared_hlc,
-    )
-
-    # ------------------------------------------------- eager ring-0 messages
-    # every chunk of a fresh local changeset goes to every ring-0 peer
-    r0 = state.ring0.shape[1]
-    e_dst, e_src, e_ver, e_valid, e_chunk = _tile_chunks(
-        cpv, state.ring0.reshape(-1), rows_idx.repeat_interleave(r0),
-        w_ver.repeat_interleave(r0), writers.repeat_interleave(r0),
-    )
-    active = None if nf is None else nf["active"]
-    if active is not None:
-        # a parked straggler skips this round's eager sends; its write
-        # sits in its own ring and goes out on its next active round
-        e_valid = e_valid & active[e_src.long()]
-
-    # ------------------------------------------------- gossip dissemination
-    gossip, g_dst, g_src, g_actor, g_ver, g_chunk, g_valid = broadcast_step(
-        state.gossip, k_bcast, alive if active is None else alive & active,
-        sh.view(view), cfg.fanout,
-        emit_slots=cfg.emit_slots, round_idx=round_idx, need_chunk=cpv > 1,
-    )
-    dst = torch.cat([e_dst, g_dst])
-    src = torch.cat([e_src, g_src])
-    actor = torch.cat([e_src, g_actor])
-    ver = torch.cat([e_ver, g_ver])
-    chunk = torch.cat([e_chunk, g_chunk])
-    valid = torch.cat([e_valid, g_valid])
-    msgs_sent = valid.sum(dtype=torch.int32)  # emissions, pre-delay split
-
-    # ------------------------------------------------ in-flight latency
-    # a lane whose link delay d > 1 parks in a ring slot and re-enters
-    # the delivery lanes d - 1 rounds later; it parks only if its link is
-    # up at emission, and reachability is checked again at delivery.
-    # Matured lanes merge the sender's current clock.
-    inflight = state.inflight
-    parked = None  # the conservation counters of the ring, faults on
-    if cfg.inflight_slots:
-        slot = round_idx % cfg.inflight_slots
-        mat = inflight[slot].clone()  # (6, L) lanes maturing this round
-        far = valid & (link_delay(cfg, src, dst) > 1)
-        up = reach(src, dst)
-        park_ok = far & up
-        if fl is not None:
-            parked = {
-                "fault_parked": park_ok.sum(dtype=torch.int32),
-                "fault_emit_lost": (far & ~up).sum(dtype=torch.int32),
-                "fault_matured": mat[5].sum(dtype=torch.int32),
-            }
-        inflight[slot] = torch.stack([
-            x.to(torch.int32) for x in (dst, src, actor, ver, chunk, park_ok)
-        ])
-        dst = torch.cat([dst, mat[0]])
-        src = torch.cat([src, mat[1]])
-        actor = torch.cat([actor, mat[2]])
-        ver = torch.cat([ver, mat[3]])
-        chunk = torch.cat([chunk, mat[4]])
-        valid = torch.cat([valid & ~far, mat[5].bool()])
-    delivered = valid & reach(src, dst)
-    fault_metrics = {}
-    if fl is not None:
-        # the broadcast transport point: deliverable lanes die to the
-        # blackhole mask or the loss draw, or arrive twice (accounted
-        # only: every merge is idempotent per (dst, actor, ver, chunk))
-        zero = _i32(0, dev)
-        fault_metrics["fault_unreachable"] = (valid & ~delivered).sum(
-            dtype=torch.int32)
-        if fl["bh"] is not None:
-            holed = delivered & fl["bh"][src.long(), dst.long()]
-            delivered = delivered & ~holed
-            fault_metrics["fault_blackholed"] = holed.sum(dtype=torch.int32)
+        # ------------------------------------------------------ local writes
+        if writes is not None and not (
+                sw is not None and cfg.sweep.workload
+                and not bool(sw["use_workload"])):
+            writers, w_row_s, w_col, w_val, w_del, w_ncells = writes
+            writers = writers & alive
+            w_del = w_del & writers
         else:
-            fault_metrics["fault_blackholed"] = zero
-        keep, dup = link_fault_masks(fl["conf"], fl["k_link"], dst,
-                                     fl["burst"])
-        fault_metrics["fault_lost"] = (delivered & ~keep).sum(
-            dtype=torch.int32)
-        delivered = delivered & keep
-        fault_metrics["fault_dup"] = (delivered & dup).sum(dtype=torch.int32)
-        fault_metrics["fault_delivered"] = delivered.sum(dtype=torch.int32)
-        # conservation accounting for the invariant checker: emissions
-        # that parked or died at emission, and parked lanes maturing
-        fault_metrics.update(parked or dict.fromkeys(
-            ("fault_parked", "fault_emit_lost", "fault_matured"), zero))
-        fault_metrics["fault_burst_nodes"] = _burst_nodes(fl)
+            writers, w_row_s, w_col, w_val, w_del, w_ncells = _sample_writes(
+                cfg, state, (k_write, k_row, k_col, k_val, k_del, k_ncell),
+                alive, write_enable)
+            # the sampler draws no writer outside the write phase
+            quiesced = None if write_enable and cfg.write_rate > 0 else True
+        if nf is not None:
+            # post-wipe write gate (faults/nodes.py): a restarted node mints
+            # no version until anti-entropy has served its own actor's
+            # history back; identically all-pass absent wipes
+            writers = writers & ~(
+                recovering_mask(state.book, state.log, mesh) & alive)
+            w_del = w_del & writers
+            if nf["wipes"] and quiesced is False:
+                # the gate may silence every scheduled writer, which only
+                # the device sees
+                quiesced = None
 
-    # ------------------------------------------------------- probe origins
-    probe = state.probe
-    if cfg.probes:
-        probe = probe_write_update(probe, state.round, writers, w_ver)
-
-    # --------------------------------------- fused delivery merge (1 pass)
-    dv = delivery_pass(
-        cfg, table, book, log, state.hlc, dst, src, actor, ver, chunk,
-        delivered, probe=probe, round_=state.round, mesh=mesh,
-    )
-    table, book, probe = dv.table, dv.book, dv.probe
-
-    # ------------------------------------------------- RTT samples + rings
-    # every landed lane is an RTT sample, capped or not; the rings are
-    # recomputed every ring_update_interval rounds, and the new ring-0
-    # takes the next round's eager sends
-    rtt, ring0 = state.rtt, state.ring0
-    if cfg.rtt_rings:
-        # each rank's rows: lanes to other shards fall out of range
-        rtt = observe_rtt(cfg, rtt, dv.dst, dv.src, dv.delivered_precap,
-                          row_lo=lo)
-        iv = cfg.ring_update_interval
-        if round_idx % iv == iv - 1:
-            ring0 = recompute_ring0(rtt, sh.rows(ring0), lo)
-            if mesh is not None:
-                ring0 = mesh.gather(ring0)
-
-    # ------------------------------------------------- rebroadcast + enqueue
-    if cpv <= cfg.pend_slots:
-        # own-write lanes are node-major with cpv lanes per node, so the
-        # ring-slot rank is the lane index
-        gossip = enqueue_own(
-            gossip, rows_idx.repeat_interleave(cpv),
-            w_ver.repeat_interleave(cpv),
-            torch.arange(cpv, dtype=torch.int32, device=dev).repeat(n),
-            writers, cfg.max_transmissions, cpv,
+        # each rank writes its own writers' rows; the change records are
+        # gathered for the log and the ownership fold
+        table, ch_cv, ch_cl, ch_vr = local_write(
+            state.table, sh.rows(rows_idx), sh.rows(w_row_s), sh.rows(w_col),
+            sh.rows(w_val), sh.rows(w_del), sh.rows(w_ncells), sh.rows(writers),
+            row_lo=lo,
         )
-    else:
-        # degenerate ring (cpv > pend_slots): the grouped path's overflow
-        # rotation picks which chunks survive
-        wq_dst, wq_actor, wq_ver, wq_valid, wq_chunk = _tile_chunks(
-            cpv, rows_idx, rows_idx, w_ver, writers
+        if mesh is not None:
+            ch_cv, ch_cl, ch_vr = (mesh.gather(x) for x in (ch_cv, ch_cl, ch_vr))
+        log, w_ver = append_changesets(
+            state.log, rows_idx, w_row_s, w_col, ch_vr, ch_cv, ch_cl, w_ncells,
+            writers, actor_lo=sh.log_lo,
         )
+        # self-bookkeeping: a node's own writes are trivially in order
+        head = state.book.head.clone()
+        loc = torch.arange(head.shape[0], device=dev)
+        head[loc, loc + lo] += sh.rows(writers).to(torch.int32)
+        book = dataclasses.replace(state.book, head=head)
+        # ring-wrap tripwire and the pre-delivery repair signal, from the
+        # post-write log heads against the pre-delivery bookkeeping
+        log_wrapped, behind_pre = _lag_signals(log, state.book, alive, sh)
+        gate = _sync_gate(cfg, round_idx, quiesced, behind_pre, writers)
+
+        # global ownership fold: which versions lost cells to this round
+        w_cell_live = writers[:, None] & (
+            torch.arange(s, dtype=torch.int32, device=dev)[None, :]
+            < w_ncells[:, None]
+        )
+        rows_s = rows_idx[:, None].expand(n, s)
+        pre_cleared = log.cleared
+        own, log = update_ownership(
+            state.own, log,
+            rows_s.reshape(-1),
+            w_ver[:, None].expand(n, s).reshape(-1),
+            w_row_s.reshape(-1),
+            w_col.reshape(-1),
+            ch_cv.reshape(-1),
+            ch_vr.reshape(-1),
+            torch.where(w_del[:, None], NEG, rows_s).reshape(-1),
+            ch_cl.reshape(-1),
+            w_cell_live.reshape(-1),
+            w_del[:, None].expand(n, s).reshape(-1),
+            actor_lo=sh.log_lo,
+        )
+        # each version cleared this round is stamped with the round's
+        # write-phase clock (store_empty_changeset, change.rs:267-389)
+        newly_cleared = log.cleared & ~pre_cleared
+        if mesh is not None and sh.log_lo is None:
+            # a replicated log: this rank's actors' rows of the stamps
+            a0, a1 = mesh.bounds(newly_cleared.shape[0])
+            newly_cleared = newly_cleared[a0:a1]
+        writer_ts = torch.where(writers, state.hlc, -1).max()
+        cleared_hlc = torch.where(
+            newly_cleared, torch.maximum(state.cleared_hlc, writer_ts),
+            state.cleared_hlc,
+        )
+
+    with tracer.stage("corro.step.gossip"):
+        # --------------------------------------------- eager ring-0 messages
+        # every chunk of a fresh local changeset goes to every ring-0 peer
+        r0 = state.ring0.shape[1]
+        e_dst, e_src, e_ver, e_valid, e_chunk = _tile_chunks(
+            cpv, state.ring0.reshape(-1), rows_idx.repeat_interleave(r0),
+            w_ver.repeat_interleave(r0), writers.repeat_interleave(r0),
+        )
+        active = None if nf is None else nf["active"]
+        if active is not None:
+            # a parked straggler skips this round's eager sends; its write
+            # sits in its own ring and goes out on its next active round
+            e_valid = e_valid & active[e_src.long()]
+
+        # --------------------------------------------- gossip dissemination
+        gossip, g_dst, g_src, g_actor, g_ver, g_chunk, g_valid = broadcast_step(
+            state.gossip, k_bcast, alive if active is None else alive & active,
+            sh.view(view), cfg.fanout,
+            emit_slots=cfg.emit_slots, round_idx=round_idx, need_chunk=cpv > 1,
+        )
+        dst = torch.cat([e_dst, g_dst])
+        src = torch.cat([e_src, g_src])
+        actor = torch.cat([e_src, g_actor])
+        ver = torch.cat([e_ver, g_ver])
+        chunk = torch.cat([e_chunk, g_chunk])
+        valid = torch.cat([e_valid, g_valid])
+        msgs_sent = valid.sum(dtype=torch.int32)  # emissions, pre-delay split
+
+        # ------------------------------------------------ in-flight latency
+        # a lane whose link delay d > 1 parks in a ring slot and re-enters
+        # the delivery lanes d - 1 rounds later; it parks only if its link is
+        # up at emission, and reachability is checked again at delivery.
+        # Matured lanes merge the sender's current clock.
+        inflight = state.inflight
+        parked = None  # the conservation counters of the ring, faults on
+        if cfg.inflight_slots:
+            slot = round_idx % cfg.inflight_slots
+            mat = inflight[slot].clone()  # (6, L) lanes maturing this round
+            far = valid & (link_delay(cfg, src, dst) > 1)
+            up = reach(src, dst)
+            park_ok = far & up
+            if fl is not None:
+                parked = {
+                    "fault_parked": park_ok.sum(dtype=torch.int32),
+                    "fault_emit_lost": (far & ~up).sum(dtype=torch.int32),
+                    "fault_matured": mat[5].sum(dtype=torch.int32),
+                }
+            inflight[slot] = torch.stack([
+                x.to(torch.int32) for x in (dst, src, actor, ver, chunk, park_ok)
+            ])
+            dst = torch.cat([dst, mat[0]])
+            src = torch.cat([src, mat[1]])
+            actor = torch.cat([actor, mat[2]])
+            ver = torch.cat([ver, mat[3]])
+            chunk = torch.cat([chunk, mat[4]])
+            valid = torch.cat([valid & ~far, mat[5].bool()])
+        delivered = valid & reach(src, dst)
+        fault_metrics = {}
+        if fl is not None:
+            # the broadcast transport point: deliverable lanes die to the
+            # blackhole mask or the loss draw, or arrive twice (accounted
+            # only: every merge is idempotent per (dst, actor, ver, chunk))
+            zero = _i32(0, dev)
+            fault_metrics["fault_unreachable"] = (valid & ~delivered).sum(
+                dtype=torch.int32)
+            if fl["bh"] is not None:
+                holed = delivered & fl["bh"][src.long(), dst.long()]
+                delivered = delivered & ~holed
+                fault_metrics["fault_blackholed"] = holed.sum(dtype=torch.int32)
+            else:
+                fault_metrics["fault_blackholed"] = zero
+            keep, dup = link_fault_masks(fl["conf"], fl["k_link"], dst,
+                                         fl["burst"])
+            fault_metrics["fault_lost"] = (delivered & ~keep).sum(
+                dtype=torch.int32)
+            delivered = delivered & keep
+            fault_metrics["fault_dup"] = (delivered & dup).sum(dtype=torch.int32)
+            fault_metrics["fault_delivered"] = delivered.sum(dtype=torch.int32)
+            # conservation accounting for the invariant checker: emissions
+            # that parked or died at emission, and parked lanes maturing
+            fault_metrics.update(parked or dict.fromkeys(
+                ("fault_parked", "fault_emit_lost", "fault_matured"), zero))
+            fault_metrics["fault_burst_nodes"] = _burst_nodes(fl)
+
+        # ------------------------------------------------------- probe origins
+        probe = state.probe
+        if cfg.probes:
+            probe = probe_write_update(probe, state.round, writers, w_ver)
+
+    with tracer.stage("corro.step.delivery"):
+        # --------------------------------------- fused delivery merge (1 pass)
+        dv = delivery_pass(
+            cfg, table, book, log, state.hlc, dst, src, actor, ver, chunk,
+            delivered, probe=probe, round_=state.round, mesh=mesh,
+        )
+        table, book, probe = dv.table, dv.book, dv.probe
+
+        # ------------------------------------------------- RTT samples + rings
+        # every landed lane is an RTT sample, capped or not; the rings are
+        # recomputed every ring_update_interval rounds, and the new ring-0
+        # takes the next round's eager sends
+        rtt, ring0 = state.rtt, state.ring0
+        if cfg.rtt_rings:
+            # each rank's rows: lanes to other shards fall out of range
+            rtt = observe_rtt(cfg, rtt, dv.dst, dv.src, dv.delivered_precap,
+                              row_lo=lo)
+            iv = cfg.ring_update_interval
+            if round_idx % iv == iv - 1:
+                ring0 = recompute_ring0(rtt, sh.rows(ring0), lo)
+                if mesh is not None:
+                    ring0 = mesh.gather(ring0)
+
+    with tracer.stage("corro.step.gossip"):
+        # --------------------------------------------- rebroadcast + enqueue
+        if cpv <= cfg.pend_slots:
+            # own-write lanes are node-major with cpv lanes per node, so the
+            # ring-slot rank is the lane index
+            gossip = enqueue_own(
+                gossip, rows_idx.repeat_interleave(cpv),
+                w_ver.repeat_interleave(cpv),
+                torch.arange(cpv, dtype=torch.int32, device=dev).repeat(n),
+                writers, cfg.max_transmissions, cpv,
+            )
+        else:
+            # degenerate ring (cpv > pend_slots): the grouped path's overflow
+            # rotation picks which chunks survive
+            wq_dst, wq_actor, wq_ver, wq_valid, wq_chunk = _tile_chunks(
+                cpv, rows_idx, rows_idx, w_ver, writers
+            )
+            gossip = enqueue_broadcasts(
+                gossip, wq_dst, wq_actor, wq_ver, wq_chunk, wq_valid,
+                cfg.max_transmissions, grouped=True,
+            )
         gossip = enqueue_broadcasts(
-            gossip, wq_dst, wq_actor, wq_ver, wq_chunk, wq_valid,
-            cfg.max_transmissions, grouped=True,
+            gossip, dv.dst, dv.actor, dv.ver, dv.chunk, dv.fresh_chunk,
+            cfg.rebroadcast_transmissions, grouped=True,
         )
-    gossip = enqueue_broadcasts(
-        gossip, dv.dst, dv.actor, dv.ver, dv.chunk, dv.fresh_chunk,
-        cfg.rebroadcast_transmissions, grouped=True,
-    )
 
-    swim, swim_metrics = _swim_block(cfg, state.swim, k_swim, alive, reach,
-                                     round_idx, mesh)
+    with tracer.stage("corro.step.swim"):
+        swim, swim_metrics = _swim_block(cfg, state.swim, k_swim, alive, reach,
+                                         round_idx, mesh)
 
     # last_cleared_ts analog, HLC-gated (handlers.rs:524-719)
     last_cleared = _delivery_cleared(state.last_cleared, cleared_hlc, dv,
                                      mesh)
 
     # ----------------------------------------------------------------- sync
-    is_sync = _sync_due(gate)
-    book, table, hlc_s, last_cleared, sync_metrics = _sync_block(
-        cfg, is_sync, book, log, table, state.hlc, last_cleared, cleared_hlc,
-        k_sync, alive, view, part, round_idx=state.sync_rounds,
-        fault=fl, client_ok=_sync_client_ok(cfg, nf, state),
-        rtt=rtt if cfg.rtt_rings else None, sh=sh,
-    )
-    probe = _probe_after_sync(cfg, probe, book, is_sync, alive, state.round,
-                              mesh)
+    with tracer.stage("corro.step.sync_gate"):
+        is_sync = _sync_due(gate)
+    with tracer.stage("corro.step.sync"):
+        book, table, hlc_s, last_cleared, sync_metrics = _sync_block(
+            cfg, is_sync, book, log, table, state.hlc, last_cleared, cleared_hlc,
+            k_sync, alive, view, part, round_idx=state.sync_rounds,
+            fault=fl, client_ok=_sync_client_ok(cfg, nf, state),
+            rtt=rtt if cfg.rtt_rings else None, sh=sh,
+        )
+        probe = _probe_after_sync(cfg, probe, book, is_sync, alive, state.round,
+                                  mesh)
 
-    # -------------------------------------------------------------- metrics
-    gap = _gap(alive, log, book, sh)
-    partial, cleared_n, gossip_cells = sh.sum(torch.stack([
-        partial_versions(book, cfg.chunks_per_version),
-        log.cleared.sum(dtype=torch.int32),
-        dv.cell_live.sum(dtype=torch.int32),
-    ]))
-    if sh.log_lo is None and mesh is not None:
-        # a replicated log counts once, not once per rank
-        cleared_n = log.cleared.sum(dtype=torch.int32)
-    hlc, skew = _hlc_tick(alive, hlc_s, dv.hlc_recv, state.round,
-                          None if nf is None else nf["skew"])
-    metrics = {
-        "writes": writers.sum(dtype=torch.int32),
-        "deletes": w_del.sum(dtype=torch.int32),
-        "cells_written": torch.where(writers, w_ncells, 0).sum(
-            dtype=torch.int32),
-        "msgs_sent": msgs_sent,
-        "delivered": dv.delivered.sum(dtype=torch.int32),
-        "fresh": dv.complete.sum(dtype=torch.int32),
-        "fresh_chunks": dv.fresh_chunk.sum(dtype=torch.int32),
-        "gossip_cells": gossip_cells,
-        "buffered_partials": partial,
-        "dropped_window": dv.dropped.sum(dtype=torch.int32),
-        "queue_overflow": gossip.overflow,
-        "pend_live": (gossip.pend_tx > 0).sum(dtype=torch.int32),
-        "cleared_versions": cleared_n,
-        "gap": gap,
-        "log_wrapped": log_wrapped,
-        "clock_skew": skew,
-        **swim_metrics,
-        **sync_metrics,
-        **(probe_metrics(probe) if cfg.probes else {}),
-        **fault_metrics,
-        **_node_fault_metrics(nf, alive, book, log, mesh),
-    }
+    with tracer.stage("corro.step.bookkeeping"):
+        # ---------------------------------------------------------- metrics
+        gap = _gap(alive, log, book, sh)
+        partial, cleared_n, gossip_cells = sh.sum(torch.stack([
+            partial_versions(book, cfg.chunks_per_version),
+            log.cleared.sum(dtype=torch.int32),
+            dv.cell_live.sum(dtype=torch.int32),
+        ]))
+        if sh.log_lo is None and mesh is not None:
+            # a replicated log counts once, not once per rank
+            cleared_n = log.cleared.sum(dtype=torch.int32)
+        hlc, skew = _hlc_tick(alive, hlc_s, dv.hlc_recv, state.round,
+                              None if nf is None else nf["skew"])
+        metrics = {
+            "writes": writers.sum(dtype=torch.int32),
+            "deletes": w_del.sum(dtype=torch.int32),
+            "cells_written": torch.where(writers, w_ncells, 0).sum(
+                dtype=torch.int32),
+            "msgs_sent": msgs_sent,
+            "delivered": dv.delivered.sum(dtype=torch.int32),
+            "fresh": dv.complete.sum(dtype=torch.int32),
+            "fresh_chunks": dv.fresh_chunk.sum(dtype=torch.int32),
+            "gossip_cells": gossip_cells,
+            "buffered_partials": partial,
+            "dropped_window": dv.dropped.sum(dtype=torch.int32),
+            "queue_overflow": gossip.overflow,
+            "pend_live": (gossip.pend_tx > 0).sum(dtype=torch.int32),
+            "cleared_versions": cleared_n,
+            "gap": gap,
+            "log_wrapped": log_wrapped,
+            "clock_skew": skew,
+            **swim_metrics,
+            **sync_metrics,
+            **(probe_metrics(probe) if cfg.probes else {}),
+            **fault_metrics,
+            **_node_fault_metrics(nf, alive, book, log, mesh),
+        }
     new_state = dataclasses.replace(
         state,
         table=table,
@@ -850,7 +876,8 @@ def _sync_due(gate) -> bool:
     t = time.perf_counter()
     with sanctioned("sync_gate", guard_armed()):
         due = bool(gate.resolve()[0])
-    SWEEP_GATE_WAIT_S[0] += time.perf_counter() - t
+    histograms.observe(SWEEP_GATE_WAIT, time.perf_counter() - t,
+                       help_=SWEEP_GATE_WAIT_HELP, buckets=SECONDS_BUCKETS)
     SWEEP_GATES["read_on" if due else "read_off"] += 1
     return due
 
@@ -945,78 +972,84 @@ def _repair_step(cfg, state: SimState, key, alive, part, round_idx: int,
                          "and RTT rings")
     n = cfg.num_nodes
     dev = state.hlc.device
-    keys = prng.split(key, len(STEP_KEY_STREAMS))
-    k_swim, k_sync = keys[7], keys[8]
-    # the full step's node-fault prologue and fault lane: a wipe in the
-    # convergence tail executes here too, the burst state keeps evolving
-    # and sync grants keep failing
-    state, nf = _node_fault_prologue(cfg, state, round_idx, sw, sh)
-    fl = _fault_lane(cfg, state, key, sw)
-    view = membership_view(cfg, state.swim, n)
-    log, book = state.log, state.book
-    sh = sh or _Shards(cfg, None)
-    mesh = sh.mesh
-    log_wrapped, behind_pre = _lag_signals(log, book, alive, sh)
-    # quiesced is identically True here (no writers by precondition)
-    gate = _sync_gate(cfg, round_idx, True, behind_pre, None)
+    # the full step's prologue, under its name there (no writes run)
+    with tracer.stage("corro.step.writes"):
+        keys = prng.split(key, len(STEP_KEY_STREAMS))
+        k_swim, k_sync = keys[7], keys[8]
+        # the full step's node-fault prologue and fault lane: a wipe in the
+        # convergence tail executes here too, the burst state keeps evolving
+        # and sync grants keep failing
+        state, nf = _node_fault_prologue(cfg, state, round_idx, sw, sh)
+        fl = _fault_lane(cfg, state, key, sw)
+        view = membership_view(cfg, state.swim, n)
+        log, book = state.log, state.book
+        sh = sh or _Shards(cfg, None)
+        mesh = sh.mesh
+        log_wrapped, behind_pre = _lag_signals(log, book, alive, sh)
+        # quiesced is identically True here (no writers by precondition)
+        gate = _sync_gate(cfg, round_idx, True, behind_pre, None)
     hlc_recv = torch.zeros((n,), dtype=torch.int32, device=dev)
 
-    # SWIM keeps its tick cadence through the tail
-    swim, swim_metrics = _swim_block(
-        cfg, state.swim, k_swim, alive, _reachable_fn(alive, part),
-        round_idx, mesh)
+    with tracer.stage("corro.step.swim"):
+        # SWIM keeps its tick cadence through the tail
+        swim, swim_metrics = _swim_block(
+            cfg, state.swim, k_swim, alive, _reachable_fn(alive, part),
+            round_idx, mesh)
 
-    is_sync = _sync_due(gate)
-    book, table, hlc_s, last_cleared, sync_metrics = _sync_block(
-        cfg, is_sync, book, log, state.table, state.hlc, state.last_cleared,
-        state.cleared_hlc, k_sync, alive, view, part,
-        round_idx=state.sync_rounds, fault=fl,
-        client_ok=_sync_client_ok(cfg, nf, state), sh=sh,
-    )
-    probe = _probe_after_sync(cfg, state.probe, book, is_sync, alive,
-                              state.round, mesh)
-    gap = _gap(alive, log, book, sh)
-    partial, cleared_n = sh.sum(torch.stack([
-        partial_versions(book, cfg.chunks_per_version),
-        log.cleared.sum(dtype=torch.int32),
-    ]))
-    if sh.log_lo is None and mesh is not None:
-        cleared_n = log.cleared.sum(dtype=torch.int32)
-    hlc, skew = _hlc_tick(alive, hlc_s, hlc_recv, state.round,
-                          None if nf is None else nf["skew"])
-    zero = _i32(0, dev)
-    fault_metrics = {}
-    if fl is not None:
-        # the zeros the full step computes on zero lanes, and the live
-        # burst series
-        fault_metrics = dict.fromkeys(
-            ("fault_lost", "fault_dup", "fault_blackholed",
-             "fault_unreachable", "fault_delivered", "fault_parked",
-             "fault_emit_lost", "fault_matured"), zero)
-        fault_metrics["fault_burst_nodes"] = _burst_nodes(fl)
-    metrics = {
-        "writes": zero,
-        "deletes": zero,
-        "cells_written": zero,
-        "msgs_sent": zero,
-        "delivered": zero,
-        "fresh": zero,
-        "fresh_chunks": zero,
-        "gossip_cells": zero,
-        "buffered_partials": partial,
-        "dropped_window": zero,
-        "queue_overflow": state.gossip.overflow,
-        "pend_live": (state.gossip.pend_tx > 0).sum(dtype=torch.int32),
-        "cleared_versions": cleared_n,
-        "gap": gap,
-        "log_wrapped": log_wrapped,
-        "clock_skew": skew,
-        **swim_metrics,
-        **sync_metrics,
-        **(probe_metrics(probe) if cfg.probes else {}),
-        **fault_metrics,
-        **_node_fault_metrics(nf, alive, book, log, mesh),
-    }
+    with tracer.stage("corro.step.sync_gate"):
+        is_sync = _sync_due(gate)
+    with tracer.stage("corro.step.sync"):
+        book, table, hlc_s, last_cleared, sync_metrics = _sync_block(
+            cfg, is_sync, book, log, state.table, state.hlc, state.last_cleared,
+            state.cleared_hlc, k_sync, alive, view, part,
+            round_idx=state.sync_rounds, fault=fl,
+            client_ok=_sync_client_ok(cfg, nf, state), sh=sh,
+        )
+        probe = _probe_after_sync(cfg, state.probe, book, is_sync, alive,
+                                  state.round, mesh)
+    with tracer.stage("corro.step.bookkeeping"):
+        gap = _gap(alive, log, book, sh)
+        partial, cleared_n = sh.sum(torch.stack([
+            partial_versions(book, cfg.chunks_per_version),
+            log.cleared.sum(dtype=torch.int32),
+        ]))
+        if sh.log_lo is None and mesh is not None:
+            cleared_n = log.cleared.sum(dtype=torch.int32)
+        hlc, skew = _hlc_tick(alive, hlc_s, hlc_recv, state.round,
+                              None if nf is None else nf["skew"])
+        zero = _i32(0, dev)
+        fault_metrics = {}
+        if fl is not None:
+            # the zeros the full step computes on zero lanes, and the live
+            # burst series
+            fault_metrics = dict.fromkeys(
+                ("fault_lost", "fault_dup", "fault_blackholed",
+                 "fault_unreachable", "fault_delivered", "fault_parked",
+                 "fault_emit_lost", "fault_matured"), zero)
+            fault_metrics["fault_burst_nodes"] = _burst_nodes(fl)
+        metrics = {
+            "writes": zero,
+            "deletes": zero,
+            "cells_written": zero,
+            "msgs_sent": zero,
+            "delivered": zero,
+            "fresh": zero,
+            "fresh_chunks": zero,
+            "gossip_cells": zero,
+            "buffered_partials": partial,
+            "dropped_window": zero,
+            "queue_overflow": state.gossip.overflow,
+            "pend_live": (state.gossip.pend_tx > 0).sum(dtype=torch.int32),
+            "cleared_versions": cleared_n,
+            "gap": gap,
+            "log_wrapped": log_wrapped,
+            "clock_skew": skew,
+            **swim_metrics,
+            **sync_metrics,
+            **(probe_metrics(probe) if cfg.probes else {}),
+            **fault_metrics,
+            **_node_fault_metrics(nf, alive, book, log, mesh),
+        }
     new_state = dataclasses.replace(
         state,
         table=table,

@@ -95,6 +95,13 @@ PIPELINE_FETCH_WAIT_HELP = (
     "(device->host), by dispatch mode; sequential mode is the "
     "blocking-read stall the chunk pipeline hides"
 )
+# The host wall blocked on the sweep gate's read of its device predicate
+# (engine/step.py::_sync_due: the copy's event wait), one sample a read.
+SWEEP_GATE_WAIT = "corro_sweep_gate_wait_seconds"
+SWEEP_GATE_WAIT_HELP = (
+    "host wall blocked reading the sync sweep gate's device predicate "
+    "(device->host), one sample per read"
+)
 PIPELINE_SPECULATIVE_TOTAL = "corro_pipeline_speculative_total"
 PIPELINE_SPECULATIVE_WASTED = "corro_pipeline_speculative_wasted_total"
 PIPELINE_OVERLAP_SECONDS = "corro_pipeline_overlap_seconds_total"

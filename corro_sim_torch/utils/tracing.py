@@ -9,7 +9,12 @@ Port of ``corro_sim/utils/tracing.py``, host Python only:
   the W3C header codec: the HTTP API parents each request's span under
   an incoming ``traceparent``, so a caller's distributed trace goes on
   through the cluster;
-- slow-span warnings: spans longer than ``slow_warn_s`` log a warning.
+- slow-span warnings: spans longer than ``slow_warn_s`` log a warning;
+- ranges on the profiler's clock: while a ``torch.profiler`` records,
+  :meth:`Tracer.stage` and every :meth:`Tracer.span` open a
+  ``record_function`` range named ``corro.<name>``, so the host's stages
+  line up with the device's work in the profiler's trace. With no
+  profiler recording they cost one check and build nothing.
 """
 
 from __future__ import annotations
@@ -18,12 +23,17 @@ import collections
 import contextlib
 import logging
 import os
+import sys
 import threading
 import time
 
 log = logging.getLogger("corro_sim_torch.tracing")
 
 _TRACEPARENT_LEN = 55  # 00-<32 hex>-<16 hex>-<2 hex>
+
+# every range the program opens on the profiler's clock starts with this
+RANGE_PREFIX = "corro."
+_NO_RANGE = contextlib.nullcontext()
 
 
 class TraceContext:
@@ -114,6 +124,16 @@ class Tracer:
         self._local = threading.local()
 
     # --------------------------------------------------------- recording
+    def stage(self, name: str):
+        """Context manager: a ``record_function`` range called ``name``
+        (``corro.``-prefixed) while a profiler records; otherwise one
+        shared null context, with no ids, no clock read and no ring
+        entry. (No profiler records before torch is imported.)"""
+        torch = sys.modules.get("torch")
+        if torch is None or not torch._C._autograd._profiler_enabled():
+            return _NO_RANGE
+        return torch.profiler.record_function(name)
+
     @contextlib.contextmanager
     def span(self, name: str, parent: TraceContext | None = None,
              slow_warn: bool = True, **attrs):
@@ -121,7 +141,9 @@ class Tracer:
         the current span's context unless ``parent`` overrides it.
         ``slow_warn=False`` opts out of the slow-span watchdog — for
         spans that are *expected* to run long (kernel builds), where the
-        warning would be noise rather than signal."""
+        warning would be noise rather than signal. While a profiler
+        records, the span is also a range ``corro.<name>``, spaces as
+        underscores (:meth:`stage`)."""
         cur = getattr(self._local, "ctx", None)
         if parent is None:
             parent = cur
@@ -131,7 +153,8 @@ class Tracer:
         t0 = time.time()
         p0 = time.perf_counter()
         try:
-            yield ctx
+            with self.stage(RANGE_PREFIX + name.replace(" ", "_")):
+                yield ctx
         finally:
             dur = time.perf_counter() - p0
             self._local.ctx = cur
