@@ -6,7 +6,9 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout,
-holds each kernel against its plain PyTorch version on the card, drives
+holds each kernel against its plain PyTorch version on the card (the
+sync sweep's serve kernel on every sweep of a north-star and a catch-up
+cluster run to convergence: "serve_north_star", "serve_catchup"), drives
 the port's main path (``corro_sim_torch.engine.driver.run_sim``) on the
 10 000-node north-star cluster until it converges, with SWIM off (the
 first slice's path) and with full SWIM on (the JAX package's config 0
@@ -202,11 +204,26 @@ REPLAY_EXPECTED = {
 _T0 = [time.perf_counter(), time.perf_counter()]
 
 
+# the serve kernel's launches by phase line: those counted since the
+# previous phase line (sync/serve.py's LAUNCHES, zeroed here)
+SERVE_BY_PHASE: dict = {}
+
+
+def take_serve_launches(phase: str) -> None:
+    sv = sys.modules.get("corro_sim_torch.sync.serve")
+    if sv is not None and sv.LAUNCHES["serve_lanes"]:
+        SERVE_BY_PHASE[phase] = (SERVE_BY_PHASE.get(phase, 0)
+                                 + sv.LAUNCHES["serve_lanes"])
+        sv.LAUNCHES["serve_lanes"] = 0
+
+
 def emit(obj) -> None:
-    """Print one JSON line; a phase's line carries its seconds."""
+    """Print one JSON line; a phase's line carries its seconds, and the
+    serve kernel's launches since the previous phase line go to it."""
     now = time.perf_counter()
     if "phase" in obj:
         obj = dict(obj, phase_s=now - _T0[1], total_s=now - _T0[0])
+        take_serve_launches(obj["phase"])
     _T0[1] = now
     print(json.dumps(obj), flush=True)
 
@@ -2587,6 +2604,138 @@ def event_ms(pairs) -> list:
     return [a.elapsed_time(b) for a, b in pairs]
 
 
+def serve_equal(got, want) -> bool:
+    """Whether two ``serve_lanes`` results agree where the merge reads
+    them: the mailbox's live row everywhere, its other rows on live
+    lanes, the per-node stamps and the two counts."""
+    import torch
+
+    from corro_sim_torch.core.merge_kernel import LANE_FIELDS, LANE_VALID
+
+    box, box_cap, stamp, counts = got
+    w_box, w_cap, w_stamp, w_counts = want
+    live = w_box[LANE_VALID] != 0
+    return (box_cap == w_cap
+            and torch.equal(box[LANE_VALID], w_box[LANE_VALID])
+            and all(torch.equal(box[f][live], w_box[f][live])
+                    for f in range(LANE_FIELDS - 1))
+            and torch.equal(stamp, w_stamp)
+            and torch.equal(counts, w_counts))
+
+
+def serve_kernel_phase(emit) -> dict:
+    """Phases ``serve_north_star`` and ``serve_catchup``: the sync sweep's
+    serve kernel (``corro_sim_torch/sync/csrc/serve_kernel.cu``) on the
+    main path's own inputs. The north-star cluster (config 0 at 10 000
+    nodes, SWIM off: 128 lanes a node) and config 5's catch-up cluster
+    (16 384 nodes: 8192 lanes a node) run to convergence with every
+    sweep's ``serve_lanes`` call held to ``serve_lanes_reference`` on the
+    same inputs (:func:`serve_equal`), and one launch per sweep run. Then
+    ``kernel_check_serve_<case>``: on the inputs of the run's heaviest
+    sweep (most versions served), the kernel and its plain version timed
+    with CUDA events, against the least bytes the call moves
+    (``serve_work``) at the card's HBM rate. Returns the timings by
+    case."""
+    import dataclasses
+
+    import torch
+
+    from corro_sim_torch.core import merge_kernel as mk
+    from corro_sim_torch.merge_probe import time_ms
+    from corro_sim_torch.profile_slice import (
+        CONFIG5_RUN_ARGS,
+        config5_config,
+        config5_schedule,
+        slice_config,
+        slice_schedule,
+    )
+    from corro_sim_torch.sync import serve as sv
+    from corro_sim_torch.sync import sync as sync_mod
+
+    real = sync_mod.serve_lanes
+    catchup = config5_config()
+    out = {}
+    for case, cfg, schedule, run_args, want_round in (
+            ("north_star", slice_config(), slice_schedule(), None,
+             SLICE_ROUNDS),
+            ("catchup", catchup, config5_schedule(catchup.num_nodes),
+             CONFIG5_RUN_ARGS, None)):
+        seen = {"sweeps": 0, "most": -1, "args": None}
+
+        def spy(*a, case=case, seen=seen):
+            got = real(*a)
+            seen["sweeps"] += 1
+            if not serve_equal(got, sv.serve_lanes_reference(*a)):
+                raise AssertionError(
+                    f"serve_{case}: sweep {seen['sweeps']}: serve_lanes "
+                    "differs from serve_lanes_reference")
+            versions = int(a[1].sum())
+            if versions > seen["most"]:
+                topa, take, base, win, log, chl = a[:6]
+                seen["most"] = versions
+                seen["args"] = (
+                    topa.clone(), take.clone(), base.clone(), win.clone(),
+                    dataclasses.replace(
+                        log, cells=log.cells.clone(),
+                        ncells=log.ncells.clone(), live=log.live.clone(),
+                        cleared=log.cleared.clone(), head=log.head.clone()),
+                    chl.clone(), *a[6:])
+            return got
+
+        sv.LAUNCHES["serve_lanes"] = 0
+        sync_mod.serve_lanes = spy
+        try:
+            rec, res = drive(cfg, schedule, run_args)
+        finally:
+            sync_mod.serve_lanes = real
+        del res
+        launches = sv.LAUNCHES["serve_lanes"]
+        label = f"serve_{case}"
+        emit({"phase": label, "nodes": cfg.num_nodes,
+              "rounds_to_convergence": rec["rounds_to_convergence"],
+              "final_gap": rec["final_gap"],
+              "sync_sweeps": rec["sync_sweeps"],
+              "sweeps_run": rec["sweeps_run"], "launches": launches,
+              "sweeps_checked": seen["sweeps"], "bit_equal": True,
+              "heaviest_sweep_versions": seen["most"],
+              "max_memory_allocated": rec["max_memory_allocated"]})
+        if want_round is not None:
+            check_run(label, rec, want_round)
+        elif rec["rounds_to_convergence"] is None or rec["final_gap"]:
+            raise AssertionError(f"{label}: the cluster did not converge")
+        if launches != rec["sweeps_run"] or seen["sweeps"] != launches:
+            raise AssertionError(
+                f"{label}: {launches} serve launches, {seen['sweeps']} "
+                f"checked, for {rec['sweeps_run']} sweeps run")
+
+        a = seen["args"]
+        del seen
+        torch.cuda.empty_cache()
+        topa, take, base, _win, log, _chl, cap = a[:7]
+        got = sv.serve_lanes(*a)
+        if not serve_equal(got, sv.serve_lanes_reference(*a)):
+            raise AssertionError(f"{label}: the kept sweep differs")
+        box_cap = got[1]
+        del got
+        torch.cuda.empty_cache()
+        kernel_ms = time_ms(lambda: sv.serve_lanes(*a), 5)
+        plain_ms = time_ms(lambda: sv.serve_lanes_reference(*a), 3, 1)
+        nbytes, served = sv.serve_work(topa, take, base, log, cap)
+        bound, bound_by = mk.bound_ms((nbytes, 0))
+        out[case] = {
+            "shape": {"nodes": topa.shape[0], "kprime": topa.shape[1],
+                      "cap": cap, "seqs": log.seqs, "box_cap": box_cap},
+            "served": served, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
+            "share_of_bound": bound / kernel_ms,
+        }
+        emit(dict(phase=f"kernel_check_{label}", kernel="serve_lanes",
+                  bit_equal=True, **out[case]))
+        del a, topa, take, base, log
+        torch.cuda.empty_cache()
+    return out
+
+
 def probe_checks(cfg, trace) -> dict:
     """The probe trace against the gossip bounds (the JAX package's
     tests/test_probes.py checks): each probe whose origin wrote its
@@ -3333,9 +3482,9 @@ def stop_helper(proc) -> None:
         proc.wait()
 
 
-def join_helper(proc, path: str, timeout: float = 900.0) -> dict:
+def join_helper(proc, path: str, timeout: float = 900.0) -> tuple:
     """Waits for the helper, prints its phase lines here and returns its
-    launches by path; raises if it failed."""
+    merge and serve kernel launches by path; raises if it failed."""
     import subprocess
 
     try:
@@ -3347,21 +3496,23 @@ def join_helper(proc, path: str, timeout: float = 900.0) -> dict:
     with open(path) as f:
         lines = f.read().splitlines()
     os.remove(path)
-    launches = None
+    launches = serve = None
     for ln in lines:
         obj = json.loads(ln)
         if "helper_launches" in obj:
             launches = obj["helper_launches"]
+            serve = obj["helper_serve_launches"]
         else:
             print(ln, flush=True)
     if rc != 0 or launches is None:
         raise AssertionError(f"the helper process failed (exit {rc})")
-    return launches
+    return launches, serve
 
 
 def helper_main() -> int:
     """``chip_smoke.py --helper``: ``helper_phases`` on the card, one
-    JSON line per phase and then ``{"helper_launches": {...}}``."""
+    JSON line per phase and then ``{"helper_launches": {...},
+    "helper_serve_launches": {...}}``."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3371,7 +3522,8 @@ def helper_main() -> int:
 
     mk.build_kernel()
     launches = helper_phases(emit)
-    print(json.dumps({"helper_launches": launches}), flush=True)
+    print(json.dumps({"helper_launches": launches,
+                      "helper_serve_launches": SERVE_BY_PHASE}), flush=True)
     return 0
 
 
@@ -3749,8 +3901,11 @@ def main(argv=None) -> int:
           "config3": config3_kernel})
     max_abs_err = max(x["max_abs_err"] for x in cases)
 
+    # ------------------ the serve kernel on the main path's own sweeps
+    serve_kernel = serve_kernel_phase(emit)
+
     # the phases that share nothing with the rest run in a second process
-    # on the card from here on, after the kernel's timings above
+    # on the card from here on, after the kernels' timings above
     helper = spawn_helper()
     atexit.register(stop_helper, helper[0])
 
@@ -4180,7 +4335,8 @@ def main(argv=None) -> int:
 
     # ------- the helper's phases: fault digests, fleet sweeps, the twin,
     # the 256-node subscription, live and serving runs, config digests
-    fault_launches.update(join_helper(*helper))
+    helper_launches, helper_serve = join_helper(*helper)
+    fault_launches.update(helper_launches)
 
     # ------- the bench as a user runs it, alone on the card: its walls
     # (the north star's, the devcluster leg's against its frozen wall)
@@ -4197,6 +4353,11 @@ def main(argv=None) -> int:
     by_path["cli_run_10k"] = cli_run_launches
     by_path["replay"] = replay_launches
     by_path.update(fault_launches)
+    serve_by_path = {}
+    for part in (SERVE_BY_PHASE, helper_serve):
+        for label, n in part.items():
+            if not label.startswith("kernel_check"):
+                serve_by_path[label] = serve_by_path.get(label, 0) + n
     emit({"kernels": [{
         "name": "grouped_merge",
         "route": "cuda",
@@ -4237,6 +4398,33 @@ def main(argv=None) -> int:
             "tile", "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
         "config8_lane": {k: config8_kernel[k] for k in (
             "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
+    }, {
+        "name": "serve_lanes",
+        "route": "cuda",
+        "source": "corro_sim_torch/sync/csrc/serve_kernel.cu",
+        "replaces": "the serve step of corro_sim/sync/sync.py::sync_round "
+                    "(XLA array ops; no TPU kernel)",
+        "launches": sum(serve_by_path.values()),
+        "launches_by_path": serve_by_path,
+        "no_launch_paths": {
+            label: "the scatter merge (cells not a multiple of 128): the "
+                   "sweep serves its lanes in plain PyTorch"
+            for label in ("config1", "config6_1000", "config6_live")},
+        "child_process_paths": {
+            "cli_agent_10k": "python -m corro_sim_torch agent runs as a "
+                             "child process: its serve launches are "
+                             "counted there",
+            "bench_config2": "python -m corro_sim_torch bench --config 2 "
+                             "runs as a child process (64 cells: the "
+                             "scatter merge, no serve kernel)",
+        },
+        "bit_equal": True,
+        "ms": serve_kernel["catchup"]["kernel_ms"],
+        "plain_ms": serve_kernel["catchup"]["plain_ms"],
+        "bound_ms": serve_kernel["catchup"]["bound_ms"],
+        "bound_by": serve_kernel["catchup"]["bound_by"],
+        "catchup": serve_kernel["catchup"],
+        "north_star": serve_kernel["north_star"],
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -83,6 +83,7 @@ from corro_sim_torch.core.merge_kernel import (
 )
 from corro_sim_torch.device import resolve_device
 from corro_sim_torch.engine import step as step_mod
+from corro_sim_torch.sync.serve import build_serve_kernel
 from corro_sim_torch.engine.state import SimState, clone_state, state_nbytes
 from corro_sim_torch.engine.step import host_knobs, sim_step
 from corro_sim_torch.obs.flight import FlightRecorder
@@ -623,6 +624,8 @@ def run_sim(
         or kernel_supported(cfg, "delivery", dev)
     ):
         build_kernel(probe=cache_probe)
+    if dev.type == "cuda" and kernel_supported(cfg, "sync", dev):
+        build_serve_kernel(probe=cache_probe)
     setup_seconds = time.perf_counter() - t0
     flight.record_phase("setup", setup_seconds)
 

@@ -15,7 +15,11 @@ Each sweep, every node picks up to ``resolved_sync_peers`` peers out of
 requests (``agent.rs:132``); each needed actor is served by exactly one
 granted peer, the one furthest ahead (the global range dedupe of
 ``api/peer.rs:1179-1372``); and the served versions are gathered from
-the change log and merged.
+the change log and merged. On CUDA planes with a whole log on one shard
+the serve step (the lanes, the mailbox, the cleared stamps and the
+counts) is one kernel, :func:`~corro_sim_torch.sync.serve.serve_lanes`;
+elsewhere it is the plain lanes of
+:func:`~corro_sim_torch.sync.serve.served_lanes`.
 """
 
 from __future__ import annotations
@@ -24,14 +28,22 @@ import torch
 
 from corro_sim_torch import prng
 from corro_sim_torch.core.bookkeeping import Bookkeeping, advance_heads
-from corro_sim_torch.core.changelog import (
-    ChangeLog,
-    fetch_changesets,
-    gather_changesets,
-)
-from corro_sim_torch.core.crdt import NEG, TableState, apply_cell_changes
+from corro_sim_torch.core.changelog import ChangeLog
+from corro_sim_torch.core.crdt import TableState, apply_cell_changes
 from corro_sim_torch.core.merge_kernel import kernel_supported, merge_grouped
+from corro_sim_torch.sync.serve import (
+    fold_served,
+    node_major_box,
+    serve_lanes,
+    serve_path,
+    served_lanes,
+)
 from corro_sim_torch.utils.bits import WINDOW_BITS
+from corro_sim_torch.utils.metrics import (
+    SYNC_SERVE_HELP,
+    SYNC_SERVE_TOTAL,
+    counters,
+)
 from corro_sim_torch.utils.slots import ranks_within_group
 from corro_sim_torch.utils.sort import lexsort, scatter_max, top_k
 
@@ -422,8 +434,6 @@ def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
     group_mask = (1 << bpv) - 1
     rows = torch.arange(n, dtype=torch.int32, device=dev)[r0:r1]
     rows_l = torch.arange(nl, device=dev)  # this rank's rows of the book
-    s = log.seqs
-    offs = torch.arange(1, cap + 1, dtype=torch.int32, device=dev)
 
     phase = prng.randint(k_phase, (), 0, a, dev)
     # the dense schedule is exact-argmax only: a deal-probe policy takes
@@ -455,75 +465,45 @@ def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
         lane_ok & within_budget, torch.clamp(topv, max=cap_lane), 0
     )
 
-    # flat gather lanes: (N, K', cap) -> versions head+1 ... head+take
     topa_l = topa.long()
     base = book.head[rows_l[:, None], topa_l]  # (N, K')
-    ver = base[:, :, None] + offs[None, None, :]
-    lane_valid = offs[None, None, :] <= take[:, :, None]
-
-    actor_l = topa[:, :, None].expand(ver.shape).reshape(-1)
-    ver_l = ver.reshape(-1)
-    valid_l = lane_valid.reshape(-1)
-    dst_l = rows[:, None, None].expand(ver.shape).reshape(-1)
-
-    g_actor_l = torch.where(valid_l, actor_l, 0)
-    g_slot_l = (torch.clamp(ver_l, min=1) - 1) % log.capacity
-    if mesh is not None and log.cells.shape[0] != log.head.shape[0]:
-        # actor-sharded log: the served versions come from their owners
-        row, col, vr, cv, cl, ncells, cleared_l = fetch_changesets(
-            log, mesh, g_actor_l, torch.clamp(ver_l, min=1))
-    else:
-        row, col, vr, cv, cl, ncells = gather_changesets(
-            log, g_actor_l, torch.clamp(ver_l, min=1)
-        )
-        # cleared versions are served as empties (api/peer.rs:716-758)
-        cleared_l = log.cleared[g_actor_l.long(), g_slot_l.long()]
-    m = dst_l.shape[0]
-    seq = torch.arange(s, dtype=torch.int32, device=dev)
-    cell_live = (
-        valid_l[:, None] & ~cleared_l[:, None] & (seq[None, :] < ncells[:, None])
-    )
-    site_l = torch.where(vr == NEG, NEG, actor_l[:, None].expand(m, s))
-
-    # seq-granular partial serving (SyncNeedV1::Partial): cells whose
-    # chunk the receiver already buffered via gossip do not ship, while
-    # the merge applies the whole changeset. Served versions are base +
-    # o, so the window offset of version o is o - 1.
     win_k = book.win[rows_l[:, None], topa_l]  # (N, K') int64
-    chunk_of_seq = torch.arange(s, dtype=torch.int64, device=dev) * bpv // s
-    voff_o = (offs - 1).clamp(0, vwin - 1).long()
-    bit_off = voff_o[:, None] * bpv + chunk_of_seq[None, :]  # (cap, S)
-    buffered = (
-        ((win_k[:, :, None, None] >> bit_off[None, None]) & 1) != 0
-    ) & ((offs - 1) < vwin)[None, None, :, None]  # (N, K', cap, S)
-    shipped = cell_live & ~buffered.reshape(m, s)
 
-    if kernel_supported(cfg, "sync", dev):
-        # sync lanes are node-major by construction: the mailbox is a
-        # reshape plus pad, no routing scatter
-        lanes_per_node = kprime * cap * s
-        pad = (-lanes_per_node) % 128
-
-        def node_major(x):
-            v = x.reshape(nl, lanes_per_node).to(torch.int32)
-            if pad:
-                v = torch.nn.functional.pad(v, (0, pad))
-            return v.reshape(-1)
-
-        box = torch.stack([
-            node_major(row * cfg.num_cols + col), node_major(cv),
-            node_major(vr), node_major(site_l), node_major(cl),
-            node_major(cell_live),
-        ])
-        box_cap = lanes_per_node + pad
+    path = serve_path(cfg, log, dev, mesh)
+    counters.inc(SYNC_SERVE_TOTAL, labels=f'{{path="{path}"}}',
+                 help_=SYNC_SERVE_HELP)
+    if path == "kernel":
+        # every lane in registers, straight into the node-major mailbox;
+        # this rank holds every node (one shard at most), so the nodes'
+        # stamp maxima fold into last_cleared whole
+        box, box_cap, row_stamp, served = serve_lanes(
+            topa, take, base, win_k, log, cleared_hlc, cap, cfg.num_cols,
+            bpv)
         table = merge_grouped(table, box, box_cap, mesh=mesh)
+        last_cleared = torch.maximum(last_cleared, row_stamp)
+        emptied_n, shipped_n = served[0], served[1]
     else:
-        table = apply_cell_changes(
-            table, (dst_l - r0)[:, None].expand(m, s).reshape(-1),
-            row.reshape(-1), col.reshape(-1), cv.reshape(-1),
-            vr.reshape(-1), site_l.reshape(-1), cl.reshape(-1),
-            cell_live.reshape(-1),
-        )
+        lanes = served_lanes(log, topa, take, base, win_k, rows, cap, bpv,
+                             mesh=mesh)
+        if kernel_supported(cfg, "sync", dev):
+            box, box_cap = node_major_box(lanes, nl, cfg.num_cols)
+            table = merge_grouped(table, box, box_cap, mesh=mesh)
+        else:
+            m, s = lanes.live.shape
+            table = apply_cell_changes(
+                table, (lanes.dst - r0)[:, None].expand(m, s).reshape(-1),
+                lanes.row.reshape(-1), lanes.col.reshape(-1),
+                lanes.cv.reshape(-1), lanes.vr.reshape(-1),
+                lanes.site.reshape(-1), lanes.cl.reshape(-1),
+                lanes.live.reshape(-1),
+            )
+        if mesh is None:
+            stamp = cleared_hlc[lanes.g_actor.long(), lanes.g_slot.long()]
+        else:
+            stamp = mesh.fetch_elems(cleared_hlc, lanes.g_actor,
+                                     lanes.g_slot)
+        last_cleared, emptied_n, shipped_n = fold_served(
+            lanes, stamp, last_cleared)
 
     floor = book.head.clone()
     floor_flat = floor.view(-1)
@@ -538,19 +518,11 @@ def sync_round(cfg, book: Bookkeeping, log: ChangeLog, table: TableState,
     for o in range(min(cap, vwin)):
         g = (win_k >> (o * bpv)) & group_mask
         already = already + ((g == group_mask) & (o < take)).to(torch.int32)
-    emptied = valid_l & cleared_l
     counts = torch.stack([
-        (take - already).sum(dtype=torch.int32),
-        emptied.sum(dtype=torch.int32),
-        shipped.sum(dtype=torch.int32),
+        (take - already).sum(dtype=torch.int32), emptied_n, shipped_n,
     ])
-    if mesh is None:
-        stamp = cleared_hlc[g_actor_l.long(), g_slot_l.long()]
-    else:
-        counts = mesh.reduce(counts)
-        stamp = mesh.fetch_elems(cleared_hlc, g_actor_l, g_slot_l)
-    last_cleared = scatter_max(last_cleared, (dst_l,), stamp, emptied)
     if mesh is not None:
+        counts = mesh.reduce(counts)
         last_cleared = mesh.reduce(last_cleared, "max")
 
     book = advance_heads(book, floor, bpv)

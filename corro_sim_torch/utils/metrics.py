@@ -102,6 +102,14 @@ SWEEP_GATE_WAIT_HELP = (
     "host wall blocked reading the sync sweep gate's device predicate "
     "(device->host), one sample per read"
 )
+# The sync sweeps by how they served their lanes (sync/serve.py):
+# path="kernel" (the CUDA serve kernel) or "torch" (the plain lanes). The
+# host counts one per sweep and reads nothing from the device.
+SYNC_SERVE_TOTAL = "corro_sync_serve_total"
+SYNC_SERVE_HELP = (
+    "anti-entropy sweeps by the path that served their lanes "
+    "(kernel | torch)"
+)
 PIPELINE_SPECULATIVE_TOTAL = "corro_pipeline_speculative_total"
 PIPELINE_SPECULATIVE_WASTED = "corro_pipeline_speculative_wasted_total"
 PIPELINE_OVERLAP_SECONDS = "corro_pipeline_overlap_seconds_total"

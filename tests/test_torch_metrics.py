@@ -137,6 +137,9 @@ WALL = re.compile(
 SIZE = "corro_db_size_bytes "
 # help texts the port words for its own mechanism
 OWN_HELP = ("# HELP corro_subs_matcher_evals_total ",)
+# series only the port has: the sync sweeps by serve path (the JAX
+# package has one path), held by value below
+PORT_ONLY = re.compile(r"^(# (HELP|TYPE) )?corro_sync_serve_total[{ ]")
 
 
 @pytest.fixture()
@@ -165,7 +168,8 @@ def drive(c) -> None:
 
 def masked(text: str) -> list:
     return [ln for ln in text.splitlines()
-            if not WALL.match(ln) and not ln.startswith(OWN_HELP)]
+            if not WALL.match(ln) and not ln.startswith(OWN_HELP)
+            and not PORT_ONLY.match(ln)]
 
 
 OVERRIDES = {
@@ -197,6 +201,11 @@ def test_exposition_line_by_line(case, fresh_registries):
     port_bytes = p_sharding.state_bytes(cfg)[0]
     assert differ == [(f"{SIZE}{port_bytes - widened_extra(cfg)}",
                        f"{SIZE}{port_bytes}")]
+    # every sweep of the port's cluster served its lanes on the CPU path
+    sweeps = int(clusters["port"].state.sync_rounds)
+    assert sweeps > 0
+    serve = [ln for ln in texts["port"].splitlines() if PORT_ONLY.match(ln)]
+    assert serve[2:] == [f'corro_sync_serve_total{{path="torch"}} {sweeps}']
     for c in clusters.values():
         c.tripwire.trip()
 
