@@ -8,7 +8,11 @@ Run from the root of a checkout, with no arguments:
 It builds the port's CUDA kernels from the sources in the checkout,
 holds each kernel against its plain PyTorch version on the card (the
 sync sweep's serve kernel on every sweep of a north-star and a catch-up
-cluster run to convergence: "serve_north_star", "serve_catchup"), drives
+cluster run to convergence: "serve_north_star", "serve_catchup"), holds
+the JAX package's config 4 at 10 000 nodes (the benchmark's
+``churn_10k.steady``) to the plain SWIM reference of
+``simbench/reference/swim.py`` on three ticks, bit for bit, and reads
+the device time of SWIM's ranges ("churn_10k_swim"), drives
 the port's main path (``corro_sim_torch.engine.driver.run_sim``) on the
 10 000-node north-star cluster until it converges, with SWIM off (the
 first slice's path) and with full SWIM on (the JAX package's config 0
@@ -2736,6 +2740,164 @@ def serve_kernel_phase(emit) -> dict:
     return out
 
 
+# the ticks "churn_10k_swim" holds to the plain reference: an announce
+# tick before the split, one inside it (with the control), one after it
+CHURN_CHECK_ROUNDS = (8, 17, 33)
+# the rounds it profiles for SWIM's ranges: the split's start
+CHURN_TRACE_ROUNDS = (8, 24)
+SWIM_RANGES = ("corro.swim.probe", "corro.swim.timeout",
+               "corro.swim.exchange", "corro.swim.announce",
+               "corro.swim.refute")
+
+
+def churn_swim_phase(emit, n: int = 10000, device: str = "cuda") -> dict:
+    """Phase ``churn_10k_swim``: the JAX package's config 4 (the
+    benchmark's ``churn_10k.steady``: wide full-view SWIM every round,
+    writes at 0.5 per node per round, the upper half split in rounds
+    16-31) at ``n`` nodes through ``run_sim`` for its 40 rounds. Every
+    call of the step's ``swim_step`` in the rounds of
+    ``CHURN_CHECK_ROUNDS`` (speculative ones too) is held bit for bit to
+    ``simbench/reference/swim.py`` ticked from a copy of the plane before
+    it (integers: tolerance 0). Then a second cluster runs its 40 rounds
+    with ``torch.profiler`` over ``CHURN_TRACE_ROUNDS``, and the device
+    time of the work launched inside each ``corro.swim.*`` range and the
+    rest of ``corro.step.swim`` is read per round
+    (``simbench/trace.py::reduce_trace``). ``device``: "cpu" rehearses
+    the phase at a small ``n``. Returns the phase's record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from corro_sim_torch.core import merge_kernel as mk
+    from corro_sim_torch.engine import step as step_mod
+    from corro_sim_torch.engine.driver import run_sim
+    from corro_sim_torch.engine.state import init_state
+    from corro_sim_torch.profile_slice import (
+        CONFIG4_RUN_ARGS,
+        config4_config,
+        config4_schedule,
+        partition_upper_half_16_32,
+    )
+    from simbench import trace as trace_mod
+    from simbench.reference import swim as ref_swim
+
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    if cuda:
+        mk.build_kernel()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    cfg = config4_config(n)
+    params = ref_swim.Params.from_sim(cfg)
+    real = step_mod.swim_step
+    checks = []
+
+    def spy(cfg_, swim, key, alive, reach, round_idx, mesh=None):
+        if round_idx not in CHURN_CHECK_ROUNDS:
+            return real(cfg_, swim, key, alive, reach, round_idx, mesh=mesh)
+        before = swim.p.clone()
+        out = real(cfg_, swim, key, alive, reach, round_idx, mesh=mesh)
+        sync()
+        t0 = time.perf_counter()
+        part = torch.as_tensor(partition_upper_half_16_32(round_idx, n),
+                               device=before.device)
+        want = ref_swim.swim_tick(before, key, alive, part, round_idx,
+                                  params)
+        differ = int((want != out[0].p).sum())
+        sync()
+        check = {"round": round_idx, "differ": differ,
+                 "announce": ref_swim.is_announce(params, round_idx),
+                 "reference_s": time.perf_counter() - t0}
+        del want
+        if round_idx == CHURN_CHECK_ROUNDS[1]:
+            # the control, inside the split where suspicions start: the
+            # reference in the narrow layout, the nearest below the
+            # configuration's, must differ
+            narrow = dataclasses.replace(params, narrow=True)
+            control = ref_swim.swim_tick(before, key, alive, part,
+                                         round_idx, narrow)
+            check["control_differ"] = int((control != out[0].p).sum())
+            del control
+        checks.append(check)
+        del before
+        return out
+
+    step_mod.swim_step = spy
+    try:
+        t0 = time.perf_counter()
+        state = init_state(cfg, seed=0, device=device)
+        res = run_sim(cfg, state, config4_schedule(), device=device,
+                      **CONFIG4_RUN_ARGS)
+        sync()
+        run_s = time.perf_counter() - t0
+    finally:
+        step_mod.swim_step = real
+    rounds = res.rounds
+    plane = res.state.swim.p
+    plane_bytes = plane.numel() * plane.element_size()
+    plane_dtype = plane.dtype
+    del state, res, plane
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    checked = sorted({c["round"] for c in checks})
+    if (checked != list(CHURN_CHECK_ROUNDS)
+            or any(c["differ"] for c in checks)
+            or not any(c.get("control_differ") for c in checks)):
+        raise AssertionError(f"churn_10k_swim: the plane differs from the "
+                             f"plain reference or a tick went unchecked: "
+                             f"{checks}")
+
+    # SWIM's ranges over the split's start, in a clean cluster
+    lo, hi = CHURN_TRACE_ROUNDS
+    session = {}
+
+    def on_chunk(info):
+        done = info["rounds_done"]
+        if done == lo:
+            sync()
+            session["prof"] = profile(activities=[ProfilerActivity.CPU]
+                                      + [ProfilerActivity.CUDA] * cuda)
+            session["prof"].start()
+        elif done == hi and "prof" in session:
+            sync()
+            session["prof"].stop()
+            session["path"] = os.path.join("bench_out",
+                                           "churn_10k_swim_trace.json")
+            os.makedirs("bench_out", exist_ok=True)
+            session["prof"].export_chrome_trace(session["path"])
+
+    if cuda:
+        torch.cuda.empty_cache()
+    state = init_state(cfg, seed=0, device=device)
+    res = run_sim(cfg, state, config4_schedule(), device=device,
+                  on_chunk=on_chunk, **CONFIG4_RUN_ARGS)
+    del state, res
+    names = ("corro.step", "corro.step.swim") + SWIM_RANGES
+    red = trace_mod.reduce_trace(trace_mod.load_events(session["path"]),
+                                 names)
+    os.remove(session["path"])
+    traced = hi - lo
+    ms = {k: v / 1000.0 / traced for k, v in red["range_us"].items()}
+    inner = sum(ms[k] for k in SWIM_RANGES)
+    swim_ms = inner + ms["corro.step.swim"]
+    out = {"phase": "churn_10k_swim", "nodes": n, "rounds": rounds,
+           "rounds_compared": checked, "calls_compared": len(checks),
+           "checks": checks, "bit_equal": True, "tolerance": 0,
+           "plane_bytes": plane_bytes, "plane_dtype": str(plane_dtype),
+           "run_s": run_s, "max_memory_allocated": peak,
+           "traced_rounds": [lo, hi],
+           "swim_ms_per_round": swim_ms,
+           "ranges_ms_per_round": {k: ms[k] for k in SWIM_RANGES},
+           "swim_rest_ms_per_round": ms["corro.step.swim"],
+           "ranges_cover": inner / swim_ms if swim_ms else None,
+           "busy_share": (red["busy_us"] / red["window_us"]
+                          if red.get("window_us") else None)}
+    emit(out)
+    return out
+
+
 def probe_checks(cfg, trace) -> dict:
     """The probe trace against the gossip bounds (the JAX package's
     tests/test_probes.py checks): each probe whose origin wrote its
@@ -3903,6 +4065,7 @@ def main(argv=None) -> int:
 
     # ------------------ the serve kernel on the main path's own sweeps
     serve_kernel = serve_kernel_phase(emit)
+    churn_swim_phase(emit)
 
     # the phases that share nothing with the rest run in a second process
     # on the card from here on, after the kernels' timings above

@@ -10,6 +10,16 @@ DOWN, exchanges bounded view blocks with ``swim_gossip_peers`` peers in
 both directions, runs the periodic announce, and refutes its own
 suspicion by bumping its incarnation (saturating).
 
+Ranges and counters. While a profiler records, :func:`swim_step` opens
+the sibling ranges ``corro.swim.probe`` (targets, indirect probes,
+suspicion), ``corro.swim.timeout``, ``corro.swim.exchange`` (the
+``swim_gossip_peers`` pull/push rounds), ``corro.swim.announce``
+(announce ticks only) and ``corro.swim.refute`` (refutation and the
+tick's counts) through :meth:`~corro_sim_torch.utils.tracing.Tracer.stage`;
+with none recording they build nothing. Each tick counts itself in
+``corro_swim_ticks_total{announce}``, on the host, reading nothing from
+the device.
+
 Carriers. The JAX package keeps the plane unsigned: uint32 (wide) or
 uint16 (``narrow_state``). Torch has no unsigned 32- or 16-bit arithmetic
 on the CPU, so the port carries the wide plane in int64 and the narrow
@@ -28,7 +38,13 @@ import numpy as np
 import torch
 
 from corro_sim_torch import prng
+from corro_sim_torch.utils.metrics import (
+    SWIM_TICKS_HELP,
+    SWIM_TICKS_TOTAL,
+    counters,
+)
 from corro_sim_torch.utils.runtime import host_array
+from corro_sim_torch.utils.tracing import tracer
 
 ALIVE, SUSPECT, DOWN = 0, 1, 2
 
@@ -227,13 +243,11 @@ def swim_step(cfg, swim: SwimState, key, alive: torch.Tensor, reachable,
     r0, r1 = (0, n) if mesh is None else mesh.bounds(n)
     nl = r1 - r0
     dev = p.device
-    rows = torch.arange(n, dtype=torch.int32, device=dev)
-    me = rows[r0:r1]  # this rank's nodes
-    loc = torch.arange(nl, device=dev)  # their rows of p
-    alive_me = alive[r0:r1]
+    announce = announce_round(cfg, round_idx)
+    counters.inc(SWIM_TICKS_TOTAL, labels=f'{{announce="{int(announce)}"}}',
+                 help_=SWIM_TICKS_HELP)
     k_tgt, k_ind, k_ex = prng.split(key, 3)
     rnd = round_idx & lo.since_mask
-    zero = torch.zeros((), dtype=lo.dtype, device=dev)
 
     def rows_of(idx):
         """``p[idx]`` of the whole plane: this rank's rows, or fetched."""
@@ -246,43 +260,51 @@ def swim_step(cfg, swim: SwimState, key, alive: torch.Tensor, reachable,
         return d if mesh is None else mesh.gather(d)
 
     # --- probe: one random target each ----------------------------------
-    tgt = prng.randint(k_tgt, (n,), 0, n, dev)[r0:r1]
-    tgt_l = tgt.long()
-    cur = p[loc, tgt_l]
-    cur_status = (cur >> lo.status_shift) & 3
-    probing = alive_me & (tgt != me) & (cur_status < DOWN)
-    direct_ack = probing & alive[tgt_l] & reachable(me, tgt)
-    inter = prng.randint(k_ind, (n, cfg.swim_indirect_probes), 0, n,
-                         dev)[r0:r1]
-    ind_ok = (
-        alive[inter.long()]
-        & alive[tgt_l][:, None]
-        & reachable(me[:, None], inter)
-        & reachable(inter, tgt[:, None])
-    ).any(dim=1)
-    acked = direct_ack | (probing & ind_ok)
-    failed = probing & ~acked
+    with tracer.stage("corro.swim.probe"):
+        rows = torch.arange(n, dtype=torch.int32, device=dev)
+        me = rows[r0:r1]  # this rank's nodes
+        loc = torch.arange(nl, device=dev)  # their rows of p
+        alive_me = alive[r0:r1]
+        zero = torch.zeros((), dtype=lo.dtype, device=dev)
+        tgt = prng.randint(k_tgt, (n,), 0, n, dev)[r0:r1]
+        tgt_l = tgt.long()
+        cur = p[loc, tgt_l]
+        cur_status = (cur >> lo.status_shift) & 3
+        probing = alive_me & (tgt != me) & (cur_status < DOWN)
+        direct_ack = probing & alive[tgt_l] & reachable(me, tgt)
+        inter = prng.randint(k_ind, (n, cfg.swim_indirect_probes), 0, n,
+                             dev)[r0:r1]
+        ind_ok = (
+            alive[inter.long()]
+            & alive[tgt_l][:, None]
+            & reachable(me[:, None], inter)
+            & reachable(inter, tgt[:, None])
+        ).any(dim=1)
+        acked = direct_ack | (probing & ind_ok)
+        failed = probing & ~acked
 
-    newly_suspect = failed & (cur_status == ALIVE)
-    # an ack refutes only our own suspicion at the same incarnation
-    refuted = acked & (cur_status == SUSPECT)
-    new_status = torch.where(
-        newly_suspect, SUSPECT, torch.where(refuted, ALIVE, cur_status)
-    )
-    new_since = torch.where(newly_suspect, rnd, cur & lo.since_mask)
-    new_p = ((cur & lo.inc_only_mask) | (new_status << lo.status_shift)
-             | new_since)
-    p = p.clone()
-    p[loc, tgt_l] = torch.where(probing, new_p, cur)
+        newly_suspect = failed & (cur_status == ALIVE)
+        # an ack refutes only our own suspicion at the same incarnation
+        refuted = acked & (cur_status == SUSPECT)
+        new_status = torch.where(
+            newly_suspect, SUSPECT, torch.where(refuted, ALIVE, cur_status)
+        )
+        new_since = torch.where(newly_suspect, rnd, cur & lo.since_mask)
+        new_p = ((cur & lo.inc_only_mask) | (new_status << lo.status_shift)
+                 | new_since)
+        p = p.clone()
+        p[loc, tgt_l] = torch.where(probing, new_p, cur)
 
     # --- suspicion timeout -> down --------------------------------------
-    elapsed = (rnd - (p & lo.since_mask)) & lo.since_mask  # mod 2^k
-    timed_out = (
-        (_status(p) == SUSPECT)
-        & (elapsed >= cfg.swim_suspect_rounds)
-        & alive_me[:, None]
-    )
-    p = torch.where(timed_out, (p & lo.not_status_mask) | lo.down_key, p)
+    with tracer.stage("corro.swim.timeout"):
+        elapsed = (rnd - (p & lo.since_mask)) & lo.since_mask  # mod 2^k
+        timed_out = (
+            (_status(p) == SUSPECT)
+            & (elapsed >= cfg.swim_suspect_rounds)
+            & alive_me[:, None]
+        )
+        p = torch.where(timed_out, (p & lo.not_status_mask) | lo.down_key,
+                        p)
 
     # --- epidemic view exchange -----------------------------------------
     # pull: merge a believed-up peer's view; push: every node pushes to a
@@ -291,7 +313,6 @@ def swim_step(cfg, swim: SwimState, key, alive: torch.Tensor, reachable,
     # member columns at a per-sender phase (>= n: the full view), and
     # always its sender's own entry (the message header).
     bounded = cfg.swim_payload_members < n
-    cols = torch.arange(n, dtype=torch.int32, device=dev)
 
     def payload_block(key_b):
         """Each sender's block phase, (N,); None with the full view."""
@@ -304,92 +325,97 @@ def swim_step(cfg, swim: SwimState, key, alive: torch.Tensor, reachable,
         return torch.remainder(cols[None, :] - off[:, None], n) < (
             cfg.swim_payload_members)
 
-    for g in range(cfg.swim_gossip_peers):
-        kg_pull, kg_push, kg_bl1, kg_bl2 = prng.split(
-            prng.fold_in(k_ex, SWIM_PEER_KEY_TAG_BASE + g), 4
-        )
-        peer = prng.randint(kg_pull, (n,), 0, n, dev)[r0:r1]
-        peer_l = peer.long()
-        can1 = (
-            alive_me & alive[peer_l] & reachable(me, peer) & (peer != me)
-            & ((p[loc, peer_l] & lo.status_mask) < lo.down_key)
-        )
-        can = can1[:, None]
-        off = payload_block(kg_bl1)
-        if off is not None:
-            # the responder picks the contents
-            can = can & block_rows(off[peer_l])
-        p = torch.where(can, torch.maximum(p, rows_of(peer)), p)
-        if off is not None:
-            # the sender's identity + incarnation ride every message
-            p[loc, peer_l] = torch.maximum(
-                p[loc, peer_l], torch.where(can1, diagonal()[peer_l], zero)
+    with tracer.stage("corro.swim.exchange"):
+        cols = torch.arange(n, dtype=torch.int32, device=dev)
+        for g in range(cfg.swim_gossip_peers):
+            kg_pull, kg_push, kg_bl1, kg_bl2 = prng.split(
+                prng.fold_in(k_ex, SWIM_PEER_KEY_TAG_BASE + g), 4
             )
+            peer = prng.randint(kg_pull, (n,), 0, n, dev)[r0:r1]
+            peer_l = peer.long()
+            can1 = (
+                alive_me & alive[peer_l] & reachable(me, peer) & (peer != me)
+                & ((p[loc, peer_l] & lo.status_mask) < lo.down_key)
+            )
+            can = can1[:, None]
+            off = payload_block(kg_bl1)
+            if off is not None:
+                # the responder picks the contents
+                can = can & block_rows(off[peer_l])
+            p = torch.where(can, torch.maximum(p, rows_of(peer)), p)
+            if off is not None:
+                # the sender's identity + incarnation ride every message
+                p[loc, peer_l] = torch.maximum(
+                    p[loc, peer_l],
+                    torch.where(can1, diagonal()[peer_l], zero)
+                )
 
-        push_tgt = prng.randint(kg_push, (n,), 0, n, dev)[r0:r1]
-        push_l = push_tgt.long()
-        ok_push = (
-            alive_me & alive[push_l] & reachable(me, push_tgt)
-            & (push_tgt != me)
-            & ((p[loc, push_l] & lo.status_mask) < lo.down_key)
-        )
-        send = ok_push[:, None]
-        off = payload_block(kg_bl2)
-        if off is not None:
-            send = send & block_rows(off[r0:r1])
-        contrib = torch.where(send, p, zero)
-        if off is not None:
-            contrib[loc, me.long()] = torch.where(ok_push, p[loc, me.long()],
-                                                  zero)
-        # zero is the identity of this max and every value is >= 0, so a
-        # row whose sender may not push (all zeros) can land anywhere:
-        # no lane is dropped, and the max is order-free (deterministic
-        # under atomics too)
-        if mesh is None:
-            best = torch.zeros_like(p).index_reduce_(
-                0, push_l, contrib, "amax", include_self=True
+            push_tgt = prng.randint(kg_push, (n,), 0, n, dev)[r0:r1]
+            push_l = push_tgt.long()
+            ok_push = (
+                alive_me & alive[push_l] & reachable(me, push_tgt)
+                & (push_tgt != me)
+                & ((p[loc, push_l] & lo.status_mask) < lo.down_key)
             )
-        else:
-            # only rows that may push carry anything: route those to the
-            # targets' owners
-            sel = torch.nonzero(ok_push).reshape(-1)
-            owner = torch.div(push_l[sel], nl, rounding_mode="floor")
-            order = torch.argsort(owner, stable=True)
-            sel = sel[order]
-            _, got_tgt, got_rows = mesh.exchange(
-                torch.bincount(owner, minlength=mesh.nodes),
-                push_l[sel], contrib[sel])
-            best = torch.zeros_like(p).index_reduce_(
-                0, got_tgt - r0, got_rows, "amax", include_self=True
-            )
-        p = torch.where(alive_me[:, None], torch.maximum(p, best), p)
+            send = ok_push[:, None]
+            off = payload_block(kg_bl2)
+            if off is not None:
+                send = send & block_rows(off[r0:r1])
+            contrib = torch.where(send, p, zero)
+            if off is not None:
+                contrib[loc, me.long()] = torch.where(
+                    ok_push, p[loc, me.long()], zero)
+            # zero is the identity of this max and every value is >= 0, so
+            # a row whose sender may not push (all zeros) can land
+            # anywhere: no lane is dropped, and the max is order-free
+            # (deterministic under atomics too)
+            if mesh is None:
+                best = torch.zeros_like(p).index_reduce_(
+                    0, push_l, contrib, "amax", include_self=True
+                )
+            else:
+                # only rows that may push carry anything: route those to
+                # the targets' owners
+                sel = torch.nonzero(ok_push).reshape(-1)
+                owner = torch.div(push_l[sel], nl, rounding_mode="floor")
+                order = torch.argsort(owner, stable=True)
+                sel = sel[order]
+                _, got_tgt, got_rows = mesh.exchange(
+                    torch.bincount(owner, minlength=mesh.nodes),
+                    push_l[sel], contrib[sel])
+                best = torch.zeros_like(p).index_reduce_(
+                    0, got_tgt - r0, got_rows, "amax", include_self=True
+                )
+            p = torch.where(alive_me[:, None], torch.maximum(p, best), p)
 
     # --- periodic announce (belief-independent) --------------------------
-    if announce_round(cfg, round_idx):
-        perm = prng.permutation(
-            prng.fold_in(k_ex, SWIM_ANNOUNCE_KEY_TAG), n, dev
-        )
-        inv = torch.empty_like(perm)
-        inv[perm.long()] = rows  # the stable argsort of a permutation
-        for partner in (perm, inv):
-            partner = partner[r0:r1]
-            part_l = partner.long()
-            can = (alive_me & alive[part_l] & reachable(me, partner)
-                   & (partner != me))[:, None]
-            p = torch.where(can, torch.maximum(p, rows_of(partner)), p)
+    if announce:
+        with tracer.stage("corro.swim.announce"):
+            perm = prng.permutation(
+                prng.fold_in(k_ex, SWIM_ANNOUNCE_KEY_TAG), n, dev
+            )
+            inv = torch.empty_like(perm)
+            inv[perm.long()] = rows  # the stable argsort of a permutation
+            for partner in (perm, inv):
+                partner = partner[r0:r1]
+                part_l = partner.long()
+                can = (alive_me & alive[part_l] & reachable(me, partner)
+                       & (partner != me))[:, None]
+                p = torch.where(can, torch.maximum(p, rows_of(partner)), p)
 
     # --- refutation / identity renew -------------------------------------
-    self_p = p[loc, me.long()]
-    need_refute = alive_me & ((self_p & lo.status_mask) > 0)
-    inc_next = torch.clamp((self_p >> lo.inc_shift) + 1, max=lo.inc_max)
-    refreshed = inc_next << lo.inc_shift  # ALIVE, since 0
-    p[loc, me.long()] = torch.where(need_refute, refreshed, self_p)
+    with tracer.stage("corro.swim.refute"):
+        self_p = p[loc, me.long()]
+        need_refute = alive_me & ((self_p & lo.status_mask) > 0)
+        inc_next = torch.clamp((self_p >> lo.inc_shift) + 1, max=lo.inc_max)
+        refreshed = inc_next << lo.inc_shift  # ALIVE, since 0
+        p[loc, me.long()] = torch.where(need_refute, refreshed, self_p)
 
-    swim = SwimState(p=p)
-    failures = failed.sum(dtype=torch.int32)
-    if mesh is not None:
-        failures = mesh.reduce(failures)
-    return swim, plane_metrics(swim, alive, failures, mesh=mesh)
+        swim = SwimState(p=p)
+        failures = failed.sum(dtype=torch.int32)
+        if mesh is not None:
+            failures = mesh.reduce(failures)
+        return swim, plane_metrics(swim, alive, failures, mesh=mesh)
 
 
 def plane_metrics(swim: SwimState, alive: torch.Tensor,

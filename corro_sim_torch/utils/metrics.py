@@ -110,6 +110,15 @@ SYNC_SERVE_HELP = (
     "anti-entropy sweeps by the path that served their lanes "
     "(kernel | torch)"
 )
+# SWIM's full-view ticks by whether they ran the periodic announce
+# (announce="1") or not ("0") (membership/swim.py::swim_step), those of
+# a discarded speculative chunk too. The host counts them from the round
+# number and the configuration and reads nothing from the device.
+SWIM_TICKS_TOTAL = "corro_swim_ticks_total"
+SWIM_TICKS_HELP = (
+    "full-view SWIM ticks run, discarded speculative ones included, by "
+    "whether they ran the periodic announce (0 | 1)"
+)
 PIPELINE_SPECULATIVE_TOTAL = "corro_pipeline_speculative_total"
 PIPELINE_SPECULATIVE_WASTED = "corro_pipeline_speculative_wasted_total"
 PIPELINE_OVERLAP_SECONDS = "corro_pipeline_overlap_seconds_total"

@@ -138,8 +138,9 @@ SIZE = "corro_db_size_bytes "
 # help texts the port words for its own mechanism
 OWN_HELP = ("# HELP corro_subs_matcher_evals_total ",)
 # series only the port has: the sync sweeps by serve path (the JAX
-# package has one path), held by value below
-PORT_ONLY = re.compile(r"^(# (HELP|TYPE) )?corro_sync_serve_total[{ ]")
+# package has one path) and SWIM's ticks, held by value below
+PORT_ONLY = re.compile(r"^(# (HELP|TYPE) )?corro_(sync_serve|swim_ticks)"
+                       r"_total[{ ]")
 
 
 @pytest.fixture()
@@ -204,8 +205,16 @@ def test_exposition_line_by_line(case, fresh_registries):
     # every sweep of the port's cluster served its lanes on the CPU path
     sweeps = int(clusters["port"].state.sync_rounds)
     assert sweeps > 0
-    serve = [ln for ln in texts["port"].splitlines() if PORT_ONLY.match(ln)]
+    serve = [ln for ln in texts["port"].splitlines()
+             if PORT_ONLY.match(ln) and "corro_sync_serve" in ln]
     assert serve[2:] == [f'corro_sync_serve_total{{path="torch"}} {sweeps}']
+    # every full-view tick counted
+    ticks = sum(float(ln.split()[-1]) for ln in texts["port"].splitlines()
+                if ln.startswith("corro_swim_ticks_total{"))
+    if cfg.swim_enabled and cfg.swim_view_size == 0:
+        assert ticks > 0
+    else:
+        assert ticks == 0
     for c in clusters.values():
         c.tripwire.trip()
 
